@@ -19,12 +19,27 @@ Phases, in order; any failure exits non-zero before the last line:
      (49 launches per forward, 0 plain).
   6. card vs CPU: tiny Llama-GQA and GPT in fp32 with identical weights
      give identical greedy streams.
+  7. training kernels vs plain: LayerNorm backward (K3) and flash
+     attention forward / backward (K4 / K5) against their plain versions
+     at the training step's shapes (GPT-3 1.3B, B=4, S=2048) and at
+     ragged and fp32 ones; gradients through the K1 / K2 autograd
+     Functions; card times beside the bound, the plain version and the
+     library call.
+  8. GPT-3 1.3B training at full width and depth (B=4, S=2048, bf16 amp
+     O2, AdamW with fp32 masters, random weights and tokens from a seed):
+     2 warm-up and 3 timed steps on one batch; the loss must be finite
+     and fall, and every attention and LayerNorm must run K4/K5 and
+     K2/K3 (24/24/49/49 launches per step, 0 plain). Step ms, tokens/s,
+     model-FLOP utilisation, peak memory and the card's share of a step.
+  9. card vs CPU: one gpt_tiny fp32 training step (loss, every gradient
+     and the updated weights).
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
 Usage: python3 chip_smoke.py    (from the repository root; one card)
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,7 +52,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_FLOPS = 67e12             # H100 SXM fp32 rate outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 BATCH, PROMPT, NEW, BLOCK = 4, 128, 64, 64
+TRAIN_B, TRAIN_S = 4, 2048     # the training step's batch and sequence
 
 
 def fail(msg):
@@ -142,7 +159,7 @@ def max_err_within_tol(got, ref):
     largest output (this also covers outputs near 0, where a bias
     cancels x*w), plus 1e-5 of the output in fp32 or one ulp of the
     output in bf16 (the cast may then round either way)."""
-    r = ref.float()
+    got, r = got.detach(), ref.float()
     diff = (got.float() - r).abs()
     row = 1e-5 * r.abs().amax(dim=-1, keepdim=True)
     own = bf16_ulp(ref) if got.dtype == torch.bfloat16 else 1e-5 * r.abs()
@@ -207,8 +224,9 @@ def phase_kernels():
         b = torch.randn(d, generator=g, device="cuda")
         return x.to(dt), w.to(dt), b.to(dt)
 
-    # correctness: serving shapes, a rows count that is not a multiple
-    # of 8, and a d that takes the scalar (non-vector) path
+    # correctness: serving shapes, LayerNorm at the training step's, a
+    # rows count that is not a multiple of 8, and a d that takes the
+    # scalar (non-vector) path
     for dt in (torch.bfloat16, torch.float32):
         for rows, d in ((4, 4096), (512, 4096), (77, 4096), (3, 1001)):
             x, w, _ = inputs(rows, d, dt)
@@ -219,7 +237,8 @@ def phase_kernels():
                       f"element {worst}")
             rec["rms_norm"]["max_abs_err"] = max(
                 rec["rms_norm"]["max_abs_err"], err)
-        for rows, d in ((4, 2048), (512, 2048), (77, 2048), (3, 1001)):
+        for rows, d in ((4, 2048), (512, 2048), (TRAIN_B * TRAIN_S, 2048),
+                        (77, 2048), (3, 1001)):
             x, w, b = inputs(rows, d, dt)
             for wb in ((w, b), (None, None), (w, None)):
                 got = norm.layer_norm_cuda(x, *wb, 1e-5)
@@ -450,6 +469,546 @@ def phase_card_vs_cpu():
         print(f"[card-vs-cpu] {family}: greedy streams equal "
               f"(fixed and ragged, fp32)")
 
+# ---------------------------------------------------------------------------
+# training slice: K3, K4, K5 and the GPT-3 1.3B train step
+# ---------------------------------------------------------------------------
+
+def _check_close(got, ref, name, terms):
+    """Max |got - ref| of a kernel output against its plain version's,
+    held per element. ``terms`` = (flips, sums), per element (see
+    _attention_terms). Every sum is taken in fp32 in another order by the
+    kernel than by the plain version, which moves it by far less than
+    1e-5 of the magnitudes of all the terms it folds in, through the
+    nested sums (``sums``): a dS = p (dP - delta) that cancels to near 0
+    keeps the rounding of dP and delta. In bf16, kernel and plain version
+    also round the same fp32 quantities to bf16 (p before P.V and dV, ds
+    before dK and dQ, the outputs), so a term that lies within that fp32
+    difference of a rounding boundary rounds the other way and moves the
+    output by one bf16 ulp of the term (at most 2^-7 of it). Such terms
+    are rare, so their flips stay far below 2^-8 of the sum of the
+    rounded terms' magnitudes (``flips``); one ulp of the output covers
+    the final cast. A term dropped or added moves the output by the whole
+    term, beyond the tolerance wherever a few terms carry the element
+    (the late keys of a causal row)."""
+    got, r = got.detach().float(), ref.float()
+    check(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} vs "
+                                  f"{tuple(ref.shape)}")
+    diff = (got - r).abs()
+    tol = _close_tol(ref, terms)
+    i = int(torch.argmax(diff - tol))
+    check(bool((diff <= tol).all()),
+          f"{name}: |kernel - plain| {float(diff.reshape(-1)[i])} > "
+          f"{float(tol.reshape(-1)[i])} at element {i} (plain "
+          f"{float(r.reshape(-1)[i])}, kernel {float(got.reshape(-1)[i])})")
+    return float(diff.max())
+
+
+def _close_tol(ref, terms):
+    """_check_close's tolerance, per element of ``ref``."""
+    flips, sums = terms
+    tol = 1e-5 * sums
+    if ref.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(ref.float()) + 2.0 ** -8 * flips
+    return tol
+
+
+def _attention_terms(q, k, v, out, lse, dout, heads, causal):
+    """Per element of out, dq, dk and dv, a pair (flips, sums) of [B,S,E]
+    fp32 tensors, with p and ds formed as the plain versions form them.
+    flips: the sum of the magnitudes of the bf16-rounded terms the
+    element sums: sum_k p |v| / l, scale sum_k |ds| |k|,
+    scale sum_q |ds| |q| and sum_q p |dO|. sums: the same with |ds|
+    replaced by the magnitudes of the terms of ds = p (dO.v - dO.O),
+    p (|dO|.|v| + |dO|.|O|)."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    b, sq, e = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(e // heads)
+    qh, kh, vh, doh = (fa._heads(t, heads) for t in (q, k, v, dout))
+    qa, ka, va, doa = qh.abs(), kh.abs(), vh.abs(), doh.abs()
+    p = torch.exp(fa._masked_logits(qh, kh, causal) - lse.unsqueeze(-1))
+    t_out = torch.matmul(p, va)
+    t_dv = torch.matmul(p.transpose(-1, -2), doa)
+    ds = p * (torch.matmul(doh, vh.transpose(-1, -2))
+              - fa._delta(out, dout, heads).unsqueeze(-1))
+    ds = ds.abs()
+    f_dq = torch.matmul(ds, ka) * scale
+    f_dk = torch.matmul(ds.transpose(-1, -2), qa) * scale
+    ds = p * (torch.matmul(doa, va.transpose(-1, -2))
+              + fa._delta(out.abs(), dout.abs(), heads).unsqueeze(-1))
+    s_dq = torch.matmul(ds, ka) * scale
+    s_dk = torch.matmul(ds.transpose(-1, -2), qa) * scale
+    del p, ds
+
+    def back(x, s_):
+        return x.transpose(1, 2).reshape(b, s_, e)
+    return ((back(t_out, sq),) * 2, (back(f_dq, sq), back(s_dq, sq)),
+            (back(f_dk, sk), back(s_dk, sk)), (back(t_dv, sk),) * 2)
+
+
+def _colsum_err(got, ref, terms, name):
+    """dw / db: sums over rows taken in other orders. Tolerance per
+    column: 1e-5 of the sum of the terms' magnitudes (fp32 summation
+    error) plus one ulp of the output in bf16 or 1e-5 of it in fp32."""
+    r = ref.float()
+    diff = (got.float() - r).abs()
+    own = bf16_ulp(ref) if ref.dtype == torch.bfloat16 else 1e-5 * r.abs()
+    tol = 1e-5 * terms + own
+    i = int(torch.argmax(diff / tol))
+    check(bool((diff <= tol).all()),
+          f"{name}: column {i}: |kernel - plain| {float(diff[i])} > "
+          f"{float(tol[i])}")
+    return float(diff.max())
+
+
+def _attn_work(b, sq, sk, h, d, causal):
+    """(q-k pairs per head summed over batch and heads, as the causal mask
+    leaves them, and the fwd / bwd FLOPs and bytes at bf16)."""
+    off = sk - sq
+    if causal:
+        pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
+    else:
+        pairs = sq * sk
+    pairs *= b * h
+    e = h * d
+    fwd = dict(flops=4 * pairs * d,
+               bytes=(b * sq * e + 2 * b * sk * e + b * sq * e) * 2
+               + b * h * sq * 4)
+    bwd = dict(flops=10 * pairs * d,
+               bytes=(b * sq * e * 3 + 2 * b * sk * e * 2) * 2
+               + 2 * b * h * sq * 4)
+    return pairs, fwd, bwd
+
+
+def _bound_of(work, flops_per_s):
+    t_ops = work["flops"] / flops_per_s * 1e3
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _packed(x):
+    e = x.shape[-1] // 3
+    return x[..., :e], x[..., e:2 * e], x[..., 2 * e:]
+
+
+def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed):
+    """Kernel forward and backward against the plain versions, batch
+    element by batch element (the plain version at B=1 bounds memory)."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    e = h * d
+    if packed:
+        qkv = torch.randn(b, sq, 3 * e, generator=g, device="cuda").to(dt)
+        q, k, v = _packed(qkv)
+        grads = torch.empty_like(qkv)
+        dq, dk, dv = _packed(grads)
+    else:
+        q = torch.randn(b, sq, e, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(b, sk, e, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+        dq = torch.empty_like(q)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dout = torch.randn(b, sq, e, generator=g, device="cuda").to(dt)
+    out, lse = fa.flash_fwd_cuda(q, k, v, h, causal)
+    fa.flash_bwd_cuda(q, k, v, out, lse, dout, h, causal, dq, dk, dv)
+    torch.cuda.synchronize()
+    errs = dict(out=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
+    for i in range(b):
+        sl = slice(i, i + 1)
+        rout, rlse = fa._nl_forward_ref(q[sl], k[sl], v[sl], h, causal)
+        rdq, rdk, rdv = fa._nl_backward_ref(q[sl], k[sl], v[sl], out[sl],
+                                            lse[sl], dout[sl], h, causal)
+        terms = _attention_terms(q[sl], k[sl], v[sl], out[sl], lse[sl],
+                                 dout[sl], h, causal)
+        for key, got, ref, t_ in zip(
+                ("out", "dq", "dk", "dv"), (out[sl], dq[sl], dk[sl], dv[sl]),
+                (rout, rdq, rdk, rdv), terms):
+            errs[key] = max(errs[key], _check_close(
+                got, ref, f"{name} {key} (batch {i})", t_))
+        # lse: fp32 statistics of sums in other orders
+        ld = float((lse[sl] - rlse).abs().max())
+        check(ld <= 1e-5 * max(1.0, float(rlse.abs().max())),
+              f"{name} lse (batch {i}): max err {ld}")
+        errs["lse"] = max(errs["lse"], ld)
+    print(f"[train_kernels] {name}: max |kernel - plain| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    return errs
+
+
+def phase_train_kernels():
+    """K3, K4, K5 against their plain versions on the card, gradients
+    through the K1 / K2 Functions, and the timing table at the training
+    step's shapes."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rec = {"layer_norm_bwd": {"max_abs_err": 0.0},
+           "flash_fwd": {"max_abs_err": 0.0},
+           "flash_bwd": {"max_abs_err": 0.0}, "autograd": {}}
+    rows = TRAIN_B * TRAIN_S
+
+    # K3: the step's shape, a ragged row count, the scalar path, fp32
+    for dt in (torch.bfloat16, torch.float32):
+        # registers (d fits one vector a thread), shared-memory partials
+        # with vectors (d = 6144) and without (d = 1001)
+        for r, d, with_w in ((rows, 2048, True), (77, 2048, True),
+                             (77, 6144, True), (3, 1001, True),
+                             (77, 2048, False)):
+            x = (torch.randn(r, d, generator=g, device="cuda") * 2 + 0.5
+                 ).to(dt)
+            w = torch.randn(d, generator=g, device="cuda").to(dt) \
+                if with_w else None
+            gy = torch.randn(r, d, generator=g, device="cuda").to(dt)
+            dx, dw, db = norm.layer_norm_bwd_cuda(x, w, gy, 1e-5)
+            rdx, rdw, rdb = norm._ln_bwd_ref(x, w, gy, 1e-5)
+            err, ok, worst = max_err_within_tol(dx, rdx)
+            check(ok, f"layer_norm_bwd dx {r}x{d} {dt}: max err {err}, "
+                      f"worst element {worst}")
+            xf, gf = x.float(), gy.float()
+            mean = xf.mean(-1, keepdim=True)
+            xhat = (xf - mean) * torch.rsqrt(
+                (xf - mean).square().mean(-1, keepdim=True) + 1e-5)
+            ew = _colsum_err(dw, rdw, (gf * xhat).abs().sum(0),
+                             f"layer_norm_bwd dw {r}x{d} {dt}")
+            eb = _colsum_err(db, rdb, gf.abs().sum(0),
+                             f"layer_norm_bwd db {r}x{d} {dt}")
+            rec["layer_norm_bwd"]["max_abs_err"] = max(
+                rec["layer_norm_bwd"]["max_abs_err"], err, ew, eb)
+    print(f"[train_kernels] layer_norm_bwd: max |kernel - plain| = "
+          f"{rec['layer_norm_bwd']['max_abs_err']:.3g} (within tolerance)")
+
+    # the K1 / K2 autograd Functions on the card, at the step's shape:
+    # forward output and gradients
+    for dt in (torch.bfloat16, torch.float32):
+        x = (torch.randn(rows, 2048, generator=g, device="cuda") * 2 + 0.5
+             ).to(dt).requires_grad_()
+        w = torch.randn(2048, generator=g, device="cuda").to(
+            dt).requires_grad_()
+        b = torch.randn(2048, generator=g, device="cuda").to(
+            dt).requires_grad_()
+        gy = torch.randn(rows, 2048, generator=g, device="cuda").to(dt)
+        y = norm.layer_norm(x, 2048, w, b)
+        err, ok, worst = max_err_within_tol(
+            y, norm._ln_ref(x.detach(), w.detach(), b.detach(), 1e-5))
+        check(ok, f"layer_norm {dt}: forward differs from the plain "
+                  f"version's: {err}, worst element {worst}")
+        y.backward(gy)
+        check(x.grad is not None and w.grad is not None
+              and b.grad is not None, f"layer_norm {dt}: a gradient is "
+                                      f"missing on the card")
+        xd, wd = x.detach(), w.detach()
+        rdx, rdw, rdb = norm._ln_bwd_ref(xd, wd, gy, 1e-5)
+        err, ok, worst = max_err_within_tol(x.grad, rdx)
+        check(ok, f"layer_norm {dt}: x.grad differs from the plain "
+                  f"version's: {err}, worst element {worst}")
+        xf, gf = xd.float(), gy.float()
+        mean = xf.mean(-1, keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(
+            (xf - mean).square().mean(-1, keepdim=True) + 1e-5)
+        _colsum_err(w.grad, rdw, (gf * xhat).abs().sum(0),
+                    f"layer_norm {dt}: w.grad")
+        _colsum_err(b.grad, rdb, gf.abs().sum(0), f"layer_norm {dt}: b.grad")
+        xr = x.detach().clone().requires_grad_()
+        wr = w.detach().clone().requires_grad_()
+        y = fused_ops.fused_rms_norm(xr, wr, epsilon=1e-6)
+        err, ok, _ = max_err_within_tol(
+            y, fused_ops._rms_norm_ref(xr.detach(), wr.detach(), 1e-6))
+        check(ok, f"rms_norm {dt}: forward differs from plain ({err})")
+        y.backward(gy)
+        check(xr.grad is not None and wr.grad is not None,
+              f"rms_norm {dt}: a gradient is missing on the card")
+        rdx, rdw = fused_ops._rms_norm_vjp(xr.detach(), wr.detach(), gy,
+                                           1e-6)
+        check(torch.equal(xr.grad, rdx) and torch.equal(wr.grad, rdw),
+              f"rms_norm {dt}: gradients differ from the plain VJP's")
+        rec["autograd"][str(dt)] = ("forward and x/w/b grads equal to "
+                                    "plain")
+    print(f"[train_kernels] K1/K2 Functions at [{rows}, 2048]: forward "
+          f"and x, w, b gradients set on the card and equal to the plain "
+          f"versions' (bf16, fp32)")
+
+    # K4 / K5: the step's shape, ragged and fp32 ones, unpacked with Sk > Sq
+    h1, d1 = 16, 128
+    cases = [("gpt3-1.3b", TRAIN_B, TRAIN_S, TRAIN_S, h1, d1, True,
+              torch.bfloat16, True)]
+    for causal in (True, False):
+        cases += [
+            (f"ragged bf16 d=128 causal={causal}", 2, 77, 77, h1, d1,
+             causal, torch.bfloat16, True),
+            (f"bf16 d=64 causal={causal}", 2, 200, 200, 2, 64, causal,
+             torch.bfloat16, True),
+            (f"bf16 d=32 causal={causal}", 2, 130, 130, 4, 32, causal,
+             torch.bfloat16, True),
+            (f"fp32 d=32 causal={causal}", 2, 77, 77, 4, 32, causal,
+             torch.float32, True),
+            (f"fp32 d=64 causal={causal}", 1, 130, 130, 2, 64, causal,
+             torch.float32, True),
+            (f"fp32 d=128 causal={causal}", 1, 77, 77, 2, 128, causal,
+             torch.float32, True),
+            (f"unpacked bf16 sq=77 sk=100 causal={causal}", 2, 77, 100, 4,
+             64, causal, torch.bfloat16, False)]
+    for name, b_, sq, sk, h_, d_, causal, dt, packed in cases:
+        e = _check_attention(name, b_, sq, sk, h_, d_, causal, dt, g,
+                             packed)
+        rec["flash_fwd"]["max_abs_err"] = max(
+            rec["flash_fwd"]["max_abs_err"], e["out"], e["lse"])
+        rec["flash_bwd"]["max_abs_err"] = max(
+            rec["flash_bwd"]["max_abs_err"], e["dq"], e["dk"], e["dv"])
+    torch.cuda.synchronize()
+
+    # timing at the step's shapes (bf16): card ms per call from CUDA
+    # events over calls captured in a CUDA graph
+    e1 = h1 * d1
+    x = (torch.randn(rows, 2048, generator=g, device="cuda") * 2 + 0.5
+         ).to(torch.bfloat16)
+    w = torch.randn(2048, generator=g, device="cuda").to(torch.bfloat16)
+    bb = torch.randn(2048, generator=g, device="cuda").to(torch.bfloat16)
+    gy = torch.randn(rows, 2048, generator=g, device="cuda").to(
+        torch.bfloat16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [2048], w, bb, 1e-5)
+    ln_bytes = 3 * rows * 2048 * 2 + 3 * 2048 * 2
+    t = dict(shape=f"[{rows}, 2048] bf16")
+    t["bound_ms"], t["bound_by"] = _bound_of(
+        dict(flops=17 * rows * 2048, bytes=ln_bytes), FP32_FLOPS)
+    t["ms"] = device_ms(lambda: norm.layer_norm_bwd_cuda(x, w, gy, 1e-5),
+                        iters=20, reps=11)
+    t["plain_ms"] = device_ms(lambda: norm._ln_bwd_ref(x, w, gy, 1e-5),
+                              iters=5, reps=5)
+    t["library_ms"] = device_ms(
+        lambda: torch.ops.aten.native_layer_norm_backward(
+            gy, x, [2048], mean, rstd, w, bb, [True, True, True]),
+        iters=20, reps=11)
+    rec["layer_norm_bwd"].update(t)
+    del x, gy, mean, rstd
+
+    qkv = torch.randn(TRAIN_B, TRAIN_S, 3 * e1, generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = _packed(qkv)
+    dout = torch.randn(TRAIN_B, TRAIN_S, e1, generator=g,
+                       device="cuda").to(torch.bfloat16)
+    out, lse = fa.flash_fwd_cuda(q, k, v, h1, True)
+    grads = torch.empty_like(qkv)
+    pairs, fwd_work, bwd_work = _attn_work(TRAIN_B, TRAIN_S, TRAIN_S, h1,
+                                           d1, True)
+
+    def heads(t_):
+        return t_.view(TRAIN_B, TRAIN_S, h1, d1).transpose(1, 2)
+    qh, kh, vh, dout_h = (heads(t_) for t_ in (q, k, v, dout))
+    # the library's backward alone: the backward op of each of its fused
+    # backends (flash, cuDNN) on the outputs its forward op saved, as
+    # sdpa's autograd calls it; the faster of the two is the yardstick
+    aten = torch.ops.aten
+    fo = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
+    co = aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True,
+                                                  0.0, True)
+
+    def lib_bwd_flash():
+        return aten._scaled_dot_product_flash_attention_backward(
+            dout_h, qh, kh, vh, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5],
+            0.0, True, fo[6], fo[7])
+
+    def lib_bwd_cudnn():
+        return aten._scaled_dot_product_cudnn_attention_backward(
+            dout_h, qh, kh, vh, co[0], co[1], co[6], co[7], None, co[2],
+            co[3], co[4], co[5], 0.0, True)
+    for key, work, kern, plain, lib in (
+            ("flash_fwd", fwd_work,
+             lambda: fa.flash_fwd_cuda(q, k, v, h1, True),
+             lambda: fa._nl_forward_ref(q, k, v, h1, True),
+             {"sdpa": lambda: TF.scaled_dot_product_attention(
+                 qh, kh, vh, is_causal=True)}),
+            ("flash_bwd", bwd_work,
+             lambda: fa.flash_bwd_cuda(q, k, v, out, lse, dout, h1, True,
+                                       *_packed(grads)),
+             lambda: fa._nl_backward_ref(q, k, v, out, lse, dout, h1,
+                                         True),
+             {"flash backward": lib_bwd_flash,
+              "cudnn backward": lib_bwd_cudnn})):
+        t = dict(shape=f"B={TRAIN_B} S={TRAIN_S} H={h1} D={d1} causal bf16",
+                 flops=work["flops"], bytes=work["bytes"], pairs=pairs)
+        t["bound_ms"], t["bound_by"] = _bound_of(work, BF16_FLOPS)
+        t["ms"] = device_ms(kern, iters=10, reps=7)
+        t["plain_ms"] = device_ms(plain, iters=2, reps=3)
+        t["library_ms_by_op"] = {n: device_ms(f, iters=10, reps=7)
+                                 for n, f in lib.items()}
+        t["library_ms"] = min(t["library_ms_by_op"].values())
+        rec[key].update(t)
+    del qkv, q, k, v, dout, out, lse, grads, qh, kh, vh, dout_h, fo, co
+    torch.cuda.empty_cache()
+    for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd"):
+        r = rec[key]
+        by_op = ", ".join(f"{n} {v:.5f}" for n, v in r.get(
+            "library_ms_by_op", {}).items()) or "native_layer_norm_backward"
+        print(f"[train_kernels] {key} {r['shape']}: card ms: kernel "
+              f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library "
+              f"{r['library_ms']:.5f} ({by_op}), bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']}); kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of its bound")
+    return rec
+
+
+def _train_counts(kernels):
+    return {k.symbol: (k.launches, k.plain_calls) for k in kernels}
+
+
+def phase_train():
+    """GPT-3 1.3B, B=4, S=2048, bf16 O2 AdamW, through the port's entry
+    points: 2 warm-up steps and 3 timed steps on one batch."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.nn.functional import norm
+
+    cfg = gpt3_1p3b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30  # held by earlier phases
+    model = GPTForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
+    opt = ptt.optimizer.AdamW(parameters=model.parameters(),
+                              learning_rate=1e-4, use_multi_tensor=True,
+                              multi_precision=True)
+    model, opt = ptt.amp.decorate(models=model, optimizers=opt, level="O2",
+                                  dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                     (TRAIN_B, TRAIN_S + 1)), device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def step():
+        with ptt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    path = (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
+            norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL)
+    everything = path + (fused_ops.RMS_NORM_KERNEL,)
+    for k in everything:
+        k.reset_counts()
+    losses = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    timed, t_steps = sync_time(lambda: [step() for _ in range(3)])
+    counts = _train_counts(everything)
+    losses = [float(v) for v in losses + timed]
+    n_steps = len(losses)
+    per_step = (24, 24, 2 * cfg.num_layers + 1, 2 * cfg.num_layers + 1)
+    check(all(np.isfinite(losses)), f"train: loss not finite: {losses}")
+    check(losses[-1] < losses[2], f"train: loss did not fall over the timed "
+                                  f"steps: {losses}")
+    for k, want in zip(path, per_step):
+        got, plain = counts[k.symbol]
+        check(got == want * n_steps and plain == 0,
+              f"train: {k.symbol} launched {got} times, plain {plain} "
+              f"times in {n_steps} steps (want {want} per step, 0 plain)")
+    check(counts[fused_ops.RMS_NORM_KERNEL.symbol] == (0, 0),
+          "train: the RMSNorm kernel ran on the GPT path")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = t_steps / 3 * 1e3
+    tokens = TRAIN_B * TRAIN_S
+    pairs, fwd_work, _ = _attn_work(TRAIN_B, TRAIN_S, TRAIN_S,
+                                    cfg.num_heads,
+                                    cfg.hidden_size // cfg.num_heads, True)
+    attn_flops = 3 * cfg.num_layers * fwd_work["flops"]
+    model_flops = 6 * n_params * tokens + attn_flops
+    res = dict(batch=TRAIN_B, seq=TRAIN_S, steps=n_steps, losses=losses,
+               step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               peak_gb=peak_gb, base_gb=base_gb, params=n_params,
+               model_flops=model_flops,
+               mfu=model_flops / (step_ms / 1e3) / BF16_FLOPS,
+               launches={s_: c[0] for s_, c in counts.items()},
+               plain_calls={s_: c[1] for s_, c in counts.items()})
+    print(f"[train] GPT-3 1.3B ({n_params / 1e9:.3f} B params), B={TRAIN_B}"
+          f", S={TRAIN_S}, bf16 O2 AdamW: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; step {step_ms:.1f} ms, {res['tokens_per_s']:.0f} tokens/s, "
+          f"MFU {100 * res['mfu']:.1f}% (6N + attention FLOPs over 989 "
+          f"TFLOP/s), peak {peak_gb:.1f} GiB ({base_gb:.1f} GiB of it held "
+          f"before the phase)")
+    print(f"[train] launches in {n_steps} steps: "
+          + ", ".join(f"{s_} {c[0]}" for s_, c in counts.items())
+          + "; plain calls 0")
+    card_ms, top = device_breakdown(step, top=10)
+    if card_ms is not None:
+        res.update(step_device_ms=card_ms, device_busy=card_ms / step_ms,
+                   top_kernels=top)
+        print(f"[train] card time of one step {card_ms:.1f} ms = "
+              f"{100 * card_ms / step_ms:.0f}% of the host-clock step")
+        for t_ in top:
+            print(f"[train]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
+                  f"{t_['kernel']}")
+    else:
+        print("[train] card time: not measured (the profiler recorded no "
+              "device events)")
+    del model, opt, x, y, ids
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_card_vs_cpu():
+    """One gpt_tiny fp32 training step on the card and on the CPU from the
+    same weights: the loss, every gradient and the updated weights.
+    Tolerances: loss 1e-5 relative and gradients 1e-4 of each tensor's
+    largest value (cuBLAS, the kernels' tiles and dq's atomics sum in
+    other orders than the CPU); weights after AdamW every element within
+    1e-4, a tenth of the lr, and 99.9% within 1e-6 (Adam divides a
+    near-zero gradient by its own tiny RMS, so such an element's step
+    follows that gradient's last bits)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+
+    cfg = gpt_tiny()
+    rs = np.random.RandomState(11)
+    ids = rs.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1))
+    cpu = GPTForCausalLM(cfg, device="cpu", generator=seed(7, "cpu"))
+    gpu = GPTForCausalLM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    res = {}
+    for tag, m in (("cpu", cpu), ("card", gpu)):
+        dev = next(m.parameters()).device
+        x = torch.as_tensor(ids[:, :-1], device=dev)
+        y = torch.as_tensor(ids[:, 1:], device=dev)
+        opt = ptt.optimizer.AdamW(parameters=m.parameters(),
+                                  learning_rate=1e-3, use_multi_tensor=True,
+                                  multi_precision=True)
+        _, loss = m(x, labels=y)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in m.named_parameters()}
+        opt.step()
+        res[tag] = (loss.item(), grads,
+                    {n: p.detach().cpu() for n, p in m.named_parameters()})
+    (lc, gc, wc), (lg, gg, wg) = res["cpu"], res["card"]
+    check(abs(lc - lg) <= 1e-5 * abs(lc),
+          f"train card-vs-cpu: loss {lg} vs {lc}")
+    werr = []
+    for n in gc:
+        top = float(gc[n].abs().max())
+        gd = float((gg[n] - gc[n]).abs().max())
+        check(gd <= 1e-4 * top, f"train card-vs-cpu: grad {n}: max err "
+                                f"{gd} > {1e-4 * top}")
+        wd = (wg[n] - wc[n]).abs()
+        check(float(wd.max()) <= 1e-4,
+              f"train card-vs-cpu: weight {n}: max err {float(wd.max())}")
+        werr.append(wd.reshape(-1))
+    frac = float((torch.cat(werr) <= 1e-6).float().mean())
+    check(frac >= 0.999, f"train card-vs-cpu: only {frac:.5f} of weights "
+                         f"within 1e-6")
+    print(f"[train-card-vs-cpu] gpt_tiny fp32 step: loss {lg:.6f} (cpu "
+          f"{lc:.6f}); all {len(gc)} gradients within 1e-4 of their max; "
+          f"updated weights within 1e-4, {100 * frac:.3f}% within 1e-6")
+    return dict(loss_card=lg, loss_cpu=lc, weights_within_1e6=frac)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -460,33 +1019,58 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     build_s = phase_build()
-    kern = phase_kernels()
-    llama = phase_llama()
-    gpt = phase_gpt()
-    phase_card_vs_cpu()
-
-    sources = {"rms_norm": ("paddle_tpu_torch/csrc/rms_norm.cu",
-                            "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
-                            llama["launches"]),
-               "layer_norm": ("paddle_tpu_torch/csrc/layer_norm.cu",
-                              "paddle_tpu/nn/functional/norm.py:42",
-                              gpt["launches"])}
-    kernels = []
-    for name, (src, replaces, launches) in sources.items():
-        s = kern[name]["shapes"][0]     # decode shape: most launches
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=launches, max_abs_err=kern[name]["max_abs_err"],
-            ms=s["ms"], plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
-            bound_by=s["bound_by"], library_ms=s["library_ms"],
-            rows=s["rows"], d=s["d"], dtype=s["dtype"]))
+    rec = {}
+    for name, run in (("kernels", phase_kernels), ("llama", phase_llama),
+                      ("gpt", phase_gpt), ("card_vs_cpu", phase_card_vs_cpu),
+                      ("train_kernels", phase_train_kernels),
+                      ("train", phase_train),
+                      ("train_card_vs_cpu", phase_train_card_vs_cpu)):
+        t0 = time.perf_counter()
+        rec[name] = run()
+        print(f"[{name}] phase took {time.perf_counter() - t0:.1f} s",
+              flush=True)
     record = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s, kernels=kern, llama2_7b=llama,
-                  gpt3_1p3b=gpt, seconds=time.perf_counter() - t_start)
+                  build_s=build_s, phases=rec,
+                  seconds=time.perf_counter() - t_start)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     print(f"[done] {record['seconds']:.1f} s")
+    kern, train = rec["kernels"], rec["train"]
+    tk = rec["train_kernels"]
+    fl = "paddle_tpu/incubate/nn/functional/flash_attention.py"
+    launches = train["launches"]
+    rows = [
+        ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
+         "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
+         {"llama2_7b serving": rec["llama"]["launches"]},
+         kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
+        ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
+         "paddle_tpu/nn/functional/norm.py:42",
+         {"gpt3_1p3b serving": rec["gpt"]["launches"],
+          "gpt3_1p3b train": launches["ptt_layer_norm_fwd"]},
+         kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
+        ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
+         "paddle_tpu/nn/functional/norm.py:106",
+         {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"]},
+         tk["layer_norm_bwd"], tk["layer_norm_bwd"]),
+        ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
+         f"{fl}:769,805",
+         {"gpt3_1p3b train": launches["ptt_flash_fwd"]},
+         tk["flash_fwd"], tk["flash_fwd"]),
+        ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd.cu",
+         f"{fl}:873",
+         {"gpt3_1p3b train": launches["ptt_flash_bwd"]},
+         tk["flash_bwd"], tk["flash_bwd"])]
+    kernels = []
+    for name, src, replaces, by_path, r, s in rows:
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=r["max_abs_err"], ms=s["ms"], plain_ms=s["plain_ms"],
+            bound_ms=s["bound_ms"], bound_by=s["bound_by"],
+            library_ms=s["library_ms"],
+            shape=s.get("shape") or f"[{s['rows']}, {s['d']}] {s['dtype']}"))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

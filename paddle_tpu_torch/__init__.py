@@ -6,10 +6,12 @@ on the card unless the caller passes ``device="cpu"``. Every TPU kernel
 on a ported path is a hand-written Hopper kernel under ``csrc/``.
 
 Ported so far: paged-KV serving of the Llama and GPT models
-(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``).
+(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``) and
+GPT training (``model(ids, labels=...)``, ``loss.backward()``,
+``optimizer.AdamW``, ``amp.decorate`` / ``amp.auto_cast``).
 """
-from . import core, inference, models, nn
-from .core import CPUPlace, CUDAPlace, seed
+from . import amp, core, inference, models, nn, optimizer
+from .core import CPUPlace, CUDAPlace, seed, set_flags
 
-__all__ = ["CPUPlace", "CUDAPlace", "core", "inference", "models", "nn",
-           "seed"]
+__all__ = ["CPUPlace", "CUDAPlace", "amp", "core", "inference", "models",
+           "nn", "optimizer", "seed", "set_flags"]

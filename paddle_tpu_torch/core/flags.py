@@ -1,14 +1,42 @@
-"""Environment knobs the port reads. Counterpart of the PADDLE_* knob
-registry in paddle_tpu/core/flags.py, cut to what the serving slice
-reads."""
+"""Flags and environment knobs the port reads. Counterpart of
+paddle_tpu/core/flags.py, cut to what the ported slices read: the FLAGS
+the training slice consults (``get_flag`` / ``set_flags``) and the
+PADDLE_* knob registry."""
 from __future__ import annotations
 
 import os
+from typing import Any, Dict
 
 PADDLE_ENV_KNOBS = frozenset({
     # live GenerationSessions kept per model by aot_generate (default 8)
     "PADDLE_SERVING_SESSION_CACHE",
 })
+
+# Both flags select routes that are not ported yet: setting either away
+# from its default makes the route raise NotImplementedError.
+_flags: Dict[str, bool] = {
+    # route self-attention through the whole-block fused op
+    "use_fused_attention": False,
+    # flash kernels consume the projection's native [B,S,E] layout
+    # directly; off = the head-major route
+    "flash_native_layout": True,
+}
+
+
+def _key(name: str) -> str:
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _flags:
+        raise KeyError(f"flag {name!r} is not registered")
+    return key
+
+
+def get_flag(name: str) -> bool:
+    return _flags[_key(name)]
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    for n, v in flags.items():
+        _flags[_key(n)] = bool(v)
 
 
 def env_int(name: str, default: int) -> int:
@@ -19,4 +47,4 @@ def env_int(name: str, default: int) -> int:
     return int(raw) if raw else int(default)
 
 
-__all__ = ["PADDLE_ENV_KNOBS", "env_int"]
+__all__ = ["PADDLE_ENV_KNOBS", "env_int", "get_flag", "set_flags"]

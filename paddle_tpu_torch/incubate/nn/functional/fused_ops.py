@@ -1,11 +1,14 @@
 """RMSNorm, rotary position embedding, swiglu. Counterpart of
 paddle_tpu/incubate/nn/functional/fused_ops.py.
 
-``fused_rms_norm`` sends a CUDA tensor to the hand-written Hopper kernel
-(csrc/rms_norm.cu, which replaces the TPU kernel ``_rms_norm_kernel``)
-and a CPU tensor to the kernel's plain PyTorch version,
-``_rms_norm_ref``. Nothing else: a tensor on any other device raises, and
-a failed build or launch raises.
+``fused_rms_norm`` is a ``torch.autograd.Function`` (the JAX package's
+``_rms_norm_fused`` custom VJP). Its forward sends a CUDA tensor to the
+hand-written Hopper kernel (csrc/rms_norm.cu, which replaces the TPU
+kernel ``_rms_norm_kernel``) and a CPU tensor to the kernel's plain
+PyTorch version, ``_rms_norm_ref``. Its backward on either device is the
+plain VJP of ``_rms_norm_ref``, as the JAX package's ``_rms_bwd``: the
+TPU has no backward kernel. Nothing else: a tensor on any other device
+raises, and a failed build or launch raises.
 """
 from __future__ import annotations
 
@@ -26,16 +29,51 @@ RMS_NORM_KERNEL = Kernel(
      ctypes.c_int64, ctypes.c_float, ctypes.c_int])
 
 
-def _rms_norm_ref(x, weight, epsilon):
-    """Plain version of the kernel: fp32 stats, the weight multiplied in
-    fp32 before the cast to x.dtype (the JAX package's
-    ``_rms_norm_ref``)."""
-    RMS_NORM_KERNEL.plain_calls += 1
+def _rms_norm_math(x, weight, epsilon):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + epsilon)
     y = y * weight.float()
     return y.to(x.dtype)
+
+
+def _rms_norm_ref(x, weight, epsilon):
+    """Plain version of the kernel: fp32 stats, the weight multiplied in
+    fp32 before the cast to x.dtype (the JAX package's
+    ``_rms_norm_ref``)."""
+    RMS_NORM_KERNEL.plain_calls += 1
+    return _rms_norm_math(x, weight, epsilon)
+
+
+def _rms_norm_vjp(x, weight, g, epsilon):
+    """(dx, dw): the VJP of ``_rms_norm_ref`` at (x, weight) against g, by
+    autograd through the same ops (the JAX package's ``_rms_bwd``)."""
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_()
+        wd = weight.detach().requires_grad_()
+        y = _rms_norm_math(xd, wd, epsilon)
+        return torch.autograd.grad(y, (xd, wd), g)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm over the last axis of x [rows, d]: the kernel forward on a
+    card, the plain forward on the CPU; the plain VJP backward on both."""
+
+    @staticmethod
+    def forward(ctx, x, weight, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        if x.device.type == "cuda":
+            return rms_norm_cuda(x, weight, epsilon)
+        if x.device.type == "cpu":
+            return _rms_norm_ref(x, weight, epsilon)
+        raise ValueError(f"fused_rms_norm: unsupported device {x.device}")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw = _rms_norm_vjp(x, weight, g, ctx.epsilon)
+        return dx, dw, None
 
 
 def rms_norm_cuda(x, weight, epsilon):
@@ -65,15 +103,10 @@ def rms_norm_cuda(x, weight, epsilon):
 
 
 def fused_rms_norm(x, norm_weight, epsilon=1e-6):
-    """paddle.incubate.nn.functional.fused_rms_norm over the last axis."""
+    """paddle.incubate.nn.functional.fused_rms_norm over the last axis.
+    Differentiable in x and norm_weight."""
     d = x.shape[-1]
-    x2 = x.reshape(-1, d)
-    if x.device.type == "cuda":
-        y = rms_norm_cuda(x2.contiguous(), norm_weight, epsilon)
-    elif x.device.type == "cpu":
-        y = _rms_norm_ref(x2, norm_weight, epsilon)
-    else:
-        raise ValueError(f"fused_rms_norm: unsupported device {x.device}")
+    y = _RMSNorm.apply(x.reshape(-1, d).contiguous(), norm_weight, epsilon)
     return y.reshape(x.shape)
 
 

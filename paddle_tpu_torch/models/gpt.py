@@ -1,11 +1,16 @@
-"""GPT-style decoder LM for paged-KV serving. Counterpart of
-paddle_tpu/models/gpt.py, cut to the non-tensor-parallel paged-cache
-serving path.
+"""GPT-style decoder LM: training and paged-KV serving. Counterpart of
+paddle_tpu/models/gpt.py, cut to the non-tensor-parallel paths: the
+no-cache forward (training; ``GPTForCausalLM.forward(ids, labels)``) and
+the paged-cache serving path.
 
-Every LayerNorm runs the LayerNorm kernel through nn.functional
-layer_norm. Parameter names and layouts are the JAX package's (the
-packed qkv weight is [E, 3E]), so its state_dict loads name for name
-(bridge.load_jax_state).
+Every LayerNorm runs the LayerNorm kernels (forward and backward) through
+nn.functional layer_norm; training attention runs the native-layout flash
+kernels over the packed [B, S, 3E] projection (flash_attention_packed).
+Parameter names and layouts are the JAX package's (the packed qkv weight
+is [E, 3E]), so its state_dict loads name for name
+(bridge.load_jax_state). Not ported (raise): recompute,
+FLAGS_use_fused_attention, the dense-cache decode path and the
+model-parallel variants.
 """
 from __future__ import annotations
 
@@ -15,8 +20,10 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from ..core.flags import get_flag
 from ..core.generator import seed as _seed
 from ..core.place import resolve_device
+from ..incubate.nn.functional.flash_attention import flash_attention_packed
 from ..incubate.nn.functional.paged_kv import (PagedCache,
                                                block_multihead_attention)
 from ..nn import functional as F
@@ -34,6 +41,7 @@ class GPTConfig:
     max_seq_len: int = 1024
     intermediate_size: int = 0  # 0 -> 4*hidden
     dropout: float = 0.0
+    recompute: bool = False   # not ported: training raises
     # model-parallel variants of the JAX package: not ported (raise)
     tensor_parallel: bool = False
     sequence_parallel: bool = False
@@ -81,12 +89,23 @@ class GPTAttention(nn.Module):
         self.proj = Linear(cfg.hidden_size, cfg.hidden_size, **factory)
         self.dropout = Dropout(cfg.dropout)
 
-    def forward(self, x, cache: PagedCache):
-        """Paged serving: the packed [B, S, 3E] projection reshaped to
-        [B, S, 3, H, D]. Returns (out, the cache advanced by this call)."""
+    def forward(self, x, cache=None):
+        """No cache (training): the packed [B, S, 3E] projection feeds the
+        flash kernels as is; returns out. Paged serving: the projection
+        reshaped to [B, S, 3, H, D]; returns (out, the cache advanced by
+        this call)."""
+        if cache is None:
+            if get_flag("use_fused_attention"):
+                raise NotImplementedError(
+                    "FLAGS_use_fused_attention (the whole-block fused "
+                    "attention op) is not ported")
+            out = flash_attention_packed(self.qkv(x), self.num_heads,
+                                         causal=True)
+            return self.dropout(self.proj(out))
         if not isinstance(cache, PagedCache):
             raise NotImplementedError(
-                "GPTAttention: only the paged-cache serving path is ported")
+                "GPTAttention: only the paged-cache serving path and the "
+                "no-cache forward are ported")
         b, s, _ = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
         slt = (cache.new_lens if cache.new_lens is not None
@@ -118,11 +137,17 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **factory)
         self.ln2 = LayerNorm(cfg.hidden_size, **factory)
         self.mlp = GPTMLP(cfg, **factory)
+        self._recompute = cfg.recompute
 
-    def forward(self, x, cache):
-        a, new_cache = self.attn(self.ln1(x), cache=cache)
-        x = x + a
-        return x + self.mlp(self.ln2(x)), new_cache
+    def forward(self, x, cache=None):
+        if cache is not None:
+            a, new_cache = self.attn(self.ln1(x), cache=cache)
+            x = x + a
+            return x + self.mlp(self.ln2(x)), new_cache
+        if self._recompute and self.training:
+            raise NotImplementedError("GPTConfig.recompute is not ported")
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
 
 
 class GPTModel(nn.Module):
@@ -142,15 +167,17 @@ class GPTModel(nn.Module):
         _gpt_init(self, cfg, factory.get("generator"))
 
     def forward(self, input_ids, caches=None, pos_offset=0):
-        """Paged-cache forward; ``pos_offset`` is a scalar or a
-        per-sequence [B] vector. Returns (final-norm hidden [B, S, E], the
-        per-layer caches advanced by this call)."""
-        if caches is None:
-            raise NotImplementedError(
-                "GPTModel: the no-cache (training) forward is not ported")
-        s = input_ids.shape[1]
-        pos = _positions(pos_offset, s, input_ids.device)
+        """No caches (training): returns the final-norm hidden [B, S, E].
+        Paged caches (serving; ``pos_offset`` a scalar or a per-sequence
+        [B] vector): returns (hidden, the per-layer caches advanced by
+        this call)."""
+        pos = _positions(0 if caches is None else pos_offset,
+                         input_ids.shape[1], input_ids.device)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        if caches is None:
+            for blk in self.blocks:
+                x = blk(x)
+            return self.ln_f(x)
         new_caches = []
         for blk, cache in zip(self.blocks, caches):
             x, nc = blk(x, cache=cache)
@@ -174,9 +201,15 @@ class GPTForCausalLM(nn.Module):
         self.cfg = cfg
 
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(
-            "GPTForCausalLM.forward (training / no-cache) is not ported; "
-            "serve with generate(use_paged_kv=True)")
+        """Logits [B, S, V] of the tied unembedding (hidden @ wte^T); with
+        ``labels`` [B, S], (logits, mean cross-entropy loss)."""
+        hidden = self.gpt(input_ids)
+        logits = F.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        return logits, loss
 
     def generate(self, input_ids, max_new_tokens: int = 20,
                  do_sample: bool = False, temperature: float = 1.0,

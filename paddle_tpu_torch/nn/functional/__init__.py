@@ -1,5 +1,7 @@
 from .activation import gelu
-from .common import embedding, linear
+from .common import embedding, linear, matmul
+from .loss import cross_entropy
 from .norm import layer_norm
 
-__all__ = ["embedding", "gelu", "layer_norm", "linear"]
+__all__ = ["cross_entropy", "embedding", "gelu", "layer_norm", "linear",
+           "matmul"]

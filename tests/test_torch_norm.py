@@ -146,3 +146,108 @@ def test_kernel_wrappers_reject_cpu_tensors():
         tfused.rms_norm_cuda(x, torch.ones(8), 1e-6)
     with pytest.raises(ValueError):
         tnorm.layer_norm_cuda(x, None, None, 1e-5)
+
+
+# -- backward: K3's plain version and the autograd Functions ---------------
+# Shadows the backward checks of tests/test_pallas_norm.py. Tolerances as
+# above for dx; dw/db sum over rows, so fp32 allows 1e-5 of the largest
+# value and bf16 one ulp of it (the sums run in other orders).
+
+def _assert_sum_close(got, want, dtype):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+    else:
+        tol = 2.0 ** -8 * np.abs(want).max()
+        assert np.abs(got - want).max() <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_bwd_plain_matches_pallas_kernel_interpret(monkeypatch,
+                                                              dtype):
+    """`_ln_bwd_ref` against `_ln_bwd_pallas` (the `_ln_bwd_kernel` body)
+    in interpret mode: dx, dw, db."""
+    monkeypatch.setattr(jnorm, "FORCE_PALLAS_INTERPRET", True)
+    (jx, jw, _), (tx, tw, _) = _inputs(24, 256, dtype, seed=21)
+    (jg, _, _), (tg, _, _) = _inputs(24, 256, dtype, seed=22)
+    jdx, jdw, jdb = jnorm._ln_bwd_pallas(jx, jw, jg, 1e-5)
+    tdx, tdw, tdb = tnorm._ln_bwd_ref(tx, tw, tg, 1e-5)
+    assert tdx.dtype == tdw.dtype == tdb.dtype == DTYPES[dtype][1]
+    _assert_close(_np(tdx), _np(jdx), dtype)
+    _assert_sum_close(_np(tdw), _np(jdw), dtype)
+    _assert_sum_close(_np(tdb), _np(jdb), dtype)
+
+
+def _jax_pull(fn, args, g):
+    _, pull = jax.vjp(fn, *args)
+    return pull(g)
+
+
+def _torch_pull(fn, args, g):
+    ts = [a.clone().requires_grad_() for a in args]
+    fn(*ts).backward(g)
+    return [t.grad for t in ts]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_function_grads_match_jax_custom_vjp(monkeypatch, dtype):
+    """x, weight and bias gradients through the port's `layer_norm`
+    Function (the dispatch a card takes, with the plain versions on the
+    CPU) against the JAX package's `_ln_fused` custom VJP, whose backward
+    is `_ln_bwd_pallas` in interpret mode."""
+    monkeypatch.setattr(jnorm, "FORCE_PALLAS_INTERPRET", True)
+    (jx, jw, jb), (tx, tw, tb) = _inputs(16, 128, dtype, seed=31)
+    (jg, _, _), (tg, _, _) = _inputs(16, 128, dtype, seed=32)
+    jgrads = _jax_pull(
+        lambda x, w, b: jnorm._ln_fused(x, w, b, 1e-5, (1,), True, True),
+        (jx, jw, jb), jg)
+    tgrads = _torch_pull(lambda x, w, b: tnorm.layer_norm(x, 128, w, b),
+                         (tx, tw, tb), tg)
+    _assert_close(_np(tgrads[0]), _np(jgrads[0]), dtype)
+    for got, want in zip(tgrads[1:], jgrads[1:]):
+        assert got.dtype == DTYPES[dtype][1]
+        _assert_sum_close(_np(got), _np(want), dtype)
+
+
+def test_layer_norm_function_without_params_grads_match_jax():
+    """No weight or bias: dx alone, against the JAX vjp of `_ln_ref`."""
+    (jx, _, _), (tx, _, _) = _inputs(12, 96, "float32", seed=41)
+    (jg, _, _), (tg, _, _) = _inputs(12, 96, "float32", seed=42)
+    (jdx,) = _jax_pull(lambda x: jnorm._ln_ref(x, None, None, 1e-5, (1,)),
+                       (jx,), jg)
+    (tdx,) = _torch_pull(lambda x: tnorm.layer_norm(x, 96), (tx,), tg)
+    _assert_close(_np(tdx), _np(jdx), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_function_grads_match_jax_vjp(dtype):
+    """x and weight gradients through the port's `fused_rms_norm`
+    Function against `jax.vjp` of `_rms_norm_ref` (the JAX package's
+    `_rms_bwd`)."""
+    (jx, jw, _), (tx, tw, _) = _inputs(16, 256, dtype, seed=51)
+    (jg, _, _), (tg, _, _) = _inputs(16, 256, dtype, seed=52)
+    jdx, jdw = _jax_pull(lambda x, w: jfused._rms_norm_ref(x, w, None, 1e-6),
+                         (jx, jw), jg)
+    tdx, tdw = _torch_pull(
+        lambda x, w: tfused.fused_rms_norm(x, w, epsilon=1e-6), (tx, tw), tg)
+    assert tdx.dtype == tdw.dtype == DTYPES[dtype][1]
+    _assert_close(_np(tdx), _np(jdx), dtype)
+    _assert_sum_close(_np(tdw), _np(jdw), dtype)
+
+
+def test_norm_backward_runs_the_plain_version_on_cpu():
+    """On a CPU tensor the LayerNorm Function's backward is `_ln_bwd_ref`
+    (counted); no kernel is launched."""
+    bk = tnorm.LAYER_NORM_BWD_KERNEL
+    before = (bk.plain_calls, bk.launches)
+    x = torch.randn(3, 5, 32, requires_grad=True)
+    w = torch.randn(32, requires_grad=True)
+    b = torch.randn(32, requires_grad=True)
+    tnorm.layer_norm(x, 32, w, b).square().sum().backward()
+    assert x.grad.shape == x.shape and w.grad.shape == b.grad.shape == (32,)
+    assert (bk.plain_calls, bk.launches) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError):
+        tnorm.layer_norm_bwd_cuda(x.detach().reshape(15, 32), None,
+                                  x.detach().reshape(15, 32), 1e-5)
