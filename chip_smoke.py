@@ -21,18 +21,25 @@ Phases, in order; any failure exits non-zero before the last line:
      give identical greedy streams.
   7. training kernels vs plain: LayerNorm backward (K3) and flash
      attention forward / backward (K4 / K5) against their plain versions
-     at the training step's shapes (GPT-3 1.3B, B=4, S=2048) and at
-     ragged and fp32 ones; gradients through the K1 / K2 autograd
-     Functions; card times beside the bound, the plain version and the
-     library call.
+     at the training steps' shapes (GPT-3 1.3B, B=4, S=2048, 16 heads of
+     d=128; TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads)
+     and at ragged, fp32 and grouped-query ones (32:1, 8:2, 8:4, 4:2),
+     every output held per element; two K5 calls on the same inputs must
+     give the same bytes; over one 32:4 forward and backward the
+     allocated memory must not rise by a repeat of k and v; gradients
+     through the K1 / K2 autograd Functions; card times beside the bound,
+     the plain version and the library call, at both steps' shapes.
   8. GPT-3 1.3B training at full width and depth (B=4, S=2048, bf16 amp
      O2, AdamW with fp32 masters, random weights and tokens from a seed):
      2 warm-up and 3 timed steps on one batch; the loss must be finite
      and fall, and every attention and LayerNorm must run K4/K5 and
      K2/K3 (24/24/49/49 launches per step, 0 plain). Step ms, tokens/s,
      model-FLOP utilisation, peak memory and the card's share of a step.
-  9. card vs CPU: one gpt_tiny fp32 training step (loss, every gradient
-     and the updated weights).
+  9. TinyLlama-1.1B training the same way at full width and depth (B=8,
+     S=2048, GQA 32:4): every attention runs K4/K5 over the shared kv
+     heads and every RMSNorm K1 (22/22/45 launches per step, 0 plain).
+ 10. card vs CPU: one fp32 training step of gpt_tiny and of llama_tiny
+     at GQA 4:2 (loss, every gradient and the updated weights).
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -44,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +63,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 BATCH, PROMPT, NEW, BLOCK = 4, 128, 64, 64
 TRAIN_B, TRAIN_S = 4, 2048     # the training step's batch and sequence
+TRAIN_LLAMA_B = 8              # TinyLlama's batch (bench.py bench_llama)
 
 
 def fail(msg):
@@ -513,36 +522,40 @@ def _close_tol(ref, terms):
 
 
 def _attention_terms(q, k, v, out, lse, dout, heads, causal):
-    """Per element of out, dq, dk and dv, a pair (flips, sums) of [B,S,E]
-    fp32 tensors, with p and ds formed as the plain versions form them.
-    flips: the sum of the magnitudes of the bf16-rounded terms the
+    """Per element of out, dq, dk and dv, a pair (flips, sums) of fp32
+    tensors of its shape, with p and ds formed as the plain versions form
+    them. flips: the sum of the magnitudes of the bf16-rounded terms the
     element sums: sum_k p |v| / l, scale sum_k |ds| |k|,
     scale sum_q |ds| |q| and sum_q p |dO|. sums: the same with |ds|
     replaced by the magnitudes of the terms of ds = p (dO.v - dO.O),
-    p (|dO|.|v| + |dO|.|O|)."""
+    p (|dO|.|v| + |dO|.|O|). Grouped query: an element of dk or dv sums
+    over q rows of every q head that shares its kv head, so its terms
+    are summed over that group too (fa._grouped_tn)."""
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
 
     b, sq, e = q.shape
     sk = k.shape[1]
+    kvh = fa._kv_heads(q, k, heads)
     scale = 1.0 / math.sqrt(e // heads)
-    qh, kh, vh, doh = (fa._heads(t, heads) for t in (q, k, v, dout))
+    qh, doh = fa._heads(q, heads), fa._heads(dout, heads)
+    kh, vh = fa._heads(k, kvh), fa._heads(v, kvh)
     qa, ka, va, doa = qh.abs(), kh.abs(), vh.abs(), doh.abs()
     p = torch.exp(fa._masked_logits(qh, kh, causal) - lse.unsqueeze(-1))
-    t_out = torch.matmul(p, va)
-    t_dv = torch.matmul(p.transpose(-1, -2), doa)
-    ds = p * (torch.matmul(doh, vh.transpose(-1, -2))
+    t_out = fa.grouped_pv_out(p, va)
+    t_dv = fa._grouped_tn(p, doa, kvh)
+    ds = p * (fa.grouped_qk_logits(doh, vh)
               - fa._delta(out, dout, heads).unsqueeze(-1))
     ds = ds.abs()
-    f_dq = torch.matmul(ds, ka) * scale
-    f_dk = torch.matmul(ds.transpose(-1, -2), qa) * scale
-    ds = p * (torch.matmul(doa, va.transpose(-1, -2))
+    f_dq = fa.grouped_pv_out(ds, ka) * scale
+    f_dk = fa._grouped_tn(ds, qa, kvh) * scale
+    ds = p * (fa.grouped_qk_logits(doa, va)
               + fa._delta(out.abs(), dout.abs(), heads).unsqueeze(-1))
-    s_dq = torch.matmul(ds, ka) * scale
-    s_dk = torch.matmul(ds.transpose(-1, -2), qa) * scale
+    s_dq = fa.grouped_pv_out(ds, ka) * scale
+    s_dk = fa._grouped_tn(ds, qa, kvh) * scale
     del p, ds
 
     def back(x, s_):
-        return x.transpose(1, 2).reshape(b, s_, e)
+        return x.transpose(1, 2).reshape(b, s_, -1)
     return ((back(t_out, sq),) * 2, (back(f_dq, sq), back(s_dq, sq)),
             (back(f_dk, sk), back(s_dk, sk)), (back(t_dv, sk),) * 2)
 
@@ -562,22 +575,23 @@ def _colsum_err(got, ref, terms, name):
     return float(diff.max())
 
 
-def _attn_work(b, sq, sk, h, d, causal):
-    """(q-k pairs per head summed over batch and heads, as the causal mask
-    leaves them, and the fwd / bwd FLOPs and bytes at bf16)."""
+def _attn_work(b, sq, sk, h, d, causal, kvh=None):
+    """(q-k pairs per q head summed over batch and q heads, as the causal
+    mask leaves them, and the fwd / bwd FLOPs and bytes at bf16, each
+    input read once and each output written once; k, v, dk, dv at the kv
+    width of ``kvh`` heads, default h)."""
     off = sk - sq
     if causal:
         pairs = sum(max(0, min(sk, i + off + 1)) for i in range(sq))
     else:
         pairs = sq * sk
     pairs *= b * h
-    e = h * d
+    e, ekv = h * d, (kvh or h) * d
     fwd = dict(flops=4 * pairs * d,
-               bytes=(b * sq * e + 2 * b * sk * e + b * sq * e) * 2
-               + b * h * sq * 4)
+               bytes=(2 * b * sq * e + 2 * b * sk * ekv) * 2 + b * h * sq * 4)
+    # in: q, k, v, out, dO, lse; out: dq, dk, dv
     bwd = dict(flops=10 * pairs * d,
-               bytes=(b * sq * e * 3 + 2 * b * sk * e * 2) * 2
-               + 2 * b * h * sq * 4)
+               bytes=(4 * b * sq * e + 4 * b * sk * ekv) * 2 + b * h * sq * 4)
     return pairs, fwd, bwd
 
 
@@ -592,12 +606,15 @@ def _packed(x):
     return x[..., :e], x[..., e:2 * e], x[..., 2 * e:]
 
 
-def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed):
+def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed,
+                     kvh=None):
     """Kernel forward and backward against the plain versions, batch
-    element by batch element (the plain version at B=1 bounds memory)."""
+    element by batch element (the plain version at B=1 bounds memory);
+    then a second backward on the same inputs must give the same bytes.
+    ``kvh``: kv heads of the unpacked k, v (default h)."""
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
 
-    e = h * d
+    e, ekv = h * d, (kvh or h) * d
     if packed:
         qkv = torch.randn(b, sq, 3 * e, generator=g, device="cuda").to(dt)
         q, k, v = _packed(qkv)
@@ -605,14 +622,20 @@ def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed):
         dq, dk, dv = _packed(grads)
     else:
         q = torch.randn(b, sq, e, generator=g, device="cuda").to(dt)
-        k, v = (torch.randn(b, sk, e, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(b, sk, ekv, generator=g, device="cuda").to(dt)
                 for _ in range(2))
         dq = torch.empty_like(q)
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     dout = torch.randn(b, sq, e, generator=g, device="cuda").to(dt)
     out, lse = fa.flash_fwd_cuda(q, k, v, h, causal)
     fa.flash_bwd_cuda(q, k, v, out, lse, dout, h, causal, dq, dk, dv)
+    again = [torch.full_like(x, float("nan")) for x in (dq, dk, dv)]
+    fa.flash_bwd_cuda(q, k, v, out, lse, dout, h, causal, *again)
     torch.cuda.synchronize()
+    for key, x, y in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+        check(torch.equal(x, y), f"{name} {key}: two backward calls on the "
+                                 f"same inputs differ")
+    del again
     errs = dict(out=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
     for i in range(b):
         sl = slice(i, i + 1)
@@ -632,8 +655,120 @@ def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed):
               f"{name} lse (batch {i}): max err {ld}")
         errs["lse"] = max(errs["lse"], ld)
     print(f"[train_kernels] {name}: max |kernel - plain| "
-          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + "; dq, dk, dv byte-identical over two backward calls")
     return errs
+
+
+def _no_repeat_memory(g):
+    """The north star's no-K/V-repeat contract on the card, at TinyLlama's
+    32:4 (B=8, S=2048, D=64, bf16, causal): the rise of allocated memory
+    over one forward and backward through the autograd Function must stay
+    below the tensors it may hold (out, lse, dq, delta, dk and dv at the kv
+    width) plus one [B,S,H*D] bf16 tensor; a repeat of k and v to the q
+    heads would add two such tensors."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    b, s, h, kvh, d = TRAIN_LLAMA_B, TRAIN_S, 32, 4, 64
+    q = torch.randn(b, s, h * d, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_()
+    k, v = (torch.randn(b, s, kvh * d, generator=g, device="cuda").to(
+        torch.bfloat16).requires_grad_() for _ in range(2))
+    gout = torch.randn(b, s, h * d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fa._flash_nl(q, k, v, True, h)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    full = b * s * h * d * 2                    # one [B,S,H*D] bf16 tensor
+    stats = b * h * s * 4                       # one fp32 [B,H,S] tensor
+    allowed = 2 * full + 2 * stats + 2 * (b * s * kvh * d * 2)
+    check(k.grad.shape == k.shape and v.grad.shape == v.shape,
+          "no-repeat: dk, dv are not at the kv width")
+    check(rise <= allowed + full,
+          f"no-repeat: memory rose by {rise} bytes over a 32:4 forward and "
+          f"backward, above {allowed} allowed + {full}")
+    print(f"[train_kernels] no K/V repeat at 32:4 (B={b}, S={s}): memory "
+          f"rose by {rise / 2**20:.1f} MiB over one forward and backward; "
+          f"out + lse + dq + delta + dk + dv take {allowed / 2**20:.1f} MiB, "
+          f"the bound is {(allowed + full) / 2**20:.1f} MiB (a repeat of k "
+          f"and v would add {2 * full / 2**20:.1f})")
+    res = dict(rise_bytes=rise, allowed_bytes=allowed, bound_bytes=allowed
+               + full)
+    del q, k, v, gout, out
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_attention(which, b, h, kvh, d, g):
+    """Card ms of K4 ("fwd") or K5 ("bwd") at [B, 2048, H*D] q and
+    [B, 2048, KVH*D] k, v (packed [B,S,3E] when KVH == H, as GPT's step
+    passes them), causal bf16, beside the bound, the plain version and
+    the library: sdpa forward (enable_gqa when KVH < H), or the backward
+    op alone of sdpa's flash and cuDNN backends on the outputs their
+    forward op saved, as sdpa's autograd calls it (the faster of the two
+    is the yardstick); both take the KVH kv heads as they are."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    s = TRAIN_S
+    e, ekv = h * d, kvh * d
+    if kvh == h:
+        qkv = torch.randn(b, s, 3 * e, generator=g, device="cuda").to(
+            torch.bfloat16)
+        q, k, v = _packed(qkv)
+        grads = _packed(torch.empty_like(qkv))
+    else:
+        q = torch.randn(b, s, e, generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, s, ekv, generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        grads = (torch.empty_like(q), torch.empty_like(k),
+                 torch.empty_like(v))
+    dout = torch.randn(b, s, e, generator=g, device="cuda").to(torch.bfloat16)
+    out, lse = fa.flash_fwd_cuda(q, k, v, h, True)
+    pairs, fwd_work, bwd_work = _attn_work(b, s, s, h, d, True, kvh)
+
+    def heads(t_, n):
+        return t_.reshape(b, s, n, d).transpose(1, 2)
+    qh, kh, vh, dout_h = (heads(q, h), heads(k, kvh), heads(v, kvh),
+                          heads(dout, h))
+    t = dict(shape=f"B={b} S={s} H={h} KVH={kvh} D={d} causal bf16",
+             pairs=pairs)
+    aten = torch.ops.aten
+    if which == "fwd":
+        work = fwd_work
+        kern = partial(fa.flash_fwd_cuda, q, k, v, h, True)
+        plain = partial(fa._nl_forward_ref, q, k, v, h, True)
+        lib = {"sdpa": partial(TF.scaled_dot_product_attention, qh, kh, vh,
+                               is_causal=True, enable_gqa=kvh != h)}
+    else:
+        work = bwd_work
+        kern = partial(fa.flash_bwd_cuda, q, k, v, out, lse, dout, h, True,
+                       *grads)
+        plain = partial(fa._nl_backward_ref, q, k, v, out, lse, dout, h, True)
+        fo = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
+        co = aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True,
+                                                      0.0, True)
+        lib = {"flash backward": partial(
+                   aten._scaled_dot_product_flash_attention_backward, dout_h,
+                   qh, kh, vh, *fo[:6], 0.0, True, fo[6], fo[7]),
+               "cudnn backward": partial(
+                   aten._scaled_dot_product_cudnn_attention_backward, dout_h,
+                   qh, kh, vh, co[0], co[1], co[6], co[7], None, *co[2:6],
+                   0.0, True)}
+    t.update(flops=work["flops"], bytes=work["bytes"])
+    t["bound_ms"], t["bound_by"] = _bound_of(work, BF16_FLOPS)
+    t["ms"] = device_ms(kern, iters=10, reps=7)
+    t["plain_ms"] = device_ms(plain, iters=2, reps=3)
+    t["library_ms_by_op"] = {n: device_ms(f, iters=10, reps=7)
+                             for n, f in lib.items()}
+    t["library_ms"] = min(t["library_ms_by_op"].values())
+    return t
 
 
 def phase_train_kernels():
@@ -649,7 +784,9 @@ def phase_train_kernels():
     g = torch.Generator(device="cuda").manual_seed(3)
     rec = {"layer_norm_bwd": {"max_abs_err": 0.0},
            "flash_fwd": {"max_abs_err": 0.0},
-           "flash_bwd": {"max_abs_err": 0.0}, "autograd": {}}
+           "flash_bwd": {"max_abs_err": 0.0},
+           "flash_fwd_gqa": {"max_abs_err": 0.0},
+           "flash_bwd_gqa": {"max_abs_err": 0.0}, "autograd": {}}
     rows = TRAIN_B * TRAIN_S
 
     # K3: the step's shape, a ragged row count, the scalar path, fp32
@@ -732,38 +869,60 @@ def phase_train_kernels():
           f"and x, w, b gradients set on the card and equal to the plain "
           f"versions' (bf16, fp32)")
 
-    # K4 / K5: the step's shape, ragged and fp32 ones, unpacked with Sk > Sq
+    # K4 / K5: the GPT and TinyLlama steps' shapes, ragged and fp32 ones,
+    # unpacked with Sk > Sq, and grouped query (KVH < H: the kv heads
+    # shared in place) at 32:4, MQA and other ratios
     h1, d1 = 16, 128
-    cases = [("gpt3-1.3b", TRAIN_B, TRAIN_S, TRAIN_S, h1, d1, True,
-              torch.bfloat16, True)]
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [("gpt3-1.3b", TRAIN_B, TRAIN_S, TRAIN_S, h1, d1, True, bf, True,
+              None),
+             ("tinyllama-1.1b gqa 32:4", TRAIN_LLAMA_B, TRAIN_S, TRAIN_S, 32,
+              64, True, bf, False, 4),
+             ("gqa 32:4 bf16 d=64 S=2048 causal=False", 1, TRAIN_S, TRAIN_S,
+              32, 64, False, bf, False, 4)]
     for causal in (True, False):
         cases += [
             (f"ragged bf16 d=128 causal={causal}", 2, 77, 77, h1, d1,
-             causal, torch.bfloat16, True),
-            (f"bf16 d=64 causal={causal}", 2, 200, 200, 2, 64, causal,
-             torch.bfloat16, True),
-            (f"bf16 d=32 causal={causal}", 2, 130, 130, 4, 32, causal,
-             torch.bfloat16, True),
-            (f"fp32 d=32 causal={causal}", 2, 77, 77, 4, 32, causal,
-             torch.float32, True),
-            (f"fp32 d=64 causal={causal}", 1, 130, 130, 2, 64, causal,
-             torch.float32, True),
-            (f"fp32 d=128 causal={causal}", 1, 77, 77, 2, 128, causal,
-             torch.float32, True),
+             causal, bf, True, None),
+            (f"bf16 d=64 causal={causal}", 2, 200, 200, 2, 64, causal, bf,
+             True, None),
+            (f"bf16 d=32 causal={causal}", 2, 130, 130, 4, 32, causal, bf,
+             True, None),
+            (f"fp32 d=32 causal={causal}", 2, 77, 77, 4, 32, causal, f32,
+             True, None),
+            (f"fp32 d=64 causal={causal}", 1, 130, 130, 2, 64, causal, f32,
+             True, None),
+            (f"fp32 d=128 causal={causal}", 1, 77, 77, 2, 128, causal, f32,
+             True, None),
             (f"unpacked bf16 sq=77 sk=100 causal={causal}", 2, 77, 100, 4,
-             64, causal, torch.bfloat16, False)]
-    for name, b_, sq, sk, h_, d_, causal, dt, packed in cases:
+             64, causal, bf, False, None),
+            (f"gqa 32:1 bf16 d=64 S=200 causal={causal}", 2, 200, 200, 32,
+             64, causal, bf, False, 1),
+            (f"gqa 8:2 bf16 d=128 S=77 causal={causal}", 2, 77, 77, 8, 128,
+             causal, bf, False, 2),
+            (f"gqa 8:4 bf16 d=32 S=130 causal={causal}", 2, 130, 130, 8, 32,
+             causal, bf, False, 4),
+            (f"gqa 8:2 bf16 sq=77 sk=100 causal={causal}", 2, 77, 100, 8,
+             64, causal, bf, False, 2),
+            (f"gqa 8:2 fp32 d=64 S=130 causal={causal}", 1, 130, 130, 8, 64,
+             causal, f32, False, 2),
+            (f"gqa 8:1 fp32 d=32 sq=77 sk=100 causal={causal}", 2, 77, 100,
+             8, 32, causal, f32, False, 1),
+            (f"gqa 4:2 fp32 d=128 S=77 causal={causal}", 1, 77, 77, 4, 128,
+             causal, f32, False, 2)]
+    for name, b_, sq, sk, h_, d_, causal, dt, packed, kvh in cases:
         e = _check_attention(name, b_, sq, sk, h_, d_, causal, dt, g,
-                             packed)
-        rec["flash_fwd"]["max_abs_err"] = max(
-            rec["flash_fwd"]["max_abs_err"], e["out"], e["lse"])
-        rec["flash_bwd"]["max_abs_err"] = max(
-            rec["flash_bwd"]["max_abs_err"], e["dq"], e["dk"], e["dv"])
+                             packed, kvh)
+        sfx = "" if kvh is None else "_gqa"
+        rec["flash_fwd" + sfx]["max_abs_err"] = max(
+            rec["flash_fwd" + sfx]["max_abs_err"], e["out"], e["lse"])
+        rec["flash_bwd" + sfx]["max_abs_err"] = max(
+            rec["flash_bwd" + sfx]["max_abs_err"], e["dq"], e["dk"], e["dv"])
     torch.cuda.synchronize()
+    rec["no_repeat"] = _no_repeat_memory(g)
 
     # timing at the step's shapes (bf16): card ms per call from CUDA
     # events over calls captured in a CUDA graph
-    e1 = h1 * d1
     x = (torch.randn(rows, 2048, generator=g, device="cuda") * 2 + 0.5
          ).to(torch.bfloat16)
     w = torch.randn(2048, generator=g, device="cuda").to(torch.bfloat16)
@@ -786,61 +945,15 @@ def phase_train_kernels():
     rec["layer_norm_bwd"].update(t)
     del x, gy, mean, rstd
 
-    qkv = torch.randn(TRAIN_B, TRAIN_S, 3 * e1, generator=g,
-                      device="cuda").to(torch.bfloat16)
-    q, k, v = _packed(qkv)
-    dout = torch.randn(TRAIN_B, TRAIN_S, e1, generator=g,
-                       device="cuda").to(torch.bfloat16)
-    out, lse = fa.flash_fwd_cuda(q, k, v, h1, True)
-    grads = torch.empty_like(qkv)
-    pairs, fwd_work, bwd_work = _attn_work(TRAIN_B, TRAIN_S, TRAIN_S, h1,
-                                           d1, True)
-
-    def heads(t_):
-        return t_.view(TRAIN_B, TRAIN_S, h1, d1).transpose(1, 2)
-    qh, kh, vh, dout_h = (heads(t_) for t_ in (q, k, v, dout))
-    # the library's backward alone: the backward op of each of its fused
-    # backends (flash, cuDNN) on the outputs its forward op saved, as
-    # sdpa's autograd calls it; the faster of the two is the yardstick
-    aten = torch.ops.aten
-    fo = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
-    co = aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True,
-                                                  0.0, True)
-
-    def lib_bwd_flash():
-        return aten._scaled_dot_product_flash_attention_backward(
-            dout_h, qh, kh, vh, fo[0], fo[1], fo[2], fo[3], fo[4], fo[5],
-            0.0, True, fo[6], fo[7])
-
-    def lib_bwd_cudnn():
-        return aten._scaled_dot_product_cudnn_attention_backward(
-            dout_h, qh, kh, vh, co[0], co[1], co[6], co[7], None, co[2],
-            co[3], co[4], co[5], 0.0, True)
-    for key, work, kern, plain, lib in (
-            ("flash_fwd", fwd_work,
-             lambda: fa.flash_fwd_cuda(q, k, v, h1, True),
-             lambda: fa._nl_forward_ref(q, k, v, h1, True),
-             {"sdpa": lambda: TF.scaled_dot_product_attention(
-                 qh, kh, vh, is_causal=True)}),
-            ("flash_bwd", bwd_work,
-             lambda: fa.flash_bwd_cuda(q, k, v, out, lse, dout, h1, True,
-                                       *_packed(grads)),
-             lambda: fa._nl_backward_ref(q, k, v, out, lse, dout, h1,
-                                         True),
-             {"flash backward": lib_bwd_flash,
-              "cudnn backward": lib_bwd_cudnn})):
-        t = dict(shape=f"B={TRAIN_B} S={TRAIN_S} H={h1} D={d1} causal bf16",
-                 flops=work["flops"], bytes=work["bytes"], pairs=pairs)
-        t["bound_ms"], t["bound_by"] = _bound_of(work, BF16_FLOPS)
-        t["ms"] = device_ms(kern, iters=10, reps=7)
-        t["plain_ms"] = device_ms(plain, iters=2, reps=3)
-        t["library_ms_by_op"] = {n: device_ms(f, iters=10, reps=7)
-                                 for n, f in lib.items()}
-        t["library_ms"] = min(t["library_ms_by_op"].values())
-        rec[key].update(t)
-    del qkv, q, k, v, dout, out, lse, grads, qh, kh, vh, dout_h, fo, co
+    for suffix, b_, h_, kvh, d_ in (("", TRAIN_B, h1, h1, d1),
+                                    ("_gqa", TRAIN_LLAMA_B, 32, 4, 64)):
+        rec["flash_fwd" + suffix].update(
+            _time_attention("fwd", b_, h_, kvh, d_, g))
+        rec["flash_bwd" + suffix].update(
+            _time_attention("bwd", b_, h_, kvh, d_, g))
     torch.cuda.empty_cache()
-    for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd"):
+    for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd", "flash_fwd_gqa",
+                "flash_bwd_gqa"):
         r = rec[key]
         by_op = ", ".join(f"{n} {v:.5f}" for n, v in r.get(
             "library_ms_by_op", {}).items()) or "native_layer_norm_backward"
@@ -856,10 +969,96 @@ def _train_counts(kernels):
     return {k.symbol: (k.launches, k.plain_calls) for k in kernels}
 
 
-def phase_train():
-    """GPT-3 1.3B, B=4, S=2048, bf16 O2 AdamW, through the port's entry
-    points: 2 warm-up steps and 3 timed steps on one batch."""
+def _train(tag, title, model, batch, path, per_step, absent):
+    """2 warm-up and 3 timed bf16 O2 AdamW steps of ``model`` on one batch
+    of [batch, TRAIN_S] tokens from a seed, through the port's entry
+    points. Every kernel of ``path`` must launch ``per_step`` times a step
+    with 0 plain calls, every kernel of ``absent`` never; the loss must
+    be finite and fall over the timed steps."""
     import paddle_tpu_torch as ptt
+
+    cfg = model.cfg
+    opt = ptt.optimizer.AdamW(parameters=model.parameters(),
+                              learning_rate=1e-4, use_multi_tensor=True,
+                              multi_precision=True)
+    model, opt = ptt.amp.decorate(models=model, optimizers=opt, level="O2",
+                                  dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(0)
+    ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                     (batch, TRAIN_S + 1)), device="cuda")
+    x, y = ids[:, :-1], ids[:, 1:]
+
+    def step():
+        with ptt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            _, loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    everything = path + absent
+    for k in everything:
+        k.reset_counts()
+    losses = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    timed, t_steps = sync_time(lambda: [step() for _ in range(3)])
+    counts = _train_counts(everything)
+    losses = [float(v) for v in losses + timed]
+    n_steps = len(losses)
+    check(all(np.isfinite(losses)), f"{tag}: loss not finite: {losses}")
+    check(losses[-1] < losses[2], f"{tag}: loss did not fall over the timed "
+                                  f"steps: {losses}")
+    for k, want in zip(path, per_step):
+        got, plain = counts[k.symbol]
+        check(got == want * n_steps and plain == 0,
+              f"{tag}: {k.symbol} launched {got} times, plain {plain} "
+              f"times in {n_steps} steps (want {want} per step, 0 plain)")
+    for k in absent:
+        check(counts[k.symbol] == (0, 0), f"{tag}: {k.symbol} ran")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = t_steps / 3 * 1e3
+    tokens = batch * TRAIN_S
+    d = cfg.hidden_size // cfg.num_heads
+    pairs, fwd_work, _ = _attn_work(batch, TRAIN_S, TRAIN_S, cfg.num_heads,
+                                    d, True)
+    attn_flops = 3 * cfg.num_layers * fwd_work["flops"]
+    model_flops = 6 * n_params * tokens + attn_flops
+    res = dict(batch=batch, seq=TRAIN_S, steps=n_steps, losses=losses,
+               step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
+               peak_gb=peak_gb, params=n_params, model_flops=model_flops,
+               mfu=model_flops / (step_ms / 1e3) / BF16_FLOPS,
+               launches={s_: c[0] for s_, c in counts.items()},
+               plain_calls={s_: c[1] for s_, c in counts.items()})
+    print(f"[{tag}] {title} ({n_params / 1e9:.3f} B params), B={batch}, "
+          f"S={TRAIN_S}, bf16 O2 AdamW: losses "
+          + ", ".join(f"{v:.4f}" for v in losses)
+          + f"; step {step_ms:.1f} ms, {res['tokens_per_s']:.0f} tokens/s, "
+          f"MFU {100 * res['mfu']:.1f}% (6N + attention FLOPs over 989 "
+          f"TFLOP/s), peak {peak_gb:.1f} GiB")
+    print(f"[{tag}] launches in {n_steps} steps: "
+          + ", ".join(f"{s_} {c[0]}" for s_, c in counts.items())
+          + "; plain calls 0")
+    card_ms, top = device_breakdown(step, top=10)
+    if card_ms is not None:
+        res.update(step_device_ms=card_ms, device_busy=card_ms / step_ms,
+                   top_kernels=top)
+        print(f"[{tag}] card time of one step {card_ms:.1f} ms = "
+              f"{100 * card_ms / step_ms:.0f}% of the host-clock step")
+        for t_ in top:
+            print(f"[{tag}]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
+                  f"{t_['kernel']}")
+    else:
+        print(f"[{tag}] card time: not measured (the profiler recorded no "
+              f"device events)")
+    del model, opt, x, y, ids
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train():
+    """GPT-3 1.3B, B=4, S=2048: K4/K5 and K2/K3 on every attention and
+    LayerNorm (24/24/49/49 launches a step)."""
     from paddle_tpu_torch.core import seed
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
@@ -871,143 +1070,117 @@ def phase_train():
     torch.cuda.reset_peak_memory_stats()
     base_gb = torch.cuda.memory_allocated() / 2 ** 30  # held by earlier phases
     model = GPTForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
-    opt = ptt.optimizer.AdamW(parameters=model.parameters(),
-                              learning_rate=1e-4, use_multi_tensor=True,
-                              multi_precision=True)
-    model, opt = ptt.amp.decorate(models=model, optimizers=opt, level="O2",
-                                  dtype="bfloat16")
-    n_params = sum(p.numel() for p in model.parameters())
-    rs = np.random.RandomState(0)
-    ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
-                                     (TRAIN_B, TRAIN_S + 1)), device="cuda")
-    x, y = ids[:, :-1], ids[:, 1:]
+    n = cfg.num_layers
+    res = _train("train", "GPT-3 1.3B", model, TRAIN_B,
+                 (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
+                  norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
+                 (n, n, 2 * n + 1, 2 * n + 1), (fused_ops.RMS_NORM_KERNEL,))
+    res["base_gb"] = base_gb
+    print(f"[train] {base_gb:.1f} GiB of the peak was held before the phase")
+    return res
 
-    def step():
-        with ptt.amp.auto_cast(level="O2", dtype="bfloat16"):
-            _, loss = model(x, labels=y)
-        loss.backward()
-        opt.step()
-        opt.clear_grad()
-        return loss.detach()
 
-    path = (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
-            norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL)
-    everything = path + (fused_ops.RMS_NORM_KERNEL,)
-    for k in everything:
-        k.reset_counts()
-    losses = [step() for _ in range(2)]
-    torch.cuda.synchronize()
-    timed, t_steps = sync_time(lambda: [step() for _ in range(3)])
-    counts = _train_counts(everything)
-    losses = [float(v) for v in losses + timed]
-    n_steps = len(losses)
-    per_step = (24, 24, 2 * cfg.num_layers + 1, 2 * cfg.num_layers + 1)
-    check(all(np.isfinite(losses)), f"train: loss not finite: {losses}")
-    check(losses[-1] < losses[2], f"train: loss did not fall over the timed "
-                                  f"steps: {losses}")
-    for k, want in zip(path, per_step):
-        got, plain = counts[k.symbol]
-        check(got == want * n_steps and plain == 0,
-              f"train: {k.symbol} launched {got} times, plain {plain} "
-              f"times in {n_steps} steps (want {want} per step, 0 plain)")
-    check(counts[fused_ops.RMS_NORM_KERNEL.symbol] == (0, 0),
-          "train: the RMSNorm kernel ran on the GPT path")
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = t_steps / 3 * 1e3
-    tokens = TRAIN_B * TRAIN_S
-    pairs, fwd_work, _ = _attn_work(TRAIN_B, TRAIN_S, TRAIN_S,
-                                    cfg.num_heads,
-                                    cfg.hidden_size // cfg.num_heads, True)
-    attn_flops = 3 * cfg.num_layers * fwd_work["flops"]
-    model_flops = 6 * n_params * tokens + attn_flops
-    res = dict(batch=TRAIN_B, seq=TRAIN_S, steps=n_steps, losses=losses,
-               step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
-               peak_gb=peak_gb, base_gb=base_gb, params=n_params,
-               model_flops=model_flops,
-               mfu=model_flops / (step_ms / 1e3) / BF16_FLOPS,
-               launches={s_: c[0] for s_, c in counts.items()},
-               plain_calls={s_: c[1] for s_, c in counts.items()})
-    print(f"[train] GPT-3 1.3B ({n_params / 1e9:.3f} B params), B={TRAIN_B}"
-          f", S={TRAIN_S}, bf16 O2 AdamW: losses "
-          + ", ".join(f"{v:.4f}" for v in losses)
-          + f"; step {step_ms:.1f} ms, {res['tokens_per_s']:.0f} tokens/s, "
-          f"MFU {100 * res['mfu']:.1f}% (6N + attention FLOPs over 989 "
-          f"TFLOP/s), peak {peak_gb:.1f} GiB ({base_gb:.1f} GiB of it held "
-          f"before the phase)")
-    print(f"[train] launches in {n_steps} steps: "
-          + ", ".join(f"{s_} {c[0]}" for s_, c in counts.items())
-          + "; plain calls 0")
-    card_ms, top = device_breakdown(step, top=10)
-    if card_ms is not None:
-        res.update(step_device_ms=card_ms, device_busy=card_ms / step_ms,
-                   top_kernels=top)
-        print(f"[train] card time of one step {card_ms:.1f} ms = "
-              f"{100 * card_ms / step_ms:.0f}% of the host-clock step")
-        for t_ in top:
-            print(f"[train]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
-                  f"{t_['kernel']}")
-    else:
-        print("[train] card time: not measured (the profiler recorded no "
-              "device events)")
-    del model, opt, x, y, ids
+def tinyllama_1p1b():
+    """TinyLlama-1.1B's geometry (bench.py `bench_llama`): 22 layers of
+    E 2048, 32 heads of d=64 over 4 kv heads (GQA 8:1), SwiGLU 5632."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=2048, num_layers=22,
+                       num_heads=32, num_kv_heads=4, intermediate_size=5632,
+                       max_seq_len=2048, rope_theta=10000.0, rms_eps=1e-6)
+
+
+def phase_train_llama():
+    """TinyLlama-1.1B, B=8, S=2048: K4/K5 over the shared kv heads on
+    every attention and K1 on every RMSNorm (22/22/45 launches a step);
+    the LayerNorm kernels never run."""
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn.functional import norm
+
+    cfg = tinyllama_1p1b()
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    model = LlamaForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
+    n = cfg.num_layers
+    res = _train("train_llama", "TinyLlama-1.1B (GQA 32:4)", model,
+                 TRAIN_LLAMA_B,
+                 (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
+                  fused_ops.RMS_NORM_KERNEL),
+                 (n, n, 2 * n + 1),
+                 (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL))
+    res["base_gb"] = base_gb
+    print(f"[train_llama] {base_gb:.1f} GiB of the peak was held before the "
+          f"phase")
     return res
 
 
 def phase_train_card_vs_cpu():
-    """One gpt_tiny fp32 training step on the card and on the CPU from the
-    same weights: the loss, every gradient and the updated weights.
-    Tolerances: loss 1e-5 relative and gradients 1e-4 of each tensor's
-    largest value (cuBLAS, the kernels' tiles and dq's atomics sum in
-    other orders than the CPU); weights after AdamW every element within
-    1e-4, a tenth of the lr, and 99.9% within 1e-6 (Adam divides a
-    near-zero gradient by its own tiny RMS, so such an element's step
-    follows that gradient's last bits)."""
+    """One fp32 training step of gpt_tiny and of llama_tiny at GQA 4:2 on
+    the card and on the CPU from the same weights: the loss, every
+    gradient and the updated weights. Tolerances: loss 1e-5 relative and
+    gradients 1e-4 of each tensor's largest value (cuBLAS and the kernels'
+    tiles sum in other orders than the CPU); weights after AdamW every
+    element within 1e-4, a tenth of the lr, and 99.9% within 1e-6 (Adam
+    divides a near-zero gradient by its own tiny RMS, so such an element's
+    step follows that gradient's last bits)."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.core import seed
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt_tiny, llama_tiny)
 
-    cfg = gpt_tiny()
-    rs = np.random.RandomState(11)
-    ids = rs.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1))
-    cpu = GPTForCausalLM(cfg, device="cpu", generator=seed(7, "cpu"))
-    gpu = GPTForCausalLM(cfg, device="cuda")
-    gpu.load_state_dict(cpu.state_dict())
-    res = {}
-    for tag, m in (("cpu", cpu), ("card", gpu)):
-        dev = next(m.parameters()).device
-        x = torch.as_tensor(ids[:, :-1], device=dev)
-        y = torch.as_tensor(ids[:, 1:], device=dev)
-        opt = ptt.optimizer.AdamW(parameters=m.parameters(),
-                                  learning_rate=1e-3, use_multi_tensor=True,
-                                  multi_precision=True)
-        _, loss = m(x, labels=y)
-        loss.backward()
-        grads = {n: p.grad.detach().cpu().clone()
-                 for n, p in m.named_parameters()}
-        opt.step()
-        res[tag] = (loss.item(), grads,
-                    {n: p.detach().cpu() for n, p in m.named_parameters()})
-    (lc, gc, wc), (lg, gg, wg) = res["cpu"], res["card"]
-    check(abs(lc - lg) <= 1e-5 * abs(lc),
-          f"train card-vs-cpu: loss {lg} vs {lc}")
-    werr = []
-    for n in gc:
-        top = float(gc[n].abs().max())
-        gd = float((gg[n] - gc[n]).abs().max())
-        check(gd <= 1e-4 * top, f"train card-vs-cpu: grad {n}: max err "
-                                f"{gd} > {1e-4 * top}")
-        wd = (wg[n] - wc[n]).abs()
-        check(float(wd.max()) <= 1e-4,
-              f"train card-vs-cpu: weight {n}: max err {float(wd.max())}")
-        werr.append(wd.reshape(-1))
-    frac = float((torch.cat(werr) <= 1e-6).float().mean())
-    check(frac >= 0.999, f"train card-vs-cpu: only {frac:.5f} of weights "
-                         f"within 1e-6")
-    print(f"[train-card-vs-cpu] gpt_tiny fp32 step: loss {lg:.6f} (cpu "
-          f"{lc:.6f}); all {len(gc)} gradients within 1e-4 of their max; "
-          f"updated weights within 1e-4, {100 * frac:.3f}% within 1e-6")
-    return dict(loss_card=lg, loss_cpu=lc, weights_within_1e6=frac)
+    out = {}
+    for family, cls, cfg in (("gpt_tiny", GPTForCausalLM, gpt_tiny()),
+                             ("llama_tiny gqa 4:2", LlamaForCausalLM,
+                              llama_tiny(num_kv_heads=2))):
+        rs = np.random.RandomState(11)
+        ids = rs.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1))
+        cpu = cls(cfg, device="cpu", generator=seed(7, "cpu"))
+        gpu = cls(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        res = {}
+        for tag, m in (("cpu", cpu), ("card", gpu)):
+            dev = next(m.parameters()).device
+            x = torch.as_tensor(ids[:, :-1], device=dev)
+            y = torch.as_tensor(ids[:, 1:], device=dev)
+            opt = ptt.optimizer.AdamW(parameters=m.parameters(),
+                                      learning_rate=1e-3,
+                                      use_multi_tensor=True,
+                                      multi_precision=True)
+            _, loss = m(x, labels=y)
+            loss.backward()
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in m.named_parameters()}
+            opt.step()
+            res[tag] = (loss.item(), grads,
+                        {n: p.detach().cpu() for n, p in m.named_parameters()})
+        (lc, gc, wc), (lg, gg, wg) = res["cpu"], res["card"]
+        check(abs(lc - lg) <= 1e-5 * abs(lc),
+              f"train card-vs-cpu {family}: loss {lg} vs {lc}")
+        werr = []
+        for n in gc:
+            top = float(gc[n].abs().max())
+            gd = float((gg[n] - gc[n]).abs().max())
+            check(gd <= 1e-4 * top, f"train card-vs-cpu {family}: grad {n}: "
+                                    f"max err {gd} > {1e-4 * top}")
+            wd = (wg[n] - wc[n]).abs()
+            check(float(wd.max()) <= 1e-4,
+                  f"train card-vs-cpu {family}: weight {n}: max err "
+                  f"{float(wd.max())}")
+            werr.append(wd.reshape(-1))
+        frac = float((torch.cat(werr) <= 1e-6).float().mean())
+        check(frac >= 0.999, f"train card-vs-cpu {family}: only {frac:.5f} "
+                             f"of weights within 1e-6")
+        print(f"[train-card-vs-cpu] {family} fp32 step: loss {lg:.6f} (cpu "
+              f"{lc:.6f}); all {len(gc)} gradients within 1e-4 of their "
+              f"max; updated weights within 1e-4, {100 * frac:.3f}% within "
+              f"1e-6")
+        out[family] = dict(loss_card=lg, loss_cpu=lc,
+                           weights_within_1e6=frac)
+    return out
 
 
 def main():
@@ -1024,6 +1197,7 @@ def main():
                       ("gpt", phase_gpt), ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
                       ("train", phase_train),
+                      ("train_llama", phase_train_llama),
                       ("train_card_vs_cpu", phase_train_card_vs_cpu)):
         t0 = time.perf_counter()
         rec[name] = run()
@@ -1040,10 +1214,12 @@ def main():
     tk = rec["train_kernels"]
     fl = "paddle_tpu/incubate/nn/functional/flash_attention.py"
     launches = train["launches"]
+    ll = rec["train_llama"]["launches"]
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
-         {"llama2_7b serving": rec["llama"]["launches"]},
+         {"llama2_7b serving": rec["llama"]["launches"],
+          "tinyllama train": ll["ptt_rms_norm_fwd"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
@@ -1061,7 +1237,15 @@ def main():
         ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd.cu",
          f"{fl}:873",
          {"gpt3_1p3b train": launches["ptt_flash_bwd"]},
-         tk["flash_bwd"], tk["flash_bwd"])]
+         tk["flash_bwd"], tk["flash_bwd"]),
+        ("flash_fwd_gqa", "paddle_tpu_torch/csrc/flash_fwd.cu",
+         f"{fl}:769,805",
+         {"tinyllama train": ll["ptt_flash_fwd"]},
+         tk["flash_fwd_gqa"], tk["flash_fwd_gqa"]),
+        ("flash_bwd_gqa", "paddle_tpu_torch/csrc/flash_bwd.cu",
+         f"{fl}:873,1115",
+         {"tinyllama train": ll["ptt_flash_bwd"]},
+         tk["flash_bwd_gqa"], tk["flash_bwd_gqa"])]
     kernels = []
     for name, src, replaces, by_path, r, s in rows:
         kernels.append(dict(

@@ -7,8 +7,9 @@ on a ported path is a hand-written Hopper kernel under ``csrc/``.
 
 Ported so far: paged-KV serving of the Llama and GPT models
 (``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``) and
-GPT training (``model(ids, labels=...)``, ``loss.backward()``,
-``optimizer.AdamW``, ``amp.decorate`` / ``amp.auto_cast``).
+GPT and Llama (grouped-query) training (``model(ids, labels=...)``,
+``loss.backward()``, ``optimizer.AdamW``, ``amp.decorate`` /
+``amp.auto_cast``).
 """
 from . import amp, core, inference, models, nn, optimizer
 from .core import CPUPlace, CUDAPlace, seed, set_flags

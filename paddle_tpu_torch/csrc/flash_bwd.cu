@@ -2,35 +2,49 @@
 //
 // Replaces the TPU kernel `_bwd_nl_fused` (paddle_tpu/incubate/nn/
 // functional/flash_attention.py:873, driven by `_nl_backward`), the
-// one-pass dq/dk/dv. Layout as the forward (flash_fwd.cu): q, k, v read in
-// place by base pointer and row stride; dout [B,Sq,H*D] contiguous; lse
-// and delta = rowsum(dO * O) (computed outside the kernel, as the TPU
-// path does) [B,H,Sq] fp32; dq / dk / dv written at one row stride, so a
-// packed [B,S,3E] gradient is filled in place at its three column offsets.
+// one-pass dq/dk/dv, and the fold of its expanded grouped-query dk/dv in
+// `_flash_nl_bwd` (:1115). Layout as the forward (flash_fwd.cu): q, k, v
+// read in place by base pointer and row stride, k and v holding KVH heads
+// (KVH divides H; q head h reads kv head h / (H / KVH)); out and dout
+// [B,Sq,H*D] contiguous; lse [B,H,Sq] fp32 from the forward; dq written
+// at its row stride, dk and dv at theirs (a packed [B,S,3E] gradient is
+// filled in place at its three column offsets).
 //
-// What is computed, per (kv tile, q tile) and head: p = exp(logits - lse)
-// recomputed once (masked entries 0), dv += p^T dO, dp = dO v^T,
-// ds = p (dp - delta) cast to the input dtype, dk += ds^T q * scale,
-// dq += ds k * scale; every product accumulates in fp32.
+// What is computed, per (kv tile, q tile) and q head: p = exp(logits -
+// lse) (masked entries 0), dv += p^T dO, dp = dO v^T, ds = p (dp - delta)
+// cast to the input dtype, dk += ds^T q * scale, dq += ds k * scale, where
+// delta = rowsum(dO * O); every product accumulates in fp32. A kv head's
+// dk and dv sum the terms of all H / KVH q heads that share it.
 //
 // Bound: operations. Five products to the forward's two: about 172
 // GFLOP at B=4, S=2048, H=16, D=128 causal, so the least time is
 // FLOPs / 989 TFLOP/s.
 //
-// Design: Hopper's CTAs run in parallel, so the TPU's whole-sequence dq
-// scratch carried across a sequential grid does not translate. The kernel
-// keeps the one-pass shape: one CTA of 4 warps per (kv tile of 64 rows,
-// head, batch), each warp owning 16 kv rows, holds dk/dv in registers
-// over a loop of q tiles of 32 and adds each tile's dq into an fp32
-// [B,Sq,H*D] scratch with atomics (p is computed once, five products per
-// tile, against seven for a split dk/dv + dq pair of kernels). S^T, P^T,
-// dP^T and dS^T stay in registers as accumulators re-packed into A
-// operands; dS^T also goes to shared memory for the dq product. The q,
-// dO, lse and delta tiles are double-buffered with cp.async; bf16
-// fragments load with `ldmatrix` (`.trans` where the product reads a tile
-// column-wise). A second small kernel casts dq into place. The atomics
-// make dq's fp32 summation order vary from run to run; dk/dv are
-// deterministic.
+// Design. Hopper's CTAs run in parallel, so the TPU's whole-sequence dq
+// scratch carried across a sequential grid does not translate, and a sum
+// across CTAs in atomics makes dq's fp32 summation order (and so its
+// bits) change from run to run. dq is therefore computed apart, in K8's
+// manner (`_bwd_dq_kernel`), and every output has one writer that sums
+// its terms in a fixed order: the same inputs give the same bytes.
+// Fixed-order per-kv-tile dq partials reduced by a second kernel (as K3
+// does for dw/db) were the other choice; at B=8, S=2048, H=32, D=64 they
+// need (S / 64) fp32 copies of dq, 32 x 128 MiB = 4 GiB (half of it under
+// the causal mask), against no scratch at all here, at the price of
+// recomputing p and dp (two more products: seven in all, not five).
+//   1. delta_kernel: delta [B,H,Sq] fp32, one thread per (row, head).
+//   2. flash_dkdv_kernel: one CTA of 4 warps per (kv tile of 64 rows, kv
+//      head, batch), each warp owning 16 kv rows, holds dk/dv in registers
+//      over a loop of the group's q heads and each head's q tiles of 32,
+//      and writes them once at the kv width: nothing is expanded or
+//      folded. S^T, P^T, dP^T and dS^T stay in registers as accumulators
+//      re-packed into A operands. The q, dO, lse and delta tiles are
+//      double-buffered with cp.async; bf16 fragments load with `ldmatrix`
+//      (`.trans` where the product reads a tile column-wise). CTAs with
+//      the most causal work (the first kv tiles) are issued first.
+//   3. flash_dq_kernel: one CTA of 4 warps per (q tile of 64 rows, q head,
+//      batch), Q and dO in shared memory, K and V tiles of 64 streamed
+//      through a double buffer; S, P, dP and dS stay in registers, dS
+//      re-packed as the A operand of dS K, as the forward's P V.
 
 #include "flash_common.cuh"
 
@@ -38,36 +52,63 @@ namespace {
 
 using namespace ptt_flash;
 
-constexpr int kTileKV = 64;  // kv rows per CTA (16 per warp)
-constexpr int kTileQ = 32;   // q rows per step
-
-// Row stride of the dS^T tile [kv][q]: kTileQ plus 16 bytes.
-template <typename T>
-struct LdS {
-  static constexpr int value = kTileQ + 16 / static_cast<int>(sizeof(T));
-};
+constexpr int kTileKV = 64;    // dk/dv kernel: kv rows per CTA (16 a warp)
+constexpr int kTileQ = 32;     // dk/dv kernel: q rows per step
+constexpr int kTileQdq = 64;   // dq kernel: q rows per CTA (16 a warp)
+constexpr int kTileKVdq = 64;  // dq kernel: kv rows per step
 
 template <typename T, int D>
-constexpr size_t bwd_smem_bytes() {
+constexpr size_t dkdv_smem_bytes() {
   return static_cast<size_t>(2 * kTileKV + 4 * kTileQ) * Ld<T, D>::value *
              sizeof(T) +
-         static_cast<size_t>(kTileKV) * LdS<T>::value * sizeof(T) +
          4 * kTileQ * sizeof(float);
 }
 
 template <typename T, int D>
+constexpr size_t dq_smem_bytes() {
+  return static_cast<size_t>(2 * kTileQdq + 4 * kTileKVdq) *
+         Ld<T, D>::value * sizeof(T);
+}
+
+// delta[b][h][s] = sum_d dO[b][s][h D + d] O[b][s][h D + d] in fp32, in
+// order of d: one thread per (b, s, h), rows = B * Sq * H.
+template <typename T, int D>
+__global__ void delta_kernel(const T* __restrict__ out,
+                             const T* __restrict__ dout,
+                             float* __restrict__ delta, int sq, int heads,
+                             int64_t rows) {
+  constexpr int V = ptt::VecWidth<T>::value;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= rows) return;
+  const T* o = out + i * D;  // row (b, s), columns of head h
+  const T* g = dout + i * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += V) {
+    float fo[V], fg[V];
+    ptt::load_vec<T>(o + c, fo);
+    ptt::load_vec<T>(g + c, fg);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = fmaf(fg[j], fo[j], acc);
+  }
+  const int h = static_cast<int>(i % heads);
+  const int64_t bs = i / heads;
+  const int64_t b = bs / sq;
+  delta[(b * heads + h) * sq + (bs - b * sq)] = acc;
+}
+
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, int64_t q_stride,
-                     int64_t kv_stride, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, T* __restrict__ dk,
-                     T* __restrict__ dv, int64_t dkv_stride, int sq, int sk,
-                     int heads, float scale, int causal) {
+    flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, int64_t q_stride,
+                      int64_t kv_stride, const T* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk,
+                      T* __restrict__ dv, int64_t dkv_stride, int sq, int sk,
+                      int heads, int rep, float scale, int causal) {
   using P = typename Pair<T>::type;
   constexpr int LD = Ld<T, D>::value;
-  constexpr int LDS = LdS<T>::value;
   constexpr int NQT = kTileQ / 8;  // n-tiles of S^T
   constexpr int NDT = D / 8;       // n-tiles of dk, dv
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -75,13 +116,11 @@ __global__ void __launch_bounds__(kThreads)
   T* sV = sK + kTileKV * LD;
   T* sQ = sV + kTileKV * LD;       // [2][kTileQ][LD]
   T* sdO = sQ + 2 * kTileQ * LD;   // [2][kTileQ][LD]
-  T* sdS = sdO + 2 * kTileQ * LD;  // dS^T [kv][q]
-  float* sLse = reinterpret_cast<float*>(sdS + kTileKV * LDS);  // [2][kTileQ]
-  float* sDelta = sLse + 2 * kTileQ;                            // [2][kTileQ]
+  float* sLse = reinterpret_cast<float*>(sdO + 2 * kTileQ * LD);  // [2][kTileQ]
+  float* sDelta = sLse + 2 * kTileQ;                              // [2][kTileQ]
 
-  const int nkv = (sk + kTileKV - 1) / kTileKV;
-  const int k0 = (nkv - 1 - static_cast<int>(blockIdx.x)) * kTileKV;
-  const int h = blockIdx.y;
+  const int k0 = static_cast<int>(blockIdx.x) * kTileKV;
+  const int kh = blockIdx.y;  // this CTA's kv head
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -90,42 +129,47 @@ __global__ void __launch_bounds__(kThreads)
   const int off = sk - sq;
   const int r0 = warp * 16;  // this warp's kv rows within the tile
   const int e_all = heads * D;
+  const int64_t kvcol = static_cast<int64_t>(kh) * D;
 
-  const int64_t hcol = static_cast<int64_t>(h) * D;
-  const T* qb = q + static_cast<int64_t>(b) * sq * q_stride + hcol;
-  const T* dob = dout + static_cast<int64_t>(b) * sq * e_all + hcol;
-  const float* lseb = lse + (static_cast<int64_t>(b) * heads + h) * sq;
-  const float* deltab = delta + (static_cast<int64_t>(b) * heads + h) * sq;
-
-  // the q tiles: from the first one any of this CTA's keys is visible to
+  // the q tiles: from the first one any of this CTA's keys is visible to;
+  // the loop runs over (q head of the group, q tile), head by head
   int q_begin = 0;
   if (causal) {
     const int first = k0 - off;
     q_begin = first > 0 ? first / kTileQ * kTileQ : 0;
   }
-  auto load_q_tile = [&](int q0, int buf) {
-    load_tile_async<T, D, kTileQ>(sQ + buf * kTileQ * LD, qb, q_stride, q0,
-                                  sq);
-    load_tile_async<T, D, kTileQ>(sdO + buf * kTileQ * LD, dob, e_all, q0,
-                                  sq);
+  const int nq = q_begin < sq ? (sq - q_begin + kTileQ - 1) / kTileQ : 0;
+  const int n_it = rep * nq;
+  auto load_q_tile = [&](int i, int buf) {
+    const int h = kh * rep + i / nq;
+    const int q0 = q_begin + (i % nq) * kTileQ;
+    const int64_t hcol = static_cast<int64_t>(h) * D;
+    load_tile_async<T, D, kTileQ>(
+        sQ + buf * kTileQ * LD,
+        q + static_cast<int64_t>(b) * sq * q_stride + hcol, q_stride, q0,
+        sq);
+    load_tile_async<T, D, kTileQ>(
+        sdO + buf * kTileQ * LD,
+        dout + static_cast<int64_t>(b) * sq * e_all + hcol, e_all, q0, sq);
     if (threadIdx.x < 2 * kTileQ) {
-      const int i = threadIdx.x & (kTileQ - 1);
-      const bool live = q0 + i < sq;
-      const float* src = threadIdx.x < kTileQ ? lseb : deltab;
-      float* dst = (threadIdx.x < kTileQ ? sLse : sDelta) + buf * kTileQ + i;
-      cp_async4(dst, src + (live ? q0 + i : 0), live);
+      const int j = threadIdx.x & (kTileQ - 1);
+      const bool live = q0 + j < sq;
+      const int64_t row0 = (static_cast<int64_t>(b) * heads + h) * sq;
+      const float* src = (threadIdx.x < kTileQ ? lse : delta) + row0;
+      float* dst = (threadIdx.x < kTileQ ? sLse : sDelta) + buf * kTileQ + j;
+      cp_async4(dst, src + (live ? q0 + j : 0), live);
     }
     cp_async_commit();
   };
 
   load_tile_async<T, D, kTileKV>(
-      sK, k + static_cast<int64_t>(b) * sk * kv_stride + hcol, kv_stride, k0,
-      sk);
+      sK, k + static_cast<int64_t>(b) * sk * kv_stride + kvcol, kv_stride,
+      k0, sk);
   load_tile_async<T, D, kTileKV>(
-      sV, v + static_cast<int64_t>(b) * sk * kv_stride + hcol, kv_stride, k0,
-      sk);
-  if (q_begin < sq) {
-    load_q_tile(q_begin, 0);  // one group with K and V
+      sV, v + static_cast<int64_t>(b) * sk * kv_stride + kvcol, kv_stride,
+      k0, sk);
+  if (n_it > 0) {
+    load_q_tile(0, 0);  // one group with K and V
   } else {
     cp_async_commit();
   }
@@ -138,16 +182,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
   }
 
-  int it = 0;
-  for (int q0 = q_begin; q0 < sq; q0 += kTileQ, ++it) {
+  for (int it = 0; it < n_it; ++it) {
     const int buf = it & 1;
+    const int q0 = q_begin + (it % nq) * kTileQ;
     const T* cQ = sQ + buf * kTileQ * LD;
     const T* cdO = sdO + buf * kTileQ * LD;
     const float* cLse = sLse + buf * kTileQ;
     const float* cDelta = sDelta + buf * kTileQ;
     cp_async_wait_all();  // this q tile (and, first, K and V) has landed
-    __syncthreads();      // ... for every thread; the last dQ step is done
-    if (q0 + kTileQ < sq) load_q_tile(q0 + kTileQ, buf ^ 1);
+    __syncthreads();      // ... for every thread; the other buffer is free
+    if (it + 1 < n_it) load_q_tile(it + 1, buf ^ 1);
 
     // S^T = K Q^T, then P^T = exp(S^T * scale - lse) (masked: 0)
     float st[NQT][4];
@@ -212,7 +256,7 @@ __global__ void __launch_bounds__(kThreads)
         dpt[j][e] = st[j][e] * (dpt[j][e] - cDelta[j * 8 + 2 * t + (e & 1)]);
       }
     }
-    // dK += dS^T Q (scaled at the end); dS^T to shared memory for dQ
+    // dK += dS^T Q (scaled at the end)
 #pragma unroll
     for (int ks = 0; ks < kTileQ / 16; ++ks) {
       P af[4];
@@ -225,48 +269,6 @@ __global__ void __launch_bounds__(kThreads)
         mma(dk_acc[n + 1], af, b1);
       }
     }
-#pragma unroll
-    for (int j = 0; j < NQT; ++j) {
-      st_pair<T>(sdS + (r0 + g) * LDS + j * 8 + 2 * t, dpt[j][0], dpt[j][1]);
-      st_pair<T>(sdS + (r0 + g + 8) * LDS + j * 8 + 2 * t, dpt[j][2],
-                 dpt[j][3]);
-    }
-    __syncthreads();
-
-    // dQ[32 x D] += dS[32 x 64] K[64 x D]: warp w takes q rows
-    // 16 (w % 2) and the half of D at (w / 2) * D / 2
-    {
-      const int qr = (warp & 1) * 16;
-      const int c0 = (warp >> 1) * (D / 2);
-      float acc[D / 16][4];
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kTileKV / 16; ++ks) {
-        P af[4];
-        frag_a_t<T>(af, sdS, LDS, qr, ks * 16);  // A[q][kv] = dS^T[kv][q]
-#pragma unroll
-        for (int n = 0; n < D / 16; n += 2) {
-          P b0[2], b1[2];
-          frag_b2<T>(b0, b1, sK, LD, ks * 16, c0 + n * 8);
-          mma(acc[n], af, b0);
-          mma(acc[n + 1], af, b1);
-        }
-      }
-#pragma unroll
-      for (int rh = 0; rh < 2; ++rh) {
-        const int qrow = q0 + qr + g + 8 * rh;
-        if (qrow >= sq) continue;
-        float* dst = dq_acc + (static_cast<int64_t>(b) * sq + qrow) * e_all +
-                     hcol + c0 + 2 * t;
-#pragma unroll
-        for (int n = 0; n < D / 16; ++n) {
-          atomicAdd(reinterpret_cast<float2*>(dst + n * 8),
-                    make_float2(acc[n][2 * rh] * scale,
-                                acc[n][2 * rh + 1] * scale));
-        }
-      }
-    }
   }
   cp_async_wait_all();  // no copy outlives the CTA
 
@@ -275,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
     const int kv = k0 + r0 + g + 8 * rh;
     if (kv >= sk) continue;
     const int64_t base = (static_cast<int64_t>(b) * sk + kv) * dkv_stride +
-                         hcol + 2 * t;
+                         kvcol + 2 * t;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
       st_pair<T>(dk + base + n * 8, dk_acc[n][2 * rh] * scale,
@@ -285,77 +287,232 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dq [rows, cols] (row stride `stride`) = dq_acc [rows, cols] cast to T.
-template <typename T>
-__global__ void cast_rows_kernel(const float* __restrict__ src,
-                                 T* __restrict__ dst, int64_t rows,
-                                 int64_t cols, int64_t stride) {
-  const int64_t n = rows * cols;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t r = i / cols;
-    dst[r * stride + (i - r * cols)] = ptt::from_float<T>(src[i]);
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, int64_t q_stride,
+                    int64_t kv_stride, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int64_t dq_stride, int sq, int sk, int heads, int rep,
+                    float scale, int causal) {
+  using P = typename Pair<T>::type;
+  constexpr int LD = Ld<T, D>::value;
+  constexpr int NKT = kTileKVdq / 8;  // n-tiles of S and dP
+  constexpr int NDT = D / 8;          // n-tiles of dq
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sQ = reinterpret_cast<T*>(smem_raw);
+  T* sdO = sQ + kTileQdq * LD;
+  T* sK = sdO + kTileQdq * LD;       // [2][kTileKVdq][LD]
+  T* sV = sK + 2 * kTileKVdq * LD;   // [2][kTileKVdq][LD]
+
+  const int nq = (sq + kTileQdq - 1) / kTileQdq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x)) * kTileQdq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int off = sk - sq;
+  const int r0 = warp * 16;
+  const int e_all = heads * D;
+
+  const int64_t hcol = static_cast<int64_t>(h) * D;
+  const int64_t kvcol = static_cast<int64_t>(h / rep) * D;  // shared kv head
+  const T* kb = k + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
+  const T* vb = v + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
+
+  int kv_end = sk;
+  if (causal) {
+    const int last_q = (q0 + kTileQdq < sq ? q0 + kTileQdq : sq) - 1;
+    kv_end = last_q + off + 1 < sk ? last_q + off + 1 : sk;
+  }
+  const int n_tiles = kv_end > 0 ? (kv_end + kTileKVdq - 1) / kTileKVdq : 0;
+
+  load_tile_async<T, D, kTileQdq>(
+      sQ, q + static_cast<int64_t>(b) * sq * q_stride + hcol, q_stride, q0,
+      sq);
+  load_tile_async<T, D, kTileQdq>(
+      sdO, dout + static_cast<int64_t>(b) * sq * e_all + hcol, e_all, q0, sq);
+  if (n_tiles > 0) {
+    load_tile_async<T, D, kTileKVdq>(sK, kb, kv_stride, 0, sk);
+    load_tile_async<T, D, kTileKVdq>(sV, vb, kv_stride, 0, sk);
+  }
+  cp_async_commit();
+
+  // the statistics of this thread's two rows
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = q0 + r0 + g + 8 * rh;
+    const int64_t i = (static_cast<int64_t>(b) * heads + h) * sq + row;
+    row_lse[rh] = row < sq ? lse[i] : 0.f;
+    row_delta[rh] = row < sq ? delta[i] : 0.f;
+  }
+  float acc[NDT][4];
+#pragma unroll
+  for (int n = 0; n < NDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * kTileKVdq;
+    const T* cK = sK + (it & 1) * kTileKVdq * LD;
+    const T* cV = sV + (it & 1) * kTileKVdq * LD;
+    cp_async_wait_all();  // tile it (and, first, Q and dO) has landed
+    __syncthreads();      // ... for every thread; tile it-1 is read out
+    if (it + 1 < n_tiles) {
+      T* nK = sK + ((it + 1) & 1) * kTileKVdq * LD;
+      T* nV = sV + ((it + 1) & 1) * kTileKVdq * LD;
+      load_tile_async<T, D, kTileKVdq>(nK, kb, kv_stride, k0 + kTileKVdq, sk);
+      load_tile_async<T, D, kTileKVdq>(nV, vb, kv_stride, k0 + kTileKVdq, sk);
+      cp_async_commit();
+    }
+
+    // S = Q K^T and dP = dO V^T
+    float s[NKT][4], dp[NKT][4];
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      P qa[4], da[4];
+      frag_a<T>(qa, sQ, LD, r0, ks * 16);
+      frag_a<T>(da, sdO, LD, r0, ks * 16);
+#pragma unroll
+      for (int j = 0; j < NKT; j += 2) {
+        P b0[2], b1[2];
+        frag_bt2<T>(b0, b1, cK, LD, ks * 16, j * 8);
+        mma(s[j], qa, b0);
+        mma(s[j + 1], qa, b1);
+        frag_bt2<T>(b0, b1, cV, LD, ks * 16, j * 8);
+        mma(dp[j], da, b0);
+        mma(dp[j + 1], da, b1);
+      }
+    }
+    // P = exp(S * scale - lse) (masked: 0), then dS = P (dP - delta),
+    // kept in s
+    const bool need_mask =
+        k0 + kTileKVdq > sk || (causal && k0 + kTileKVdq - 1 > q0 + off);
+#pragma unroll
+    for (int j = 0; j < NKT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rh = e >> 1;
+        bool ok = true;
+        if (need_mask) {
+          const int row = q0 + r0 + g + 8 * rh;
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          ok = col < sk && (!causal || col <= row + off);
+        }
+        const float p = ok ? expf(s[j][e] * scale - row_lse[rh]) : 0.f;
+        s[j][e] = p * (dp[j][e] - row_delta[rh]);
+      }
+    }
+    // dQ += dS K (scaled at the end)
+#pragma unroll
+    for (int ks = 0; ks < kTileKVdq / 16; ++ks) {
+      P af[4];
+      c_to_a<T>(af, s[2 * ks], s[2 * ks + 1]);  // ds in the input dtype
+#pragma unroll
+      for (int n = 0; n < NDT; n += 2) {
+        P b0[2], b1[2];
+        frag_b2<T>(b0, b1, cK, LD, ks * 16, n * 8);
+        mma(acc[n], af, b0);
+        mma(acc[n + 1], af, b1);
+      }
+    }
+  }
+  cp_async_wait_all();  // no copy outlives the CTA (n_tiles == 0)
+
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const int row = q0 + r0 + g + 8 * rh;
+    if (row >= sq) continue;
+    T* drow = dq + (static_cast<int64_t>(b) * sq + row) * dq_stride + hcol;
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) {
+      st_pair<T>(drow + n * 8 + 2 * t, acc[n][2 * rh] * scale,
+                 acc[n][2 * rh + 1] * scale);
+    }
   }
 }
 
 template <typename T, int D>
 int bwd(const void* q, const void* k, const void* v, int64_t q_stride,
-        int64_t kv_stride, const void* dout, const void* lse,
-        const void* delta, void* dq_acc, void* dq, void* dk, void* dv,
-        int64_t dgrad_stride, int batch, int sq, int sk, int heads,
-        int causal, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<T, D>();
-  auto* kernel = flash_bwd_kernel<T, D>;
-  static bool smem_set = false;
-  int rc = set_smem(kernel, smem, &smem_set);
+        int64_t kv_stride, const void* out, const void* dout,
+        const void* lse, void* delta, void* dq, void* dk, void* dv,
+        int64_t dq_stride, int64_t dkv_stride, int batch, int sq, int sk,
+        int heads, int kv_heads, int causal, cudaStream_t stream) {
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const int rep = heads / kv_heads;
+  const int64_t rows = static_cast<int64_t>(batch) * sq * heads;
+  delta_kernel<T, D><<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
+                       stream>>>(static_cast<const T*>(out),
+                                 static_cast<const T*>(dout),
+                                 static_cast<float*>(delta), sq, heads, rows);
+  int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  const dim3 grid((sk + kTileKV - 1) / kTileKV, heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
+
+  constexpr size_t smem_kv = dkdv_smem_bytes<T, D>();
+  auto* dkdv = flash_dkdv_kernel<T, D>;
+  static bool dkdv_smem_set = false;
+  rc = set_smem(dkdv, smem_kv, &dkdv_smem_set);
+  if (rc != 0) return rc;
+  const dim3 grid_kv((sk + kTileKV - 1) / kTileKV, kv_heads, batch);
+  dkdv<<<grid_kv, kThreads, smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_stride, kv_stride,
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq_acc),
-      static_cast<T*>(dk), static_cast<T*>(dv), dgrad_stride, sq, sk, heads,
-      1.f / sqrtf(static_cast<float>(D)), causal);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), dkv_stride, sq, sk, heads, rep, scale, causal);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  const int64_t rows = static_cast<int64_t>(batch) * sq;
-  const int64_t cols = static_cast<int64_t>(heads) * D;
-  int64_t blocks = (rows * cols + 255) / 256;
-  if (blocks > 65535) blocks = 65535;
-  cast_rows_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      static_cast<const float*>(dq_acc), static_cast<T*>(dq), rows, cols,
-      dgrad_stride);
+
+  constexpr size_t smem_q = dq_smem_bytes<T, D>();
+  auto* dqk = flash_dq_kernel<T, D>;
+  static bool dq_smem_set = false;
+  rc = set_smem(dqk, smem_q, &dq_smem_set);
+  if (rc != 0) return rc;
+  const dim3 grid_q((sq + kTileQdq - 1) / kTileQdq, heads, batch);
+  dqk<<<grid_q, kThreads, smem_q, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), q_stride, kv_stride,
+      static_cast<const T*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), dq_stride, sq,
+      sk, heads, rep, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, strides as ptt_flash_fwd; dout: [batch, sq, heads * head_dim]
-// contiguous; lse, delta: [batch, heads, sq] fp32; dq_acc: fp32 [batch,
-// sq, heads * head_dim], zero on entry; dq / dk, dv: [batch, sq / sk,
-// heads * head_dim] rows of stride dgrad_stride (they may be column views
-// of one packed gradient). Launches the one-pass kernel and the dq cast;
-// returns cudaGetLastError().
+// q, k, v, strides, heads and kv_heads as ptt_flash_fwd; out, dout:
+// [batch, sq, heads * head_dim] contiguous; lse: [batch, heads, sq] fp32
+// from the forward; delta: fp32 [batch, heads, sq] scratch (written
+// here); dq: [batch, sq, heads * head_dim] rows of stride dq_stride; dk,
+// dv: [batch, sk, kv_heads * head_dim] rows of stride dkv_stride (all
+// three may be column views of one packed gradient). Launches the delta,
+// dk/dv and dq kernels; returns cudaGetLastError().
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              int64_t q_stride, int64_t kv_stride,
-                             const void* dout, const void* lse,
-                             const void* delta, void* dq_acc, void* dq,
-                             void* dk, void* dv, int64_t dgrad_stride,
-                             int batch, int sq, int sk, int heads,
-                             int head_dim, int causal, int dtype,
-                             void* stream) {
-  if (!ptt_flash::args_ok(batch, sq, sk, heads, head_dim) || q == nullptr ||
-      k == nullptr || v == nullptr || dout == nullptr || lse == nullptr ||
-      delta == nullptr || dq_acc == nullptr || dq == nullptr ||
-      dk == nullptr || dv == nullptr) {
+                             const void* out, const void* dout,
+                             const void* lse, void* delta, void* dq,
+                             void* dk, void* dv, int64_t dq_stride,
+                             int64_t dkv_stride, int batch, int sq, int sk,
+                             int heads, int kv_heads, int head_dim,
+                             int causal, int dtype, void* stream) {
+  if (!ptt_flash::args_ok(batch, sq, sk, heads, kv_heads, head_dim) ||
+      q == nullptr || k == nullptr || v == nullptr || out == nullptr ||
+      dout == nullptr || lse == nullptr || delta == nullptr ||
+      dq == nullptr || dk == nullptr || dv == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_BWD(T, D)                                                     \
-  bwd<T, D>(q, k, v, q_stride, kv_stride, dout, lse, delta, dq_acc, dq, dk, \
-            dv, dgrad_stride, batch, sq, sk, heads, causal, s)
+#define PTT_BWD(T, D)                                                       \
+  bwd<T, D>(q, k, v, q_stride, kv_stride, out, dout, lse, delta, dq, dk, dv, \
+            dq_stride, dkv_stride, batch, sq, sk, heads, kv_heads, causal,   \
+            s)
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
 #undef PTT_BWD
 }

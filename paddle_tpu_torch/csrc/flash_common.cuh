@@ -279,9 +279,10 @@ int set_smem(Kern kernel, size_t bytes, bool* done) {
   return rc;
 }
 
-inline bool args_ok(int batch, int sq, int sk, int heads, int head_dim) {
+inline bool args_ok(int batch, int sq, int sk, int heads, int kv_heads,
+                    int head_dim) {
   return batch >= 1 && batch <= 65535 && sq >= 1 && sk >= 1 && heads >= 1 &&
-         heads <= 65535 &&
+         heads <= 65535 && kv_heads >= 1 && heads % kv_heads == 0 &&
          (head_dim == 32 || head_dim == 64 || head_dim == 128);
 }
 

@@ -7,6 +7,10 @@
 // the packed [B,S,3E] qkv of a fused projection is read in place at column
 // offsets 0, E and 2E with no slice copies; out [B,Sq,H*D] contiguous;
 // lse [B,H,Sq] fp32 (the TPU's [B,H/hpb,hpb,S] is a lane artefact).
+// Grouped query: k, v may hold KVH heads ([B,Sk,KVH*D], KVH dividing H);
+// q head h reads kv head h / (H / KVH) in place at its own column offset,
+// so K and V are never repeated (the TPU kernels pick the shared head out
+// of a 128-lane pair block, `_pair_kv`; here it is only a pointer).
 //
 // What is computed (as the TPU kernels, per head): logits = (q . k^T in
 // fp32) * 1/sqrt(D), causal mask bottom-right (q_pos + Sk - Sq >= k_pos),
@@ -28,7 +32,9 @@
 // `mma.sync.m16n8k16` with `ldmatrix` fragment loads (`.trans` for V); S
 // and P stay in registers, the S accumulator re-packed as the A operand
 // of P.V. Only tiles that cross the causal diagonal or the ragged end are
-// masked. CTAs with the most causal work are issued first.
+// masked. CTAs with the most causal work are issued first, and the q heads
+// that share a kv head are neighbours in the grid, so their K/V tiles are
+// read from device memory about once and from L2 after that.
 
 #include "flash_common.cuh"
 
@@ -51,7 +57,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, int64_t q_stride,
                      int64_t kv_stride, T* __restrict__ out,
                      float* __restrict__ lse, int sq, int sk, int heads,
-                     float scale, int causal) {
+                     int rep, float scale, int causal) {
   using P = typename Pair<T>::type;
   constexpr int LD = Ld<T, D>::value;
   constexpr int NKT = kTileKV / 8;  // n-tiles of S
@@ -74,10 +80,9 @@ __global__ void __launch_bounds__(kThreads)
 
   const T* qb = q + static_cast<int64_t>(b) * sq * q_stride +
                 static_cast<int64_t>(h) * D;
-  const T* kb = k + static_cast<int64_t>(b) * sk * kv_stride +
-                static_cast<int64_t>(h) * D;
-  const T* vb = v + static_cast<int64_t>(b) * sk * kv_stride +
-                static_cast<int64_t>(h) * D;
+  const int64_t kvcol = static_cast<int64_t>(h / rep) * D;  // shared kv head
+  const T* kb = k + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
+  const T* vb = v + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
 
   int kv_end = sk;
   if (causal) {
@@ -219,7 +224,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
         int64_t kv_stride, void* out, void* lse, int batch, int sq, int sk,
-        int heads, int causal, cudaStream_t stream) {
+        int heads, int kv_heads, int causal, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<T, D>();
   auto* kernel = flash_fwd_kernel<T, D>;
   static bool smem_set = false;
@@ -229,7 +234,7 @@ int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), q_stride, kv_stride, static_cast<T*>(out),
-      static_cast<float*>(lse), sq, sk, heads,
+      static_cast<float*>(lse), sq, sk, heads, heads / kv_heads,
       1.f / sqrtf(static_cast<float>(D)), causal);
   return static_cast<int>(cudaGetLastError());
 }
@@ -237,24 +242,26 @@ int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
 }  // namespace
 
 // q: [batch, sq, heads * head_dim] rows of stride q_stride elements;
-// k, v: [batch, sk, ...] rows of stride kv_stride (k and v may be column
-// views of one packed array); out: [batch, sq, heads * head_dim]
+// k, v: [batch, sk, kv_heads * head_dim] rows of stride kv_stride (k and v
+// may be column views of one packed array; kv_heads divides heads); out:
+// [batch, sq, heads * head_dim]
 // contiguous; lse: [batch, heads, sq] fp32. Pointers and row strides are
 // 16-byte aligned; head_dim is 32, 64 or 128; one dtype (ptt::DType).
 // Returns cudaGetLastError() after the launch.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              int64_t q_stride, int64_t kv_stride, void* out,
                              void* lse, int batch, int sq, int sk, int heads,
-                             int head_dim, int causal, int dtype,
-                             void* stream) {
-  if (!ptt_flash::args_ok(batch, sq, sk, heads, head_dim) || q == nullptr ||
+                             int kv_heads, int head_dim, int causal,
+                             int dtype, void* stream) {
+  if (!ptt_flash::args_ok(batch, sq, sk, heads, kv_heads, head_dim) ||
+      q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr || lse == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PTT_FWD(T, D)                                                    \
   fwd<T, D>(q, k, v, q_stride, kv_stride, out, lse, batch, sq, sk, heads, \
-            causal, s)
+            kv_heads, causal, s)
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
 #undef PTT_FWD
 }

@@ -1,5 +1,7 @@
 """RMSNorm, rotary position embedding, swiglu. Counterpart of
-paddle_tpu/incubate/nn/functional/fused_ops.py.
+paddle_tpu/incubate/nn/functional/fused_ops.py. Rope and swiglu are amp
+"allow" ops and RMSNorm an amp "keep" op, as the JAX package registers
+them.
 
 ``fused_rms_norm`` is a ``torch.autograd.Function`` (the JAX package's
 ``_rms_norm_fused`` custom VJP). Its forward sends a CUDA tensor to the
@@ -16,6 +18,7 @@ import ctypes
 
 import torch
 
+from ....amp.state import autocast
 from ....csrc import DTYPE_CODES, Kernel
 
 # Replaces `_rms_norm_kernel` (paddle_tpu/incubate/nn/functional/
@@ -116,18 +119,25 @@ def _rope_rotate(x, cos, sin):
     return x * cos + rot * sin
 
 
-def fused_rotary_position_embedding(q, k, position_ids,
-                                    theta: float = 10000.0):
+def fused_rotary_position_embedding(q, k, position_ids=None,
+                                    theta: float = 10000.0, pos_offset=0):
     """paddle.incubate.nn.functional.fused_rotary_position_embedding,
-    neox style, on the per-sequence ``position_ids`` [B, S] path that
-    paged serving takes. q/k: [batch, seq, heads, dim]. The cos/sin
-    tables are cast to q's dtype before the multiply, as in the JAX
-    package. Returns (q', k')."""
+    neox style, with tables made from ``theta``: per-sequence positions
+    ``position_ids`` [B, S] (the paged serving path), else positions
+    ``pos_offset + arange(S)`` shared by the batch (the no-cache training
+    path). q/k: [batch, seq, heads, dim]; k may hold fewer heads than q.
+    An amp "allow" op, as in the JAX package, whose cos/sin tables are
+    cast to q's dtype before the multiply. Returns (q', k')."""
+    q, k = autocast("fused_rope", "allow", q, k)
     d = q.shape[-1]
     inv = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                         device=q.device) / d))
-    t = position_ids.to(torch.float32)
-    freqs = t[..., None] * inv                     # [B, S, d/2]
+    if position_ids is not None:
+        t = position_ids.to(torch.float32)         # [B, S]
+    else:
+        t = (torch.arange(q.shape[1], dtype=torch.float32, device=q.device)
+             + pos_offset)[None, :]                # [1, S]
+    freqs = t[..., None] * inv                     # [B or 1, S, d/2]
     emb = torch.cat([freqs, freqs], dim=-1)
     cos = torch.cos(emb)[:, :, None, :].to(q.dtype)
     sin = torch.sin(emb)[:, :, None, :].to(q.dtype)
@@ -135,7 +145,8 @@ def fused_rotary_position_embedding(q, k, position_ids,
 
 
 def swiglu(x, y):
-    """silu(x) * y."""
+    """silu(x) * y; an amp "allow" op, as in the JAX package."""
+    x, y = autocast("swiglu", "allow", x, y)
     return torch.nn.functional.silu(x) * y
 
 

@@ -1,10 +1,14 @@
-"""Llama-family decoder for paged-KV serving: RMSNorm pre-norms, rotary
-embeddings, grouped-query attention, SwiGLU MLP. Counterpart of
-paddle_tpu/models/llama.py, cut to the paged-cache serving path.
+"""Llama-family decoder: RMSNorm pre-norms, rotary embeddings,
+grouped-query attention, SwiGLU MLP. Counterpart of
+paddle_tpu/models/llama.py, cut to the paged-cache serving path and the
+no-cache training forward.
 
-Every norm runs the RMSNorm kernel through fused_rms_norm. Parameter
-names and layouts are the JAX package's, so its state_dict loads name
-for name (bridge.load_jax_state).
+Every norm runs the RMSNorm kernel through fused_rms_norm. Training
+attention goes through scaled_dot_product_attention to the flash kernels,
+which address the shared kv heads in place. Parameter names and layouts
+are the JAX package's, so its state_dict loads name for name
+(bridge.load_jax_state). Not ported (raise NotImplementedError): the
+dense (k, v) tuple cache of the non-paged generate, and recompute.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from ..incubate.nn.functional.fused_ops import (
     fused_rms_norm, fused_rotary_position_embedding, swiglu)
 from ..incubate.nn.functional.paged_kv import (
     PagedCache, block_grouped_query_attention)
+from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Embedding, Linear
 from ..nn.layer.common import new_parameter
@@ -37,6 +42,7 @@ class LlamaConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
+    recompute: bool = False
 
     @property
     def kv_heads(self) -> int:
@@ -100,19 +106,27 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(e, e, bias_attr=False, **factory)
         self._theta = cfg.rope_theta
 
-    def forward(self, x, cache: PagedCache, pos_offset=0):
-        """Paged serving: each sequence's tokens are rotated at its own
-        cached position (``pos_offset`` is a per-sequence [B] vector in
-        decode). Returns (out, the cache advanced by this call)."""
-        if not isinstance(cache, PagedCache):
+    def forward(self, x, cache=None, pos_offset=0):
+        """No cache (training): rope at positions 0..S-1, causal attention
+        over the shared kv heads; returns out. Paged serving: each
+        sequence's tokens are rotated at its own cached position
+        (``pos_offset`` is a per-sequence [B] vector in decode); returns
+        (out, the cache advanced by this call)."""
+        if cache is not None and not isinstance(cache, PagedCache):
             raise NotImplementedError(
-                "LlamaAttention: only the paged-cache serving path is ported")
+                "LlamaAttention: the dense (k, v) cache is not ported; only "
+                "the paged cache and the no-cache forward are")
         b, s, e = x.shape
         d = self.head_dim
         q = self.q_proj(x).reshape(b, s, self.num_heads, d)
         k = self.k_proj(x).reshape(b, s, self.kv_heads, d)
         v = self.v_proj(x).reshape(b, s, self.kv_heads, d)
         # v is not rotated in llama
+        if cache is None:
+            q, k = fused_rotary_position_embedding(q, k, theta=self._theta,
+                                                   pos_offset=0)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            return self.o_proj(out.reshape(b, s, e))
         q, k = fused_rotary_position_embedding(
             q, k, theta=self._theta,
             position_ids=_positions(pos_offset, s, x.device))
@@ -147,12 +161,18 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = LlamaRMSNorm(
             cfg.hidden_size, cfg.rms_eps, **factory)
         self.mlp = LlamaMLP(cfg, **factory)
+        self._recompute = cfg.recompute
 
-    def forward(self, x, cache, pos_offset=0):
-        a, new_cache = self.self_attn(self.input_layernorm(x), cache=cache,
-                                      pos_offset=pos_offset)
-        x = x + a
-        return x + self.mlp(self.post_attention_layernorm(x)), new_cache
+    def forward(self, x, cache=None, pos_offset=0):
+        if cache is not None:
+            a, new_cache = self.self_attn(self.input_layernorm(x),
+                                          cache=cache, pos_offset=pos_offset)
+            x = x + a
+            return x + self.mlp(self.post_attention_layernorm(x)), new_cache
+        if self._recompute and self.training:
+            raise NotImplementedError("LlamaConfig.recompute is not ported")
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
 
 
 class LlamaModel(nn.Module):
@@ -167,12 +187,14 @@ class LlamaModel(nn.Module):
         _llama_init(self, cfg, factory.get("generator"))
 
     def forward(self, input_ids, caches=None, pos_offset=0):
-        """Paged-cache forward: returns (final-norm hidden [B, S, E], the
-        per-layer caches advanced by this call)."""
-        if caches is None:
-            raise NotImplementedError(
-                "LlamaModel: the no-cache (training) forward is not ported")
+        """No caches (training): returns the final-norm hidden [B, S, E].
+        Paged caches (serving): returns (hidden, the per-layer caches
+        advanced by this call)."""
         x = self.embed_tokens(input_ids)
+        if caches is None:
+            for layer in self.layers:
+                x = layer(x)
+            return self.norm(x)
         new_caches = []
         for layer, c in zip(self.layers, caches):
             x, nc = layer(x, cache=c, pos_offset=pos_offset)
@@ -200,9 +222,14 @@ class LlamaForCausalLM(nn.Module):
         I.Normal(mean=0.0, std=0.02)(self.lm_head.weight, generator)
 
     def forward(self, input_ids, labels=None):
-        raise NotImplementedError(
-            "LlamaForCausalLM.forward (training / no-cache) is not ported; "
-            "serve with generate(use_paged_kv=True)")
+        """Logits [B, S, V] of the untied lm_head; with ``labels`` [B, S],
+        (logits, mean cross-entropy loss)."""
+        logits = self.lm_head(self.llama(input_ids))
+        if labels is None:
+            return logits
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        return logits, loss
 
     def generate(self, input_ids, max_new_tokens: int = 20,
                  do_sample: bool = False, temperature: float = 1.0,

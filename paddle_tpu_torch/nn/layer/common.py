@@ -55,8 +55,8 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode (and at p=0). Training-mode dropout belongs
-    to the training path, which this port does not have yet."""
+    """Identity in eval mode (and at p=0). Training-mode dropout is not
+    ported and raises."""
 
     def __init__(self, p=0.5):
         super().__init__()

@@ -198,13 +198,24 @@ def test_flash_attention_packed_runs_the_plain_versions_on_cpu():
 
 
 def test_unported_attention_routes_raise(monkeypatch):
-    """Grouped-query shapes and the head-major route are later slices."""
+    """The dense fallback of `flash_attention_fused` (a head dim outside
+    HEAD_DIMS) and the head-major route are later slices; kv heads that do
+    not divide the q heads are an error (grouped query itself is ported:
+    tests/test_torch_gqa.py)."""
     with pytest.raises(NotImplementedError):
-        tfa._flash_nl(torch.randn(1, 8, 64), torch.randn(1, 8, 32),
-                      torch.randn(1, 8, 32), True, 2)
+        tfa.flash_attention_fused(torch.randn(1, 8, 2, 16),
+                                  torch.randn(1, 8, 1, 16),
+                                  torch.randn(1, 8, 1, 16), True)
+    with pytest.raises(ValueError):
+        tfa._flash_nl(torch.randn(1, 8, 3 * 32), torch.randn(1, 8, 64),
+                      torch.randn(1, 8, 64), True, 3)
     monkeypatch.setitem(core.flags._flags, "flash_native_layout", False)
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_packed(torch.randn(1, 8, 3 * 64), 2, True)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention_fused(torch.randn(1, 8, 4, 32),
+                                  torch.randn(1, 8, 2, 32),
+                                  torch.randn(1, 8, 2, 32), True)
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

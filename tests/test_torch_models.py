@@ -118,19 +118,16 @@ def test_make_run_model_prefill_and_decode_match_jax(family):
 
 @pytest.mark.parametrize("family", ["llama", "gpt"])
 def test_unported_forward_paths_raise(family):
-    """Llama's no-cache (training) forward is not ported yet; GPT's is
-    (tests/test_torch_train.py), and its dense-cache decode is not. Both
-    families serve only through the paged KV cache."""
+    """Both families' no-cache (training) forwards are ported
+    (tests/test_torch_train.py, tests/test_torch_gqa.py); their
+    dense-cache decode is not. Both serve only through the paged KV
+    cache."""
     _, tm = make_pair(family)
-    if family == "llama":
-        with pytest.raises(NotImplementedError):
-            tm(torch.zeros((1, 4), dtype=torch.int64))
-        with pytest.raises(NotImplementedError):
-            tm.llama(torch.zeros((1, 4), dtype=torch.int64))
-    else:
-        x = torch.zeros((1, 4, tm.cfg.hidden_size))
-        with pytest.raises(NotImplementedError):
-            tm.gpt.blocks[0].attn(x, cache=(None, None))
+    x = torch.zeros((1, 4, tm.cfg.hidden_size))
+    attn = (tm.llama.layers[0].self_attn if family == "llama"
+            else tm.gpt.blocks[0].attn)
+    with pytest.raises(NotImplementedError):
+        attn(x, cache=(None, None))
     with pytest.raises(NotImplementedError):
         tm.generate(np.zeros((1, 4), np.int64), max_new_tokens=2)
 

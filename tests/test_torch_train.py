@@ -1,17 +1,21 @@
-"""The port's GPT training step against the JAX package's.
+"""The port's GPT and Llama training steps against the JAX package's.
 
-Shadows tests/test_models.py::test_gpt_tiny_trains and the GPT training
-recipe of bench.py (`bench_gpt`: AdamW with multi_precision and
-use_multi_tensor, amp O2 bf16) at the gpt_tiny width
-(2 layers, E=128, 4 heads, S=128). The same weights (bridge.load_jax_state)
-and token ids go through both packages on the CPU. The JAX side runs its
-compiled train step (`paddle.jit.to_static`, as `bench_gpt` does) and its
-CPU dispatch: `flash_attention_packed` reaches `_reference_attention`
-(the Pallas kernels need FORCE_PALLAS_INTERPRET, which these tests leave
-unset) and LayerNorm reaches `_ln_ref` with its autodiff backward; the
-port runs its plain versions of K2-K5 through the Functions a card uses.
-The kernels themselves are held against those plain versions on the card
-by chip_smoke.py, which also checks a card-against-CPU gpt_tiny step.
+Shadows tests/test_models.py::test_gpt_tiny_trains and the training
+recipes of bench.py (`bench_gpt`, `bench_llama`: AdamW with
+multi_precision and use_multi_tensor, amp O2 bf16) at the gpt_tiny width
+(2 layers, E=128, 4 heads, S=128) and the llama_tiny width (2 layers,
+E=128, 4 heads of d=32, with 2 kv heads (GQA 2:1) or 1 (MQA)). The same
+weights (bridge.load_jax_state) and token ids go through both packages
+on the CPU. The JAX side runs its compiled train step
+(`paddle.jit.to_static`, as `bench_gpt` does) and its CPU dispatch:
+`flash_attention_packed` reaches `_reference_attention` and Llama's sdpa
+the dense grouped `_sdpa` (the Pallas kernels need
+FORCE_PALLAS_INTERPRET, which these tests leave unset), LayerNorm
+reaches `_ln_ref` with its autodiff backward and RMSNorm `_rms_norm_ref`;
+the port runs its plain versions of K1-K5 through the Functions a card
+uses. The kernels themselves are held against those plain versions on
+the card by chip_smoke.py, which also checks a card-against-CPU gpt_tiny
+step.
 
 Tolerances. fp32 logits, loss and gradients: 1e-5 relative and 1e-5 of
 each tensor's largest value absolute; every matmul sums in another order
@@ -34,10 +38,14 @@ import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JGPT
 from paddle_tpu.models.gpt import gpt_tiny as jgpt_tiny
+from paddle_tpu.models.llama import LlamaConfig as JLlamaConfig
+from paddle_tpu.models.llama import LlamaForCausalLM as JLlama
 import paddle_tpu_torch as ptt
 from paddle_tpu_torch.bridge import load_jax_state
 from paddle_tpu_torch.incubate.nn.functional import flash_attention as tfa
+from paddle_tpu_torch.incubate.nn.functional import fused_ops as tfused
 from paddle_tpu_torch.models import gpt as tgpt
+from paddle_tpu_torch.models import llama as tllama
 from paddle_tpu_torch.nn.functional import norm as tnorm
 
 B, S, LR = 2, 128, 1e-3
@@ -55,6 +63,19 @@ def _pair(seed=9, num_layers=2):
                   num_heads=4, max_seq_len=128)
         jm = JGPT(JGPTConfig(**kw))
         tm = tgpt.GPTForCausalLM(tgpt.GPTConfig(**kw), device="cpu")
+    load_jax_state(tm, {k: np.asarray(v._value)
+                        for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+def _llama_pair(kv_heads, seed=9, num_layers=2):
+    """(jax model, port model) Llama with identical fp32 weights, on the
+    CPU: the llama_tiny width with ``kv_heads`` kv heads."""
+    kw = dict(vocab_size=1024, hidden_size=128, num_layers=num_layers,
+              num_heads=4, num_kv_heads=kv_heads, max_seq_len=128)
+    paddle.seed(seed)
+    jm = JLlama(JLlamaConfig(**kw))
+    tm = tllama.LlamaForCausalLM(tllama.LlamaConfig(**kw), device="cpu")
     load_jax_state(tm, {k: np.asarray(v._value)
                         for k, v in jm.state_dict().items()})
     return jm, tm
@@ -118,6 +139,17 @@ def jax_fp32_run():
     state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
     return dict(x=x, y=y, losses=losses, logits=logits, grads=grads,
                 state=state)
+
+
+@pytest.fixture(scope="module", params=[2, 1], ids=["gqa2", "mqa"])
+def jax_llama_fp32_run(request):
+    """As jax_fp32_run, for llama_tiny with 2 kv heads and with 1."""
+    jm, _ = _llama_pair(request.param)
+    x, y = _batch(1)
+    losses, (logits, grads) = _jax_steps(jm, x, y, 3, o2=False)
+    state = {k: np.asarray(v._value) for k, v in jm.state_dict().items()}
+    return dict(kv_heads=request.param, x=x, y=y, losses=losses,
+                logits=logits, grads=grads, state=state)
 
 
 def _port_steps(tm, x, y, steps, o2):
@@ -205,6 +237,83 @@ def test_train_step_runs_the_plain_kernels_once_per_layer_on_cpu():
         (n, 0), (n, 0), (2 * n + 1, 0), (2 * n + 1, 0)]
 
 
+def test_llama_tiny_gqa_logits_loss_and_grads_match_jax(jax_llama_fp32_run):
+    """fp32 logits, loss and all 21 gradients of llama_tiny (GQA 2:1 and
+    MQA): the k/v projections' gradients come out at the kv width."""
+    ref = jax_llama_fp32_run
+    _, tm = _llama_pair(ref["kv_heads"])
+    tlogits, tloss = tm(torch.tensor(ref["x"]), labels=torch.tensor(ref["y"]))
+    tloss.backward()
+    assert tlogits.shape == (B, S, 1024) and tloss.dim() == 0
+    _close(tlogits.detach().numpy(), ref["logits"])
+    _close(tloss.item(), ref["losses"][0])
+    tgrads = {n: p.grad for n, p in tm.named_parameters()}
+    assert set(tgrads) == set(ref["grads"]) and len(tgrads) == 21
+    assert tgrads["llama.layers.0.self_attn.k_proj.weight"].shape == (
+        128, 32 * ref["kv_heads"])
+    for name, g in tgrads.items():
+        assert g is not None, name
+        _close(g.numpy(), ref["grads"][name])
+
+
+def test_llama_tiny_gqa_adamw_three_steps_match_jax(jax_llama_fp32_run):
+    """fp32: the loss trajectory and every final weight (tolerances as
+    the GPT steps')."""
+    ref = jax_llama_fp32_run
+    _, tm = _llama_pair(ref["kv_heads"])
+    tl, _ = _port_steps(tm, ref["x"], ref["y"], 3, o2=False)
+    _close(tl, ref["losses"])
+    assert tl[2] < tl[0]
+    errs = []
+    for name, p in tm.state_dict().items():
+        np.testing.assert_allclose(p.numpy(), ref["state"][name], rtol=0,
+                                   atol=1e-4, err_msg=name)
+        errs.append(np.abs(p.numpy() - ref["state"][name]).ravel())
+    assert (np.concatenate(errs) <= 1e-6).mean() >= 0.999
+
+
+def test_llama_tiny_o2_bf16_adamw_steps_match_jax():
+    """amp O2 in bf16 with fp32 masters at GQA 2:1 (one layer): decorate
+    gives every parameter the dtype the JAX package's decorate gives it
+    (all bf16, RMSNorm weights included), the masters stay fp32, and the
+    losses follow JAX's over two steps within 1e-3 relative."""
+    jm, tm = _llama_pair(2, num_layers=1)
+    x, y = _batch(3)
+    jl, _ = _jax_steps(jm, x, y, 2, o2=True)
+    tl, opt = _port_steps(tm, x, y, 2, o2=True)
+    _close(tl, jl, rtol=1e-3)
+    assert tl[1] < tl[0]
+    jdt = {n: str(p.dtype).split(".")[-1] for n, p in jm.named_parameters()}
+    for n, p in tm.named_parameters():
+        assert str(p.dtype).split(".")[-1] == jdt[n], n
+        assert opt._master_weights[id(p)].dtype == torch.float32
+
+
+def test_llama_train_step_runs_the_plain_kernels_once_per_layer_on_cpu():
+    """One forward + backward of llama_tiny (GQA 2:1): per layer one
+    flash forward and backward, two RMSNorms, plus the final RMSNorm; no
+    kernel launch on a CPU tensor."""
+    _, tm = _llama_pair(2)
+    x, y = _batch()
+    ks = (tfa.FLASH_FWD_KERNEL, tfa.FLASH_BWD_KERNEL,
+          tfused.RMS_NORM_KERNEL)
+    before = [(k.plain_calls, k.launches) for k in ks]
+    _, loss = tm(torch.tensor(x), labels=torch.tensor(y))
+    loss.backward()
+    n = tm.cfg.num_layers
+    assert [(k.plain_calls - p, k.launches - l)
+            for k, (p, l) in zip(ks, before)] == [
+        (n, 0), (n, 0), (2 * n + 1, 0)]
+
+
+def test_unported_llama_training_options_raise():
+    rm = tllama.LlamaForCausalLM(tllama.llama_tiny(num_kv_heads=2,
+                                                   recompute=True),
+                                 device="cpu")
+    with pytest.raises(NotImplementedError, match="recompute"):
+        rm(torch.tensor(_batch()[0]))
+
+
 def test_unported_training_options_raise(monkeypatch):
     _, tm = _pair()
     x = torch.tensor(_batch()[0])
@@ -257,15 +366,18 @@ def test_auto_cast_dtypes_follow_the_jax_lists(level):
     """Under auto_cast the port's functionals cast as the JAX package's
     op registry does (paddle_tpu/amp/state.py): matmul-class ops run in
     bf16 at O1 and O2, gray ops only at O2, cross_entropy (black-listed)
-    in fp32; outside auto_cast nothing is cast."""
+    in fp32, rope and swiglu (amp "allow" ops) in bf16 at O1 and O2;
+    outside auto_cast nothing is cast."""
     from paddle_tpu.amp import state as jstate
 
     F = ptt.nn.functional
     x = torch.randn(4, 8)
     w = torch.randn(8, 8)
+    q = torch.randn(1, 4, 2, 8)
     with ptt.amp.auto_cast(level=level, dtype="bfloat16"):
         for op, policy in (("linear", "allow"), ("gelu", "promote"),
-                           ("cross_entropy", "allow")):
+                           ("cross_entropy", "allow"), ("fused_rope", "allow"),
+                           ("swiglu", "allow")):
             prev = jstate.set_amp(True, dtype="bfloat16", level=level)
             try:
                 want = jstate.amp_cast_dtype(op, policy)
@@ -279,4 +391,10 @@ def test_auto_cast_dtypes_follow_the_jax_lists(level):
         logits = torch.randn(4, 8).to(torch.bfloat16)
         assert F.cross_entropy(logits, torch.zeros(4, dtype=torch.long)
                                ).dtype == torch.float32
+        rq, rk = tfused.fused_rotary_position_embedding(q, q[:, :, :1])
+        assert rq.dtype == rk.dtype == torch.bfloat16
+        assert tfused.swiglu(x, x).dtype == torch.bfloat16
     assert F.linear(x, w).dtype == torch.float32
+    assert tfused.fused_rotary_position_embedding(q, q)[0].dtype == \
+        torch.float32
+    assert tfused.swiglu(x, x).dtype == torch.float32
