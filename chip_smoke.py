@@ -19,27 +19,36 @@ Phases, in order; any failure exits non-zero before the last line:
      (49 launches per forward, 0 plain).
   6. card vs CPU: tiny Llama-GQA and GPT in fp32 with identical weights
      give identical greedy streams.
-  7. training kernels vs plain: LayerNorm backward (K3) and flash
-     attention forward / backward (K4 / K5) against their plain versions
-     at the training steps' shapes (GPT-3 1.3B, B=4, S=2048, 16 heads of
-     d=128; TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads)
-     and at ragged, fp32 and grouped-query ones (32:1, 8:2, 8:4, 4:2),
-     every output held per element; two K5 calls on the same inputs must
-     give the same bytes; over one 32:4 forward and backward the
-     allocated memory must not rise by a repeat of k and v; gradients
-     through the K1 / K2 autograd Functions; card times beside the bound,
-     the plain version and the library call, at both steps' shapes.
+  7. training kernels vs plain: LayerNorm backward (K3), flash
+     attention forward / backward (K4 / K5) and the head-major forward /
+     one-pass backward (K6 / K7) against their plain versions at the
+     training steps' shapes (GPT-3 1.3B, B=4, S=2048, 16 heads of d=128;
+     TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads, which
+     the head-major route sees repeated to 32) and at ragged, fp32 and
+     grouped-query ones (32:1, 8:2, 8:4, 4:2), every output held per
+     element; two K5 and two K7 calls on the same inputs must give the
+     same bytes; over one 32:4 forward and backward the allocated memory
+     must not rise by a repeat of k and v; gradients through the K1 / K2
+     autograd Functions; card times beside the bound, the plain version
+     and the library call, at both steps' shapes.
   8. GPT-3 1.3B training at full width and depth (B=4, S=2048, bf16 amp
      O2, AdamW with fp32 masters, random weights and tokens from a seed):
      2 warm-up and 3 timed steps on one batch; the loss must be finite
      and fall, and every attention and LayerNorm must run K4/K5 and
      K2/K3 (24/24/49/49 launches per step, 0 plain). Step ms, tokens/s,
      model-FLOP utilisation, peak memory and the card's share of a step.
-  9. TinyLlama-1.1B training the same way at full width and depth (B=8,
+  9. The same with FLAGS_use_fused_attention ([train_fused]): every
+     attention block is one fused_self_attention op on K6/K7 (24/24
+     launches per step, K4/K5 none) beside K2/K3 (49/49), 0 plain.
+ 10. FLAGS_flash_native_layout=0 ([train_hm]) at full width and 2 layers,
+     2 steps each: GPT-3 1.3B's width through the unpack route and
+     TinyLlama's through the GQA ramp; K6/K7 launch, K4/K5 never.
+ 11. TinyLlama-1.1B training as phase 8 at full width and depth (B=8,
      S=2048, GQA 32:4): every attention runs K4/K5 over the shared kv
      heads and every RMSNorm K1 (22/22/45 launches per step, 0 plain).
- 10. card vs CPU: one fp32 training step of gpt_tiny and of llama_tiny
-     at GQA 4:2 (loss, every gradient and the updated weights).
+ 12. card vs CPU: one fp32 training step of gpt_tiny, of gpt_tiny with
+     FLAGS_use_fused_attention and of llama_tiny at GQA 4:2 (loss, every
+     gradient and the updated weights).
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -479,7 +488,7 @@ def phase_card_vs_cpu():
               f"(fixed and ragged, fp32)")
 
 # ---------------------------------------------------------------------------
-# training slice: K3, K4, K5 and the GPT-3 1.3B train step
+# training slices: K3-K7 and the train steps
 # ---------------------------------------------------------------------------
 
 def _check_close(got, ref, name, terms):
@@ -711,8 +720,6 @@ def _time_attention(which, b, h, kvh, d, g):
     op alone of sdpa's flash and cuDNN backends on the outputs their
     forward op saved, as sdpa's autograd calls it (the faster of the two
     is the yardstick); both take the KVH kv heads as they are."""
-    import torch.nn.functional as TF
-
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
 
     s = TRAIN_S
@@ -739,28 +746,47 @@ def _time_attention(which, b, h, kvh, d, g):
                           heads(dout, h))
     t = dict(shape=f"B={b} S={s} H={h} KVH={kvh} D={d} causal bf16",
              pairs=pairs)
-    aten = torch.ops.aten
     if which == "fwd":
         work = fwd_work
         kern = partial(fa.flash_fwd_cuda, q, k, v, h, True)
         plain = partial(fa._nl_forward_ref, q, k, v, h, True)
-        lib = {"sdpa": partial(TF.scaled_dot_product_attention, qh, kh, vh,
-                               is_causal=True, enable_gqa=kvh != h)}
     else:
         work = bwd_work
         kern = partial(fa.flash_bwd_cuda, q, k, v, out, lse, dout, h, True,
                        *grads)
         plain = partial(fa._nl_backward_ref, q, k, v, out, lse, dout, h, True)
-        fo = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
-        co = aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True,
-                                                      0.0, True)
-        lib = {"flash backward": partial(
-                   aten._scaled_dot_product_flash_attention_backward, dout_h,
-                   qh, kh, vh, *fo[:6], 0.0, True, fo[6], fo[7]),
-               "cudnn backward": partial(
-                   aten._scaled_dot_product_cudnn_attention_backward, dout_h,
-                   qh, kh, vh, co[0], co[1], co[6], co[7], None, *co[2:6],
-                   0.0, True)}
+    return _timings(t, work, kern, plain,
+                    _library_attention(which, qh, kh, vh, dout_h))
+
+
+def _library_attention(which, qh, kh, vh, dout_h):
+    """{name: one PyTorch call} computing the same function on [B,H,S,D]
+    q and [B,KVH,S,D] k, v (causal): sdpa's forward (enable_gqa when KVH
+    < H), or the backward op alone of sdpa's flash and cuDNN backends on
+    the outputs their forward op saved, as sdpa's autograd calls it."""
+    import torch.nn.functional as TF
+
+    aten = torch.ops.aten
+    if which == "fwd":
+        return {"sdpa": partial(TF.scaled_dot_product_attention, qh, kh, vh,
+                                is_causal=True,
+                                enable_gqa=kh.shape[1] != qh.shape[1])}
+    fo = aten._scaled_dot_product_flash_attention(qh, kh, vh, 0.0, True)
+    co = aten._scaled_dot_product_cudnn_attention(qh, kh, vh, None, True,
+                                                  0.0, True)
+    return {"flash backward": partial(
+                aten._scaled_dot_product_flash_attention_backward, dout_h,
+                qh, kh, vh, *fo[:6], 0.0, True, fo[6], fo[7]),
+            "cudnn backward": partial(
+                aten._scaled_dot_product_cudnn_attention_backward, dout_h,
+                qh, kh, vh, co[0], co[1], co[6], co[7], None, *co[2:6],
+                0.0, True)}
+
+
+def _timings(t, work, kern, plain, lib):
+    """t with the work, its bound and the card ms (CUDA graph) of the
+    kernel, its plain version and the library calls (the fastest is the
+    yardstick)."""
     t.update(flops=work["flops"], bytes=work["bytes"])
     t["bound_ms"], t["bound_by"] = _bound_of(work, BF16_FLOPS)
     t["ms"] = device_ms(kern, iters=10, reps=7)
@@ -771,8 +797,85 @@ def _time_attention(which, b, h, kvh, d, g):
     return t
 
 
+def _time_attention_hm(which, b, h, d, g):
+    """Card ms of K6 ("fwd") or K7 ("bwd") at head-major [B*H, 2048, D]
+    q, k, v (contiguous, as fused_self_attention and the flag-0 route pass
+    them; grouped k, v come repeated to the H heads), causal bf16, beside
+    the bound, the plain version and the library calls on the same
+    memory viewed [B,H,S,D]."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    s = TRAIN_S
+    q, k, v, dout = (torch.randn(b * h, s, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_fwd_hm_cuda(q, k, v, True)
+    pairs, fwd_work, bwd_work = _attn_work(b, s, s, h, d, True)
+    t = dict(shape=f"G=B*H={b}*{h} S={s} D={d} causal bf16 head-major",
+             pairs=pairs)
+    if which == "fwd":
+        work = fwd_work
+        kern = partial(fa.flash_fwd_hm_cuda, q, k, v, True)
+        plain = partial(fa._hm_forward_ref, q, k, v, True)
+    else:
+        work = bwd_work
+        kern = partial(fa.flash_bwd_hm_cuda, q, k, v, out, lse, dout, True)
+        plain = partial(fa._hm_backward_ref, q, k, v, out, lse, dout, True)
+    return _timings(t, work, kern, plain, _library_attention(
+        which, *(x.view(b, h, s, d) for x in (q, k, v, dout))))
+
+
+def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
+                        strided=False):
+    """K6 and K7 against their plain versions at head-major [G,Sq,D] q and
+    [G,Sk,D] k, v, ``chunk`` heads at a time (the plain version's [G,S,S]
+    products bound memory); two K7 calls on the same inputs must give the
+    same bytes. ``strided`` (Sq == Sk): q, k, v are views of one
+    [S,3,G,D] buffer (group stride D, row stride 3GD), as the fused op's
+    projection gives them at B=1."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    dout = torch.randn(groups, sq, d, generator=g, device="cuda").to(dt)
+    if strided:
+        buf = torch.randn(sq, 3, groups, d, generator=g, device="cuda").to(dt)
+        q, k, v = (buf[:, i].transpose(0, 1) for i in range(3))
+    else:
+        q = torch.randn(groups, sq, d, generator=g, device="cuda").to(dt)
+        k, v = (torch.randn(groups, sk, d, generator=g, device="cuda").to(dt)
+                for _ in range(2))
+    out, lse = fa.flash_fwd_hm_cuda(q, k, v, causal)
+    grads = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, causal)
+    again = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    for key, x, y in zip(("dq", "dk", "dv"), grads, again):
+        check(torch.equal(x, y), f"{name} {key}: two K7 calls on the same "
+                                 f"inputs differ")
+    del again
+    errs = dict(out=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
+    for i in range(0, groups, chunk):
+        sl = slice(i, min(groups, i + chunk))
+        rout, rlse = fa._hm_forward_ref(q[sl], k[sl], v[sl], causal)
+        rgrads = fa._hm_backward_ref(q[sl], k[sl], v[sl], out[sl], lse[sl],
+                                     dout[sl], causal)
+        terms = _attention_terms(q[sl], k[sl], v[sl], out[sl],
+                                 lse[sl].unsqueeze(1), dout[sl], 1, causal)
+        for key, got, ref, t_ in zip(
+                ("out", "dq", "dk", "dv"), (out[sl],) + tuple(
+                    x[sl] for x in grads), (rout,) + tuple(rgrads), terms):
+            errs[key] = max(errs[key], _check_close(
+                got, ref, f"{name} {key} (heads {sl.start}-{sl.stop - 1})",
+                t_))
+        ld = float((lse[sl] - rlse).abs().max())
+        check(ld <= 1e-5 * max(1.0, float(rlse.abs().max())),
+              f"{name} lse (heads {sl.start}-{sl.stop - 1}): max err {ld}")
+        errs["lse"] = max(errs["lse"], ld)
+    print(f"[train_kernels] {name}: max |kernel - plain| "
+          + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+          + "; dq, dk, dv byte-identical over two K7 calls")
+    return errs
+
+
 def phase_train_kernels():
-    """K3, K4, K5 against their plain versions on the card, gradients
+    """K3-K7 against their plain versions on the card, gradients
     through the K1 / K2 Functions, and the timing table at the training
     step's shapes."""
     import torch.nn.functional as TF
@@ -786,7 +889,11 @@ def phase_train_kernels():
            "flash_fwd": {"max_abs_err": 0.0},
            "flash_bwd": {"max_abs_err": 0.0},
            "flash_fwd_gqa": {"max_abs_err": 0.0},
-           "flash_bwd_gqa": {"max_abs_err": 0.0}, "autograd": {}}
+           "flash_bwd_gqa": {"max_abs_err": 0.0},
+           "flash_fwd_hm": {"max_abs_err": 0.0},
+           "flash_bwd_hm": {"max_abs_err": 0.0},
+           "flash_fwd_hm_ramp": {"max_abs_err": 0.0},
+           "flash_bwd_hm_ramp": {"max_abs_err": 0.0}, "autograd": {}}
     rows = TRAIN_B * TRAIN_S
 
     # K3: the step's shape, a ragged row count, the scalar path, fp32
@@ -921,6 +1028,29 @@ def phase_train_kernels():
     torch.cuda.synchronize()
     rec["no_repeat"] = _no_repeat_memory(g)
 
+    # K6 / K7 (head-major [B*H,S,D]): GPT-3 1.3B's shape, TinyLlama's 32:4
+    # as the ramp repeats it to 32 heads, a ragged Sq < Sk, and views at
+    # the strides of the fused op's B=1 projection; fp32 and bf16, causal
+    # on and off
+    for causal in (True, False):
+        for dt, tag in ((bf, "bf16"), (f32, "fp32")):
+            for key, name, groups, sq, sk, d_ in (
+                    ("_hm", "gpt3-1.3b", TRAIN_B * h1, TRAIN_S, TRAIN_S, d1),
+                    ("_hm_ramp", "tinyllama ramp", TRAIN_LLAMA_B * 32,
+                     TRAIN_S, TRAIN_S, 64),
+                    ("_hm", "ragged sq=77 sk=100", 6, 77, 100, 64),
+                    ("_hm", "strided S=200", 16, 200, 200, 128)):
+                e = _check_attention_hm(
+                    f"hm {name} {tag} causal={causal}", groups, sq, sk, d_,
+                    causal, dt, g, strided=name.startswith("strided"))
+                rec["flash_fwd" + key]["max_abs_err"] = max(
+                    rec["flash_fwd" + key]["max_abs_err"], e["out"],
+                    e["lse"])
+                rec["flash_bwd" + key]["max_abs_err"] = max(
+                    rec["flash_bwd" + key]["max_abs_err"], e["dq"],
+                    e["dk"], e["dv"])
+                torch.cuda.empty_cache()
+
     # timing at the step's shapes (bf16): card ms per call from CUDA
     # events over calls captured in a CUDA graph
     x = (torch.randn(rows, 2048, generator=g, device="cuda") * 2 + 0.5
@@ -951,9 +1081,15 @@ def phase_train_kernels():
             _time_attention("fwd", b_, h_, kvh, d_, g))
         rec["flash_bwd" + suffix].update(
             _time_attention("bwd", b_, h_, kvh, d_, g))
+    for suffix, b_, h_, d_ in (("_hm", TRAIN_B, h1, d1),
+                               ("_hm_ramp", TRAIN_LLAMA_B, 32, 64)):
+        for which in ("fwd", "bwd"):
+            rec[f"flash_{which}{suffix}"].update(
+                _time_attention_hm(which, b_, h_, d_, g))
     torch.cuda.empty_cache()
     for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd", "flash_fwd_gqa",
-                "flash_bwd_gqa"):
+                "flash_bwd_gqa", "flash_fwd_hm", "flash_bwd_hm",
+                "flash_fwd_hm_ramp", "flash_bwd_hm_ramp"):
         r = rec[key]
         by_op = ", ".join(f"{n} {v:.5f}" for n, v in r.get(
             "library_ms_by_op", {}).items()) or "native_layer_norm_backward"
@@ -969,12 +1105,13 @@ def _train_counts(kernels):
     return {k.symbol: (k.launches, k.plain_calls) for k in kernels}
 
 
-def _train(tag, title, model, batch, path, per_step, absent):
-    """2 warm-up and 3 timed bf16 O2 AdamW steps of ``model`` on one batch
-    of [batch, TRAIN_S] tokens from a seed, through the port's entry
+def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
+           timed=3, profile=True):
+    """``warmup`` and ``timed`` bf16 O2 AdamW steps of ``model`` on one
+    batch of [batch, TRAIN_S] tokens from a seed, through the port's entry
     points. Every kernel of ``path`` must launch ``per_step`` times a step
     with 0 plain calls, every kernel of ``absent`` never; the loss must
-    be finite and fall over the timed steps."""
+    be finite and, over two or more timed steps, fall."""
     import paddle_tpu_torch as ptt
 
     cfg = model.cfg
@@ -1000,15 +1137,15 @@ def _train(tag, title, model, batch, path, per_step, absent):
     everything = path + absent
     for k in everything:
         k.reset_counts()
-    losses = [step() for _ in range(2)]
+    losses = [step() for _ in range(warmup)]
     torch.cuda.synchronize()
-    timed, t_steps = sync_time(lambda: [step() for _ in range(3)])
+    timed_losses, t_steps = sync_time(lambda: [step() for _ in range(timed)])
     counts = _train_counts(everything)
-    losses = [float(v) for v in losses + timed]
+    losses = [float(v) for v in losses + timed_losses]
     n_steps = len(losses)
     check(all(np.isfinite(losses)), f"{tag}: loss not finite: {losses}")
-    check(losses[-1] < losses[2], f"{tag}: loss did not fall over the timed "
-                                  f"steps: {losses}")
+    check(timed < 2 or losses[-1] < losses[warmup],
+          f"{tag}: loss did not fall over the timed steps: {losses}")
     for k, want in zip(path, per_step):
         got, plain = counts[k.symbol]
         check(got == want * n_steps and plain == 0,
@@ -1017,7 +1154,7 @@ def _train(tag, title, model, batch, path, per_step, absent):
     for k in absent:
         check(counts[k.symbol] == (0, 0), f"{tag}: {k.symbol} ran")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = t_steps / 3 * 1e3
+    step_ms = t_steps / timed * 1e3
     tokens = batch * TRAIN_S
     d = cfg.hidden_size // cfg.num_heads
     pairs, fwd_work, _ = _attn_work(batch, TRAIN_S, TRAIN_S, cfg.num_heads,
@@ -1039,7 +1176,7 @@ def _train(tag, title, model, batch, path, per_step, absent):
     print(f"[{tag}] launches in {n_steps} steps: "
           + ", ".join(f"{s_} {c[0]}" for s_, c in counts.items())
           + "; plain calls 0")
-    card_ms, top = device_breakdown(step, top=10)
+    card_ms, top = device_breakdown(step, top=10) if profile else (None, [])
     if card_ms is not None:
         res.update(step_device_ms=card_ms, device_busy=card_ms / step_ms,
                    top_kernels=top)
@@ -1048,7 +1185,7 @@ def _train(tag, title, model, batch, path, per_step, absent):
         for t_ in top:
             print(f"[{tag}]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
                   f"{t_['kernel']}")
-    else:
+    elif profile:
         print(f"[{tag}] card time: not measured (the profiler recorded no "
               f"device events)")
     del model, opt, x, y, ids
@@ -1078,6 +1215,90 @@ def phase_train():
     res["base_gb"] = base_gb
     print(f"[train] {base_gb:.1f} GiB of the peak was held before the phase")
     return res
+
+
+def _with_flag(name, value, fn):
+    """fn() with the port's FLAGS_<name> = value, restored in finally."""
+    from paddle_tpu_torch.core import flags
+
+    old = flags.get_flag(name)
+    flags.set_flags({name: value})
+    try:
+        return fn()
+    finally:
+        flags.set_flags({name: old})
+
+
+def phase_train_fused():
+    """GPT-3 1.3B, B=4, S=2048 with FLAGS_use_fused_attention: every
+    attention block is one fused_self_attention op on K6/K7, every
+    LayerNorm K2/K3 (24/24/49/49 launches a step); K4/K5 never run."""
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.nn.functional import norm
+
+    cfg = gpt3_1p3b()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    model = GPTForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
+    n = cfg.num_layers
+    res = _with_flag("use_fused_attention", True, lambda: _train(
+        "train_fused", "GPT-3 1.3B, FLAGS_use_fused_attention", model,
+        TRAIN_B,
+        (fa.FLASH_FWD_HM_KERNEL, fa.FLASH_BWD_HM_KERNEL,
+         norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
+        (n, n, 2 * n + 1, 2 * n + 1),
+        (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
+         fused_ops.RMS_NORM_KERNEL)))
+    res["base_gb"] = base_gb
+    print(f"[train_fused] {base_gb:.1f} GiB of the peak was held before the "
+          f"phase")
+    return res
+
+
+def phase_train_hm():
+    """FLAGS_flash_native_layout=0 at full width, 2 layers, 2 steps each:
+    GPT-3 1.3B's width (B=4) through the unpack route and TinyLlama's
+    (B=8, GQA 32:4) through the ramp; K6/K7 launch once a layer each way,
+    K4/K5 never."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_1p3b)
+    from paddle_tpu_torch.nn.functional import norm
+
+    native = (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL)
+    hm = (fa.FLASH_FWD_HM_KERNEL, fa.FLASH_BWD_HM_KERNEL)
+    out = {}
+    for key, title, build, batch, norms, absent in (
+            ("gpt", "GPT-3 1.3B width, 2 layers, unpack route",
+             lambda: GPTForCausalLM(replace(gpt3_1p3b(), num_layers=2),
+                                    device="cuda",
+                                    generator=seed(1234, "cuda")),
+             TRAIN_B, (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
+             native + (fused_ops.RMS_NORM_KERNEL,)),
+            ("tinyllama", "TinyLlama-1.1B width, 2 layers, GQA ramp",
+             lambda: LlamaForCausalLM(
+                 replace(tinyllama_1p1b(), num_layers=2), device="cuda",
+                 generator=seed(1234, "cuda")),
+             TRAIN_LLAMA_B, (fused_ops.RMS_NORM_KERNEL,),
+             native + (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build()
+        n = model.cfg.num_layers
+        out[key] = _with_flag("flash_native_layout", False, lambda: _train(
+            f"train_hm {key}", title, model, batch, hm + norms,
+            (n, n) + (2 * n + 1,) * len(norms), absent, warmup=1, timed=1,
+            profile=False))
+        del model
+    return out
 
 
 def tinyllama_1p1b():
@@ -1119,8 +1340,9 @@ def phase_train_llama():
 
 
 def phase_train_card_vs_cpu():
-    """One fp32 training step of gpt_tiny and of llama_tiny at GQA 4:2 on
-    the card and on the CPU from the same weights: the loss, every
+    """One fp32 training step of gpt_tiny, of gpt_tiny with
+    FLAGS_use_fused_attention (K6/K7 on the card) and of llama_tiny at GQA
+    4:2 on the card and on the CPU from the same weights: the loss, every
     gradient and the updated weights. Tolerances: loss 1e-5 relative and
     gradients 1e-4 of each tensor's largest value (cuBLAS and the kernels'
     tiles sum in other orders than the CPU); weights after AdamW every
@@ -1133,16 +1355,18 @@ def phase_train_card_vs_cpu():
                                          gpt_tiny, llama_tiny)
 
     out = {}
-    for family, cls, cfg in (("gpt_tiny", GPTForCausalLM, gpt_tiny()),
-                             ("llama_tiny gqa 4:2", LlamaForCausalLM,
-                              llama_tiny(num_kv_heads=2))):
+    for family, cls, cfg, fused in (
+            ("gpt_tiny", GPTForCausalLM, gpt_tiny(), False),
+            ("gpt_tiny fused attention", GPTForCausalLM, gpt_tiny(), True),
+            ("llama_tiny gqa 4:2", LlamaForCausalLM,
+             llama_tiny(num_kv_heads=2), False)):
         rs = np.random.RandomState(11)
         ids = rs.randint(0, cfg.vocab_size, (2, cfg.max_seq_len + 1))
         cpu = cls(cfg, device="cpu", generator=seed(7, "cpu"))
         gpu = cls(cfg, device="cuda")
         gpu.load_state_dict(cpu.state_dict())
-        res = {}
-        for tag, m in (("cpu", cpu), ("card", gpu)):
+
+        def one_step(m):
             dev = next(m.parameters()).device
             x = torch.as_tensor(ids[:, :-1], device=dev)
             y = torch.as_tensor(ids[:, 1:], device=dev)
@@ -1155,8 +1379,11 @@ def phase_train_card_vs_cpu():
             grads = {n: p.grad.detach().cpu().clone()
                      for n, p in m.named_parameters()}
             opt.step()
-            res[tag] = (loss.item(), grads,
-                        {n: p.detach().cpu() for n, p in m.named_parameters()})
+            return (loss.item(), grads,
+                    {n: p.detach().cpu() for n, p in m.named_parameters()})
+        res = {tag: _with_flag("use_fused_attention", fused,
+                               partial(one_step, m))
+               for tag, m in (("cpu", cpu), ("card", gpu))}
         (lc, gc, wc), (lg, gg, wg) = res["cpu"], res["card"]
         check(abs(lc - lg) <= 1e-5 * abs(lc),
               f"train card-vs-cpu {family}: loss {lg} vs {lc}")
@@ -1197,6 +1424,8 @@ def main():
                       ("gpt", phase_gpt), ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
                       ("train", phase_train),
+                      ("train_fused", phase_train_fused),
+                      ("train_hm", phase_train_hm),
                       ("train_llama", phase_train_llama),
                       ("train_card_vs_cpu", phase_train_card_vs_cpu)):
         t0 = time.perf_counter()
@@ -1214,21 +1443,29 @@ def main():
     tk = rec["train_kernels"]
     fl = "paddle_tpu/incubate/nn/functional/flash_attention.py"
     launches = train["launches"]
+    fused = rec["train_fused"]["launches"]
+    hm_gpt = rec["train_hm"]["gpt"]["launches"]
+    hm_llama = rec["train_hm"]["tinyllama"]["launches"]
     ll = rec["train_llama"]["launches"]
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
          {"llama2_7b serving": rec["llama"]["launches"],
-          "tinyllama train": ll["ptt_rms_norm_fwd"]},
+          "tinyllama train": ll["ptt_rms_norm_fwd"],
+          "tinyllama-width hm train": hm_llama["ptt_rms_norm_fwd"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
          {"gpt3_1p3b serving": rec["gpt"]["launches"],
-          "gpt3_1p3b train": launches["ptt_layer_norm_fwd"]},
+          "gpt3_1p3b train": launches["ptt_layer_norm_fwd"],
+          "gpt3_1p3b fused train": fused["ptt_layer_norm_fwd"],
+          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_fwd"]},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
          "paddle_tpu/nn/functional/norm.py:106",
-         {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"]},
+         {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"],
+          "gpt3_1p3b fused train": fused["ptt_layer_norm_bwd"],
+          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_bwd"]},
          tk["layer_norm_bwd"], tk["layer_norm_bwd"]),
         ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
          f"{fl}:769,805",
@@ -1246,6 +1483,18 @@ def main():
          f"{fl}:873,1115",
          {"tinyllama train": ll["ptt_flash_bwd"]},
          tk["flash_bwd_gqa"], tk["flash_bwd_gqa"])]
+    for key, sym, src, replaces in (
+            ("flash_fwd_hm", "ptt_flash_fwd_hm",
+             "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
+            ("flash_bwd_hm", "ptt_flash_bwd_hm",
+             "paddle_tpu_torch/csrc/flash_bwd_hm.cu", f"{fl}:441")):
+        rows.append((key, src, replaces,
+                     {"gpt3_1p3b fused train": fused[sym],
+                      "gpt3_1p3b-width hm train": hm_gpt[sym]},
+                     tk[key], tk[key]))
+        rows.append((key + "_ramp", src, replaces,
+                     {"tinyllama-width hm train": hm_llama[sym]},
+                     tk[key + "_ramp"], tk[key + "_ramp"]))
     kernels = []
     for name, src, replaces, by_path, r, s in rows:
         kernels.append(dict(

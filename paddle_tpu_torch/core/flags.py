@@ -12,13 +12,14 @@ PADDLE_ENV_KNOBS = frozenset({
     "PADDLE_SERVING_SESSION_CACHE",
 })
 
-# Both flags select routes that are not ported yet: setting either away
-# from its default makes the route raise NotImplementedError.
 _flags: Dict[str, bool] = {
-    # route self-attention through the whole-block fused op
+    # route GPT self-attention through the whole-block fused op
+    # (fused_self_attention: einsum projections around the head-major
+    # flash kernels)
     "use_fused_attention": False,
     # flash kernels consume the projection's native [B,S,E] layout
-    # directly; off = the head-major route
+    # directly; off = the head-major [B*H,S,D] route (grouped k, v
+    # repeated to the q heads first)
     "flash_native_layout": True,
 }
 

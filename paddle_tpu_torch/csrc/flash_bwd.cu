@@ -31,7 +31,8 @@
 // need (S / 64) fp32 copies of dq, 32 x 128 MiB = 4 GiB (half of it under
 // the causal mask), against no scratch at all here, at the price of
 // recomputing p and dp (two more products: seven in all, not five).
-//   1. delta_kernel: delta [B,H,Sq] fp32, one thread per (row, head).
+//   1. delta_kernel (flash_common.cuh): delta [B,H,Sq] fp32, one
+//      thread per (row, head).
 //   2. flash_dkdv_kernel: one CTA of 4 warps per (kv tile of 64 rows, kv
 //      head, batch), each warp owning 16 kv rows, holds dk/dv in registers
 //      over a loop of the group's q heads and each head's q tiles of 32,
@@ -68,34 +69,6 @@ template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
   return static_cast<size_t>(2 * kTileQdq + 4 * kTileKVdq) *
          Ld<T, D>::value * sizeof(T);
-}
-
-// delta[b][h][s] = sum_d dO[b][s][h D + d] O[b][s][h D + d] in fp32, in
-// order of d: one thread per (b, s, h), rows = B * Sq * H.
-template <typename T, int D>
-__global__ void delta_kernel(const T* __restrict__ out,
-                             const T* __restrict__ dout,
-                             float* __restrict__ delta, int sq, int heads,
-                             int64_t rows) {
-  constexpr int V = ptt::VecWidth<T>::value;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= rows) return;
-  const T* o = out + i * D;  // row (b, s), columns of head h
-  const T* g = dout + i * D;
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < D; c += V) {
-    float fo[V], fg[V];
-    ptt::load_vec<T>(o + c, fo);
-    ptt::load_vec<T>(g + c, fg);
-#pragma unroll
-    for (int j = 0; j < V; ++j) acc = fmaf(fg[j], fo[j], acc);
-  }
-  const int h = static_cast<int>(i % heads);
-  const int64_t bs = i / heads;
-  const int64_t b = bs / sq;
-  delta[(b * heads + h) * sq + (bs - b * sq)] = acc;
 }
 
 template <typename T, int D>

@@ -1,7 +1,8 @@
-// Helpers shared by the native-layout flash attention kernels
-// (flash_fwd.cu, flash_bwd.cu): warp-level m16n8k16 products, their
-// fragment loads from shared memory, asynchronous tile copies, and the
-// C entry points' argument checks and dtype / head-dim dispatch.
+// Helpers shared by the flash attention kernels (flash_fwd.cu,
+// flash_bwd.cu, flash_bwd_hm.cu): warp-level m16n8k16 products, their
+// fragment loads from shared memory, asynchronous tile copies, the
+// backward's delta kernel, and the C entry points' argument checks and
+// dtype / head-dim dispatch.
 //
 // Fragment layout of c[16x8] += a[16x16] b[16x8] (g = lane / 4,
 // t = lane % 4): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] =
@@ -265,6 +266,35 @@ __device__ __forceinline__ void load_tile_async(T* dst, const T* src,
                src + (live ? static_cast<int64_t>(r0 + r) * stride + c : 0),
                live);
   }
+}
+
+// delta[b][h][s] = sum_d dO[b][s][h D + d] O[b][s][h D + d] in fp32, in
+// order of d: one thread per (b, s, h), rows = B * Sq * H. With heads = 1
+// this is the head-major [G,Sq,D] -> [G,Sq] rowsum (G in place of B).
+template <typename T, int D>
+__global__ void delta_kernel(const T* __restrict__ out,
+                             const T* __restrict__ dout,
+                             float* __restrict__ delta, int sq, int heads,
+                             int64_t rows) {
+  constexpr int V = ptt::VecWidth<T>::value;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= rows) return;
+  const T* o = out + i * D;  // row (b, s), columns of head h
+  const T* g = dout + i * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < D; c += V) {
+    float fo[V], fg[V];
+    ptt::load_vec<T>(o + c, fo);
+    ptt::load_vec<T>(g + c, fg);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc = fmaf(fg[j], fo[j], acc);
+  }
+  const int h = static_cast<int>(i % heads);
+  const int64_t bs = i / heads;
+  const int64_t b = bs / sq;
+  delta[(b * heads + h) * sq + (bs - b * sq)] = acc;
 }
 
 // Allow `bytes` of dynamic shared memory for `kernel`, once per kernel

@@ -1,16 +1,25 @@
-// Native-layout flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a): native layout (K4) and
+// head-major (K6), one kernel addressed through per-operand strides.
 //
 // Replaces the TPU kernels `_fwd_nl_single` / `_fwd_nl_stream`
 // (paddle_tpu/incubate/nn/functional/flash_attention.py:769,805, driven by
-// `_nl_forward`). Layout is the projection's own: q [B,Sq,H*D] and k, v
-// [B,Sk,H*D], each addressed through a base pointer and a row stride, so
-// the packed [B,S,3E] qkv of a fused projection is read in place at column
-// offsets 0, E and 2E with no slice copies; out [B,Sq,H*D] contiguous;
-// lse [B,H,Sq] fp32 (the TPU's [B,H/hpb,hpb,S] is a lane artefact).
-// Grouped query: k, v may hold KVH heads ([B,Sk,KVH*D], KVH dividing H);
-// q head h reads kv head h / (H / KVH) in place at its own column offset,
-// so K and V are never repeated (the TPU kernels pick the shared head out
-// of a 128-lane pair block, `_pair_kv`; here it is only a pointer).
+// `_nl_forward`; entry `ptt_flash_fwd`) and `_fwd_kernel_single` /
+// `_fwd_kernel` (:135,167, driven by `_flash_forward_pallas`; entry
+// `ptt_flash_fwd_hm`). Each operand is a base pointer and a (batch, head,
+// row) stride triple, so both layouts run the same code:
+// - native: q [B,Sq,H*D] and k, v [B,Sk,KVH*D] at their row strides, so
+//   the packed [B,S,3E] qkv of a fused projection is read in place at
+//   column offsets 0, E and 2E with no slice copies; out [B,Sq,H*D]
+//   contiguous. Grouped query: KVH divides H and q head h reads kv head
+//   h / (H / KVH) in place at its own column offset, so K and V are never
+//   repeated (the TPU kernels pick the shared head out of a 128-lane pair
+//   block, `_pair_kv`; here it is only a pointer).
+// - head-major: q [G,Sq,D] and k, v [G,Sk,D] with G = B*H heads and one
+//   head each (the caller repeats grouped k, v to H heads, as the JAX
+//   package's "ramp" does), at their group and row strides; out [G,Sq,D]
+//   contiguous.
+// lse is [B,H,Sq] fp32 in both, which is [G,Sq] head-major (the TPU's
+// [B,H/hpb,hpb,S] and [G,1,Sq] are lane artefacts).
 //
 // What is computed (as the TPU kernels, per head): logits = (q . k^T in
 // fp32) * 1/sqrt(D), causal mask bottom-right (q_pos + Sk - Sq >= k_pos),
@@ -51,11 +60,18 @@ constexpr size_t fwd_smem_bytes() {
          sizeof(T);
 }
 
+// Element strides of the operands: (batch, head, row) for q, for k and v
+// (shared), and for out.
+struct Layout {
+  int64_t q_b, q_h, q_r;
+  int64_t kv_b, kv_h, kv_r;
+  int64_t o_b, o_h, o_r;
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, int64_t q_stride,
-                     int64_t kv_stride, T* __restrict__ out,
+                     const T* __restrict__ v, Layout L, T* __restrict__ out,
                      float* __restrict__ lse, int sq, int sk, int heads,
                      int rep, float scale, int causal) {
   using P = typename Pair<T>::type;
@@ -78,11 +94,10 @@ __global__ void __launch_bounds__(kThreads)
   const int off = sk - sq;
   const int r0 = warp * 16;
 
-  const T* qb = q + static_cast<int64_t>(b) * sq * q_stride +
-                static_cast<int64_t>(h) * D;
-  const int64_t kvcol = static_cast<int64_t>(h / rep) * D;  // shared kv head
-  const T* kb = k + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
-  const T* vb = v + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
+  const T* qb = q + b * L.q_b + h * L.q_h;
+  const int64_t kvoff = b * L.kv_b + (h / rep) * L.kv_h;  // shared kv head
+  const T* kb = k + kvoff;
+  const T* vb = v + kvoff;
 
   int kv_end = sk;
   if (causal) {
@@ -91,10 +106,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int n_tiles = kv_end > 0 ? (kv_end + kTileKV - 1) / kTileKV : 0;
 
-  load_tile_async<T, D, kTileQ>(sQ, qb, q_stride, q0, sq);
+  load_tile_async<T, D, kTileQ>(sQ, qb, L.q_r, q0, sq);
   if (n_tiles > 0) {
-    load_tile_async<T, D, kTileKV>(sK, kb, kv_stride, 0, sk);
-    load_tile_async<T, D, kTileKV>(sV, vb, kv_stride, 0, sk);
+    load_tile_async<T, D, kTileKV>(sK, kb, L.kv_r, 0, sk);
+    load_tile_async<T, D, kTileKV>(sV, vb, L.kv_r, 0, sk);
   }
   cp_async_commit();
 
@@ -114,8 +129,8 @@ __global__ void __launch_bounds__(kThreads)
     if (it + 1 < n_tiles) {
       T* nK = sK + ((it + 1) & 1) * kTileKV * LD;
       T* nV = sV + ((it + 1) & 1) * kTileKV * LD;
-      load_tile_async<T, D, kTileKV>(nK, kb, kv_stride, k0 + kTileKV, sk);
-      load_tile_async<T, D, kTileKV>(nV, vb, kv_stride, k0 + kTileKV, sk);
+      load_tile_async<T, D, kTileKV>(nK, kb, L.kv_r, k0 + kTileKV, sk);
+      load_tile_async<T, D, kTileKV>(nV, vb, L.kv_r, k0 + kTileKV, sk);
       cp_async_commit();
     }
     if (it == 0) {
@@ -200,14 +215,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_wait_all();  // no copy outlives the CTA (n_tiles == 0)
 
-  const int e_all = heads * D;
 #pragma unroll
   for (int rh = 0; rh < 2; ++rh) {
     const int row = q0 + r0 + g + 8 * rh;
     if (row >= sq) continue;
     const float lsafe = fmaxf(l[rh], 1e-30f);
-    T* orow = out + (static_cast<int64_t>(b) * sq + row) * e_all +
-              static_cast<int64_t>(h) * D;
+    T* orow = out + b * L.o_b + h * L.o_h + row * L.o_r;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
       st_pair<T>(orow + n * 8 + 2 * t, o[n][2 * rh] / lsafe,
@@ -222,9 +235,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
-        int64_t kv_stride, void* out, void* lse, int batch, int sq, int sk,
-        int heads, int kv_heads, int causal, cudaStream_t stream) {
+int fwd(const void* q, const void* k, const void* v, const Layout& layout,
+        void* out, void* lse, int batch, int sq, int sk, int heads,
+        int kv_heads, int causal, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<T, D>();
   auto* kernel = flash_fwd_kernel<T, D>;
   static bool smem_set = false;
@@ -233,7 +246,7 @@ int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
   const dim3 grid((sq + kTileQ - 1) / kTileQ, heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_stride, kv_stride, static_cast<T*>(out),
+      static_cast<const T*>(v), layout, static_cast<T*>(out),
       static_cast<float*>(lse), sq, sk, heads, heads / kv_heads,
       1.f / sqrtf(static_cast<float>(D)), causal);
   return static_cast<int>(cudaGetLastError());
@@ -241,13 +254,17 @@ int fwd(const void* q, const void* k, const void* v, int64_t q_stride,
 
 }  // namespace
 
-// q: [batch, sq, heads * head_dim] rows of stride q_stride elements;
+#define PTT_FWD(T, D)                                                      \
+  fwd<T, D>(q, k, v, layout, out, lse, batch, sq, sk, heads, kv_heads,     \
+            causal, static_cast<cudaStream_t>(stream))
+
+// K4. q: [batch, sq, heads * head_dim] rows of stride q_stride elements;
 // k, v: [batch, sk, kv_heads * head_dim] rows of stride kv_stride (k and v
 // may be column views of one packed array; kv_heads divides heads); out:
-// [batch, sq, heads * head_dim]
-// contiguous; lse: [batch, heads, sq] fp32. Pointers and row strides are
-// 16-byte aligned; head_dim is 32, 64 or 128; one dtype (ptt::DType).
-// Returns cudaGetLastError() after the launch.
+// [batch, sq, heads * head_dim] contiguous; lse: [batch, heads, sq] fp32.
+// Pointers and row strides are 16-byte aligned; head_dim is 32, 64 or
+// 128; one dtype (ptt::DType). Returns cudaGetLastError() after the
+// launch.
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              int64_t q_stride, int64_t kv_stride, void* out,
                              void* lse, int batch, int sq, int sk, int heads,
@@ -258,10 +275,33 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
       k == nullptr || v == nullptr || out == nullptr || lse == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_FWD(T, D)                                                    \
-  fwd<T, D>(q, k, v, q_stride, kv_stride, out, lse, batch, sq, sk, heads, \
-            kv_heads, causal, s)
+  const int64_t d = head_dim;
+  const Layout layout{sq * q_stride,  d, q_stride,
+                      sk * kv_stride, d, kv_stride,
+                      static_cast<int64_t>(sq) * heads * d, d, heads * d};
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
-#undef PTT_FWD
 }
+
+// K6. q: [groups, sq, head_dim] with group stride q_gstride and row
+// stride q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
+// kv_gstride, kv_rstride (one head per group: grouped k, v come repeated);
+// out: [groups, sq, head_dim] contiguous; lse: [groups, sq] fp32. The
+// last dim is contiguous; pointers and row strides are 16-byte aligned;
+// head_dim is 32, 64 or 128; one dtype. Returns cudaGetLastError().
+extern "C" int ptt_flash_fwd_hm(const void* q, const void* k, const void* v,
+                                int64_t q_gstride, int64_t q_rstride,
+                                int64_t kv_gstride, int64_t kv_rstride,
+                                void* out, void* lse, int groups, int sq,
+                                int sk, int head_dim, int causal, int dtype,
+                                void* stream) {
+  if (!ptt_flash::args_ok(groups, sq, sk, 1, 1, head_dim) || q == nullptr ||
+      k == nullptr || v == nullptr || out == nullptr || lse == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int batch = groups, heads = 1, kv_heads = 1;
+  const Layout layout{q_gstride,  0, q_rstride,
+                      kv_gstride, 0, kv_rstride,
+                      static_cast<int64_t>(sq) * head_dim, 0, head_dim};
+  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
+}
+#undef PTT_FWD

@@ -1,27 +1,42 @@
-"""Flash attention in the projection's native [B,S,E] layout, and the
-dense grouped-query helpers. Counterpart of
-paddle_tpu/incubate/nn/functional/flash_attention.py.
+"""Flash attention: the native [B,S,E] layout, the head-major [B*H,S,D]
+route, the whole-block fused attention op, and the dense grouped-query
+helpers. Counterpart of paddle_tpu/incubate/nn/functional/flash_attention.py.
 
-``flash_attention_packed`` (self-attention over a fused projection's
-packed [B,S,3E] output), ``flash_attention_fused`` (the [B,S,H,D] entry
-sdpa takes) and ``_flash_nl`` / ``_flash_nl_packed`` run through
-``torch.autograd.Function``s (the JAX package's custom VJPs). On a CUDA
-tensor the forward is the hand-written Hopper kernel ``ptt_flash_fwd``
-and the backward ``ptt_flash_bwd`` (csrc/flash_fwd.cu and
-csrc/flash_bwd.cu, replacing the TPU kernels ``_fwd_nl_single`` /
-``_fwd_nl_stream`` and ``_bwd_nl_fused``); q, k and v are read in place
-from the packed array by column offset and the backward writes d(qkv)
-straight into one [B,S,3E] buffer. Grouped query (k, v [B,Sk,KVH*D] with
-KVH dividing H) is native: q head h reads kv head h // (H/KVH) in place,
-and dk, dv come out at the kv width; K and V are never repeated. On a
-CPU tensor the same Functions run the kernels' plain versions
-``_nl_forward_ref`` / ``_nl_backward_ref``. Nothing else: a tensor on
-any other device raises, and a failed build or launch raises.
+Native layout (the default): ``flash_attention_packed`` (self-attention
+over a fused projection's packed [B,S,3E] output), ``flash_attention_fused``
+(the [B,S,H,D] entry sdpa takes) and ``_flash_nl`` / ``_flash_nl_packed``
+run through ``torch.autograd.Function``s (the JAX package's custom VJPs).
+On a CUDA tensor the forward is the hand-written Hopper kernel
+``ptt_flash_fwd`` (K4) and the backward ``ptt_flash_bwd`` (K5)
+(csrc/flash_fwd.cu and csrc/flash_bwd.cu, replacing the TPU kernels
+``_fwd_nl_single`` / ``_fwd_nl_stream`` and ``_bwd_nl_fused``); q, k and v
+are read in place from the packed array by column offset and the
+backward writes d(qkv) straight into one [B,S,3E] buffer. Grouped query
+(k, v [B,Sk,KVH*D] with KVH dividing H) is native: q head h reads kv head
+h // (H/KVH) in place, and dk, dv come out at the kv width; K and V are
+never repeated on this route.
 
-Not ported here (raise NotImplementedError): the head-major route
-(``FLAGS_flash_native_layout=0``; K6-K8) with the GQA "ramp" into it, the
-dense ``_reference_attention`` fallback of ``flash_attention_fused`` for
-head dims other than 32, 64 and 128, and on the card any such head dim.
+Head-major (``FLAGS_flash_native_layout=0``, and always inside
+``fused_self_attention``, the op behind ``FLAGS_use_fused_attention``):
+``_flash_hm`` takes [G,S,D] operands (G = B*H) and saves its residuals in
+that layout. Its forward is ``ptt_flash_fwd_hm`` (K6, csrc/flash_fwd.cu,
+replacing ``_fwd_kernel_single`` / ``_fwd_kernel``) and its backward
+``ptt_flash_bwd_hm`` (K7, csrc/flash_bwd_hm.cu, replacing the one-pass
+``_bwd_fused_kernel``). On flag 0 the [B,S,H,D] entries transpose to
+head-major around it, and grouped k, v are repeated to the q heads first
+(the JAX package's "ramp"), only on this route.
+
+On a CPU tensor the same Functions run the kernels' plain versions
+(``_nl_forward_ref`` / ``_nl_backward_ref``, ``_hm_forward_ref`` /
+``_hm_backward_ref``). Nothing else: a tensor on any other device raises,
+and a failed build or launch raises.
+
+Not ported here (raise NotImplementedError): the head-major two-kernel
+backward (K8, ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``), which the JAX
+package takes once the one-pass backward's fp32 dq scratch (Sq*D*4 bytes)
+passes ``_DQ_SCRATCH_BYTES``; the dense ``_reference_attention`` /
+``_attend_hm_reference`` fallbacks for head dims other than 32, 64 and
+128; and on the card any such head dim.
 """
 from __future__ import annotations
 
@@ -51,7 +66,26 @@ FLASH_BWD_KERNEL = Kernel(
     "flash_bwd.cu", "ptt_flash_bwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 7
     + [ctypes.c_int64] * 2 + [ctypes.c_int] * 8)
+# Replaces `_fwd_kernel_single` / `_fwd_kernel` (flash_attention.py:135,
+# 167) driven by `_flash_forward_pallas` (:297): K4's kernel at head-major
+# strides, its own entry point and counters. Bound: as K4.
+FLASH_FWD_HM_KERNEL = Kernel(
+    "flash_fwd.cu", "ptt_flash_fwd_hm",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 6)
+# Replaces `_bwd_fused_kernel` (flash_attention.py:441) driven by
+# `_flash_backward_fused` (:531). Bound: as K5. One launch per call runs
+# the delta kernel and the one-pass kernel (one CTA per head; dq summed in
+# a whole-sequence fp32 scratch in a fixed order: deterministic).
+FLASH_BWD_HM_KERNEL = Kernel(
+    "flash_bwd_hm.cu", "ptt_flash_bwd_hm",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 6)
 HEAD_DIMS = (32, 64, 128)
+# Budget of the one-pass head-major backward's whole-sequence fp32 dq
+# scratch, as the JAX package's (:506): above it the JAX package runs the
+# two-kernel backward (K8), which is not ported.
+_DQ_SCRATCH_BYTES = 4 << 20
 
 
 def grouped_qk_logits(qh, kh):
@@ -126,12 +160,11 @@ def _delta(out, dout, heads):
         1, 2).contiguous()
 
 
-def _nl_forward_ref(q, k, v, heads, causal):
-    """Plain forward: q [B,Sq,H*D], k, v [B,Sk,KVH*D] -> (out [B,Sq,H*D]
-    in q's dtype, lse fp32 [B,H,Sq]). fp32 logits and softmax statistics,
-    p cast to the input dtype before the P.V product, out = acc /
-    max(l, 1e-30), lse = m_safe + log(max(l, 1e-30))."""
-    FLASH_FWD_KERNEL.plain_calls += 1
+def _forward_math(q, k, v, heads, causal):
+    """The forward kernels' arithmetic: q [B,Sq,H*D], k, v [B,Sk,KVH*D]
+    -> (out [B,Sq,H*D] in q's dtype, lse fp32 [B,H,Sq]). fp32 logits and
+    softmax statistics, p cast to the input dtype before the P.V product,
+    out = acc / max(l, 1e-30), lse = m_safe + log(max(l, 1e-30))."""
     b, sq, e = q.shape
     kvh = _kv_heads(q, k, heads)
     logits = _masked_logits(_heads(q, heads), _heads(k, kvh), causal)
@@ -144,13 +177,12 @@ def _nl_forward_ref(q, k, v, heads, causal):
     return out, (m_safe + torch.log(l)).squeeze(-1)
 
 
-def _nl_backward_ref(q, k, v, out, lse, dout, heads, causal):
-    """Plain one-pass backward -> (dq [B,Sq,H*D], dk, dv [B,Sk,KVH*D]) in
-    dout's dtype: p = exp(logits - lse), dv = p^T dO, dp = dO v^T,
-    ds = p (dp - delta) cast to the input dtype, dk = ds^T q * scale,
-    dq = ds k * scale, every product accumulated in fp32; a kv head's
-    dk and dv sum over its q heads."""
-    FLASH_BWD_KERNEL.plain_calls += 1
+def _backward_math(q, k, v, out, lse, dout, heads, causal):
+    """The backward kernels' arithmetic -> (dq [B,Sq,H*D], dk, dv
+    [B,Sk,KVH*D]) in dout's dtype: p = exp(logits - lse), dv = p^T dO,
+    dp = dO v^T, ds = p (dp - delta) cast to the input dtype,
+    dk = ds^T q * scale, dq = ds k * scale, every product accumulated in
+    fp32; a kv head's dk and dv sum over its q heads."""
     b, sq, e = q.shape
     sk = k.shape[1]
     kvh = _kv_heads(q, k, heads)
@@ -168,6 +200,34 @@ def _nl_backward_ref(q, k, v, out, lse, dout, heads, causal):
     def back(x, s):
         return x.to(dt).transpose(1, 2).reshape(b, s, -1)
     return back(dq, sq), back(dk, sk), back(dv, sk)
+
+
+def _nl_forward_ref(q, k, v, heads, causal):
+    """Plain K4: :func:`_forward_math` on the native layout."""
+    FLASH_FWD_KERNEL.plain_calls += 1
+    return _forward_math(q, k, v, heads, causal)
+
+
+def _nl_backward_ref(q, k, v, out, lse, dout, heads, causal):
+    """Plain K5: :func:`_backward_math` on the native layout."""
+    FLASH_BWD_KERNEL.plain_calls += 1
+    return _backward_math(q, k, v, out, lse, dout, heads, causal)
+
+
+def _hm_forward_ref(qh, kh, vh, causal):
+    """Plain K6: qh [G,Sq,D], kh, vh [G,Sk,D] -> (out [G,Sq,D], lse fp32
+    [G,Sq]); one head per group, the arithmetic of :func:`_forward_math`."""
+    FLASH_FWD_HM_KERNEL.plain_calls += 1
+    out, lse = _forward_math(qh, kh, vh, 1, causal)
+    return out, lse.reshape(qh.shape[0], qh.shape[1])
+
+
+def _hm_backward_ref(qh, kh, vh, out, lse, doh, causal):
+    """Plain K7: -> (dq [G,Sq,D], dk, dv [G,Sk,D]) in doh's dtype; the
+    arithmetic of :func:`_backward_math`, one head per group."""
+    FLASH_BWD_HM_KERNEL.plain_calls += 1
+    return _backward_math(qh, kh, vh, out, lse.reshape(lse.shape[0], 1, -1),
+                          doh, 1, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +325,85 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
         int(bool(causal)), DTYPE_CODES[q.dtype])
 
 
+def _check_hm_args(qh, kh, vh):
+    """-> (G, Sq, Sk, D) of qh [G,Sq,D] and kh, vh [G,Sk,D] on a card.
+    Any group and row strides are taken, as long as the last dim is
+    contiguous and rows are 16-byte aligned: with B=1 the fused op's
+    head-major q, k, v are views of its projection (group stride D, row
+    stride 3E), which the kernels read in place."""
+    if qh.device.type != "cuda":
+        raise ValueError(f"flash attention kernels take CUDA tensors, got "
+                         f"{qh.device}")
+    if qh.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash attention kernels take float32/bfloat16, "
+                        f"got {qh.dtype}")
+    if qh.dim() != 3 or qh.shape[2] not in HEAD_DIMS:
+        raise ValueError(f"head-major flash attention kernels take [G,S,D] "
+                         f"with D in {HEAD_DIMS}, got {tuple(qh.shape)}")
+    g, d = qh.shape[0], qh.shape[2]
+    for name, x in (("q", qh), ("k", kh), ("v", vh)):
+        item = x.element_size()
+        if x.device != qh.device or x.dtype != qh.dtype:
+            raise ValueError(f"flash attention: {name} must be {qh.dtype} "
+                             f"on {qh.device}, got {x.dtype} on {x.device}")
+        if x.dim() != 3 or x.shape[0] != g or x.shape[2] != d:
+            raise ValueError(f"flash attention: {name} must be [{g},S,{d}], "
+                             f"got {tuple(x.shape)}")
+        if (x.stride(2) != 1 or (x.stride(1) * item) % 16
+                or (x.stride(0) * item) % 16 or x.data_ptr() % 16):
+            raise ValueError(f"flash attention: {name} must have contiguous, "
+                             f"16-byte aligned rows, got strides {x.stride()}")
+    if kh.shape != vh.shape or kh.stride() != vh.stride():
+        raise ValueError("flash attention: k and v must share shape and "
+                         "strides")
+    return g, qh.shape[1], kh.shape[1], d
+
+
+def flash_fwd_hm_cuda(qh, kh, vh, causal):
+    """Launch K6. qh [G,Sq,D], kh, vh [G,Sk,D] (G = B*H, one head each) on
+    a card, with contiguous 16-byte aligned rows at any group and row
+    strides; D in HEAD_DIMS. Returns new (out [G,Sq,D], lse fp32
+    [G,Sq])."""
+    g, sq, sk, d = _check_hm_args(qh, kh, vh)
+    out = torch.empty(g, sq, d, dtype=qh.dtype, device=qh.device)
+    lse = torch.empty(g, sq, dtype=torch.float32, device=qh.device)
+    FLASH_FWD_HM_KERNEL.launch(
+        qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
+        qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
+        lse.data_ptr(), g, sq, sk, d, int(bool(causal)), DTYPE_CODES[qh.dtype])
+    return out, lse
+
+
+def flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal):
+    """Launch K7. qh, kh, vh as :func:`flash_fwd_hm_cuda`; out, doh
+    [G,Sq,D] contiguous; lse fp32 [G,Sq] from the forward. Returns new
+    (dq [G,Sq,D], dk, dv [G,Sk,D]). Its scratch: delta fp32 [G,Sq] and
+    the whole-sequence dq accumulator fp32 [G,Sq,D]."""
+    g, sq, sk, d = _check_hm_args(qh, kh, vh)
+    for name, x in (("out", out), ("dout", doh)):
+        if (x.shape != (g, sq, d) or x.dtype != qh.dtype
+                or x.device != qh.device or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"flash attention: {name} must be a "
+                             f"contiguous, 16-byte aligned [{g},{sq},{d}] "
+                             f"{qh.dtype} tensor")
+    if (lse.shape != (g, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError("flash attention: lse must be fp32 [G,Sq]")
+    delta = torch.empty(g, sq, dtype=torch.float32, device=qh.device)
+    dq_acc = torch.empty(g, sq, d, dtype=torch.float32, device=qh.device)
+    dq = torch.empty(g, sq, d, dtype=qh.dtype, device=qh.device)
+    dk, dv = (torch.empty(g, sk, d, dtype=qh.dtype, device=qh.device)
+              for _ in range(2))
+    FLASH_BWD_HM_KERNEL.launch(
+        qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
+        qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
+        doh.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), g, sq, sk, d,
+        int(bool(causal)), DTYPE_CODES[qh.dtype])
+    return dq, dk, dv
+
+
 # ---------------------------------------------------------------------------
 # dispatch and autograd
 # ---------------------------------------------------------------------------
@@ -287,6 +426,76 @@ def _nl_backward(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
         dst.copy_(src)
 
 
+def _flash_forward_hm(qh, kh, vh, causal):
+    """K6 on a card, its plain version on the CPU: (out [G,Sq,D], lse
+    [G,Sq])."""
+    if qh.device.type == "cuda":
+        return flash_fwd_hm_cuda(qh, kh, vh, causal)
+    if qh.device.type == "cpu":
+        return _hm_forward_ref(qh, kh, vh, causal)
+    raise ValueError(f"flash attention: unsupported device {qh.device}")
+
+
+def _flash_backward_hm(qh, kh, vh, out, lse, doh, causal):
+    """The head-major backward: the one-pass K7 while its whole-sequence
+    fp32 dq scratch fits ``_DQ_SCRATCH_BYTES``, as the JAX package's
+    ``_flash_backward_pallas`` picks it; above that, on every device, the
+    two-kernel K8, which is not ported. -> (dq, dk, dv) head-major."""
+    sq, d = qh.shape[1], qh.shape[2]
+    if sq * d * 4 > _DQ_SCRATCH_BYTES:
+        raise NotImplementedError(
+            f"head-major flash attention backward: Sq={sq} at D={d} needs "
+            f"{sq * d * 4} bytes of dq scratch, above _DQ_SCRATCH_BYTES="
+            f"{_DQ_SCRATCH_BYTES}; the two-kernel backward K8 "
+            f"(_bwd_dq_kernel / _bwd_dkv_kernel) is not ported")
+    if qh.device.type == "cuda":
+        return flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal)
+    if qh.device.type == "cpu":
+        return _hm_backward_ref(qh, kh, vh, out, lse, doh, causal)
+    raise ValueError(f"flash attention: unsupported device {qh.device}")
+
+
+class _FlashHM(torch.autograd.Function):
+    """Head-major flash attention: qh [G,Sq,D], kh, vh [G,Sk,D] in,
+    [G,Sq,D] out; the residuals are saved head-major (the JAX package's
+    ``_flash_hm_fwd`` / ``_flash_hm_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vh, causal):
+        out, lse = _flash_forward_hm(qh, kh, vh, causal)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qh, kh, vh, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward_hm(qh, kh, vh, out, lse,
+                                        g.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def _flash_hm(qh, kh, vh, causal):
+    """[G,Sq,D] q against [G,Sk,D] k, v (one head per group) -> [G,Sq,D]."""
+    return _FlashHM.apply(qh, kh, vh, causal)
+
+
+def _bhsd(x):
+    """[B,S,H,D] -> head-major [B*H,S,D]: a transposing copy, or at B=1 a
+    view at group stride D (the kernels take either)."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def _hm_ok(q, k) -> bool:
+    """Shapes the head-major kernels take ([B,S,H,D] q and k; the JAX
+    package's ``_pallas_ok``, shape only): as many kv heads as q heads
+    and a head dim in HEAD_DIMS (no TPU tiling gate carries over)."""
+    return (q.dim() == 4 and k.dim() == 4 and k.shape[2] == q.shape[2]
+            and q.shape[3] in HEAD_DIMS and q.shape[1] >= 1
+            and k.shape[1] >= 1)
+
+
 def _gqa_broadcastable(h: int, kvh: int) -> bool:
     """Grouped-query shapes whose kv heads the kernels share in place."""
     return kvh > 0 and h % kvh == 0
@@ -298,8 +507,10 @@ def _gqa_route(h: int, kvh: int, d: int) -> str:
     JAX package's ``_gqa_route``, here deciding MHA too): "native" (the
     native-layout kernels, shared kv heads addressed in place) for every
     broadcastable ratio, MQA included, at a head dim in HEAD_DIMS (no TPU
-    lane gate carries over); "ramp" (the head-major kernels behind
-    FLAGS_flash_native_layout=0); else "reference" (the dense path)."""
+    lane gate carries over) while FLAGS_flash_native_layout is on; on
+    flag 0 "ramp" (k and v repeated to the q heads where KVH < H, then the
+    head-major kernels, as the JAX package reaches them through
+    ``_pallas_ok``); else "reference" (the dense path, not ported)."""
     if not _gqa_broadcastable(h, kvh) or d not in HEAD_DIMS:
         return "reference"
     return "native" if get_flag("flash_native_layout") else "ramp"
@@ -378,46 +589,112 @@ def _flash_nl_packed(qkv, causal, h):
     return _FlashNLPacked.apply(qkv, causal, h)
 
 
+def _dense_fallback(what):
+    return NotImplementedError(
+        f"flash attention: the dense fallback ({what}) is not ported")
+
+
+def _flash_attention(q, k, v, causal):
+    """[B,Sq,H,D] q against [B,Sk,KVH,D] k, v -> [B,Sq,H,D]: the route
+    ``_gqa_route`` names. "native": the native-layout Function through a
+    free reshape on each side. "ramp": k, v repeated to the H q heads
+    where KVH < H (the JAX package's ``jnp.repeat``), then the head-major
+    Function between transposes. "reference" raises."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    route = _gqa_route(h, kvh, d)
+    if route == "native":
+        out = _flash_nl(q.reshape(b, sq, h * d), k.reshape(b, sk, kvh * d),
+                        v.reshape(b, sk, kvh * d), causal, h)
+        return out.reshape(b, sq, h, d)
+    if route == "ramp":
+        if kvh != h:
+            k = k.repeat_interleave(h // kvh, dim=2)
+            v = v.repeat_interleave(h // kvh, dim=2)
+        if _hm_ok(q, k):
+            out = _flash_hm(_bhsd(q), _bhsd(k), _bhsd(v), causal)
+            return out.reshape(b, h, sq, d).transpose(1, 2)
+    raise _dense_fallback(f"head dim {d} outside {HEAD_DIMS}, or {kvh} kv "
+                          f"heads against {h} heads")
+
+
 def flash_attention_fused(query, key, value, causal=False):
     """[B,Sq,H,D] query against [B,Sk,KVH,D] key, value (KVH dividing H)
-    -> [B,Sq,H,D] through the native-layout kernels: a free reshape on
-    each side, no transpose and no repeat of key or value. The op sdpa
-    routes to, an amp "allow" op as in the JAX package; differentiable
-    in all three. The routes ``_gqa_route`` names "ramp" and "reference"
-    are not ported and raise."""
+    -> [B,Sq,H,D]: the native-layout kernels (no transpose and no repeat
+    of key or value) or, on FLAGS_flash_native_layout=0, the head-major
+    ones (see :func:`_flash_attention`). The op sdpa routes to, an amp
+    "allow" op as in the JAX package; differentiable in all three."""
     query, key, value = autocast("flash_attention", "allow", query, key,
                                  value)
-    b, sq, h, d = query.shape
-    sk, kvh = key.shape[1], key.shape[2]
-    route = _gqa_route(h, kvh, d)
-    if route == "ramp":
-        raise NotImplementedError(
-            "flash attention: the head-major route "
-            "(FLAGS_flash_native_layout=0) is not ported")
-    if route == "reference":
-        raise NotImplementedError(
-            f"flash attention: the dense fallback (head dim {d} outside "
-            f"{HEAD_DIMS}, or {kvh} kv heads against {h} heads) is not "
-            f"ported")
-    out = _flash_nl(query.reshape(b, sq, h * d), key.reshape(b, sk, kvh * d),
-                    value.reshape(b, sk, kvh * d), causal, h)
-    return out.reshape(b, sq, h, d)
+    return _flash_attention(query, key, value, causal)
 
 
 def flash_attention_packed(qkv, num_heads, causal=False):
     """Self-attention over the fused projection's packed [B,S,3E] output
-    (columns q|k|v, the reshape([b,s,3,h,d]) order) through the
-    native-layout kernels. Parity: the qkv-packed form of the reference's
-    flash_attn_qkvpacked. Differentiable in qkv."""
-    if not get_flag("flash_native_layout"):
-        raise NotImplementedError(
-            "flash_attention_packed: the head-major route "
-            "(FLAGS_flash_native_layout=0) is not ported")
+    (columns q|k|v, the reshape([b,s,3,h,d]) order): the native-layout
+    kernels read it in place; on FLAGS_flash_native_layout=0 it is
+    unpacked into the [B,S,H,D] dispatch (the JAX package's
+    ``_flash_packed_impl``). Parity: the qkv-packed form of the
+    reference's flash_attn_qkvpacked. Differentiable in qkv."""
     (qkv,) = autocast("flash_attention_packed", "allow", qkv)
-    return _flash_nl_packed(qkv, causal, num_heads)
+    if qkv.shape[-1] % 3:
+        raise ValueError(f"flash_attention_packed: last dim "
+                         f"{qkv.shape[-1]} is not 3E")
+    if get_flag("flash_native_layout"):
+        return _flash_nl_packed(qkv, causal, num_heads)
+    b, s, e3 = qkv.shape
+    e = e3 // 3
+    _check_heads(e, num_heads)
+    q4 = qkv.reshape(b, s, 3, num_heads, e // num_heads)
+    return _flash_attention(q4[:, :, 0], q4[:, :, 1], q4[:, :, 2],
+                            causal).reshape(b, s, e)
 
 
-__all__ = ["FLASH_BWD_KERNEL", "FLASH_FWD_KERNEL", "HEAD_DIMS",
-           "flash_attention_fused", "flash_attention_packed",
-           "flash_bwd_cuda", "flash_fwd_cuda", "grouped_pv_out",
-           "grouped_qk_logits"]
+# ---------------------------------------------------------------------------
+# fused projections + attention (whole-block op)
+# ---------------------------------------------------------------------------
+
+def _fused_mha_impl(x, wqkv, bqkv, wo, bo, num_heads=1, causal=False):
+    """The whole attention block over the head-major layout: the qkv
+    projection contracts x [B,S,E] with the [E,3E] weight viewed
+    [E,3,H,D] straight into [3,B,H,S,D], the head-major Function runs
+    K6/K7 on [B*H,S,D], and the output projection contracts [B,H,S,D]
+    with the [E,E] weight viewed [H,D,E]. The matmuls are torch's, as
+    they lie outside the Pallas kernel in the JAX package. Biases may be
+    None. A head dim outside HEAD_DIMS (the JAX package's dense
+    ``_attend_hm_reference``) raises."""
+    b, s, e = x.shape
+    h = num_heads
+    _check_heads(e, h)
+    d = e // h
+    if d not in HEAD_DIMS:
+        raise _dense_fallback(f"fused_self_attention at head dim {d}, "
+                              f"outside {HEAD_DIMS}")
+    qkv = torch.einsum("bse,ethd->tbhsd", x, wqkv.reshape(e, 3, h, d))
+    if bqkv is not None:
+        qkv = qkv + bqkv.reshape(3, 1, h, 1, d)
+    qh, kh, vh = (qkv[i].reshape(b * h, s, d) for i in range(3))
+    out = _flash_hm(qh, kh, vh, causal)
+    y = torch.einsum("bhsd,hde->bse", out.reshape(b, h, s, d),
+                     wo.reshape(h, d, e))
+    return y if bo is None else y + bo
+
+
+def fused_self_attention(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                         num_heads, causal=False):
+    """Self-attention block (qkv proj -> flash attention -> out proj) as
+    one op, an amp "allow" op as in the JAX package. qkv_weight is
+    [E, 3E] (column order q|k|v), out_weight [E, E]; biases may be None.
+    Differentiable in x, the weights and the biases."""
+    x, qkv_weight, qkv_bias, out_weight, out_bias = autocast(
+        "fused_self_attention", "allow", x, qkv_weight, qkv_bias,
+        out_weight, out_bias)
+    return _fused_mha_impl(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                           num_heads, causal)
+
+
+__all__ = ["FLASH_BWD_HM_KERNEL", "FLASH_BWD_KERNEL", "FLASH_FWD_HM_KERNEL",
+           "FLASH_FWD_KERNEL", "HEAD_DIMS", "flash_attention_fused",
+           "flash_attention_packed", "flash_bwd_cuda", "flash_bwd_hm_cuda",
+           "flash_fwd_cuda", "flash_fwd_hm_cuda", "fused_self_attention",
+           "grouped_pv_out", "grouped_qk_logits"]

@@ -4,13 +4,15 @@ no-cache forward (training; ``GPTForCausalLM.forward(ids, labels)``) and
 the paged-cache serving path.
 
 Every LayerNorm runs the LayerNorm kernels (forward and backward) through
-nn.functional layer_norm; training attention runs the native-layout flash
-kernels over the packed [B, S, 3E] projection (flash_attention_packed).
-Parameter names and layouts are the JAX package's (the packed qkv weight
-is [E, 3E]), so its state_dict loads name for name
-(bridge.load_jax_state). Not ported (raise): recompute,
-FLAGS_use_fused_attention, the dense-cache decode path and the
-model-parallel variants.
+nn.functional layer_norm; training attention runs the flash kernels over
+the packed [B, S, 3E] projection (flash_attention_packed: native layout,
+or head-major on FLAGS_flash_native_layout=0), or, with
+FLAGS_use_fused_attention, the whole block as one op
+(fused_self_attention: einsum projections around the head-major
+kernels). Parameter names and layouts are the JAX package's (the packed
+qkv weight is [E, 3E]), so its state_dict loads name for name
+(bridge.load_jax_state). Not ported (raise): recompute, the dense-cache
+decode path and the model-parallel variants.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from torch import nn
 from ..core.flags import get_flag
 from ..core.generator import seed as _seed
 from ..core.place import resolve_device
-from ..incubate.nn.functional.flash_attention import flash_attention_packed
+from ..incubate.nn.functional.flash_attention import (flash_attention_packed,
+                                                      fused_self_attention)
 from ..incubate.nn.functional.paged_kv import (PagedCache,
                                                block_multihead_attention)
 from ..nn import functional as F
@@ -91,14 +94,16 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, cache=None):
         """No cache (training): the packed [B, S, 3E] projection feeds the
-        flash kernels as is; returns out. Paged serving: the projection
-        reshaped to [B, S, 3, H, D]; returns (out, the cache advanced by
-        this call)."""
+        flash kernels as is, or with FLAGS_use_fused_attention the whole
+        block runs as one fused op; returns out. Paged serving: the
+        projection reshaped to [B, S, 3, H, D]; returns (out, the cache
+        advanced by this call)."""
         if cache is None:
             if get_flag("use_fused_attention"):
-                raise NotImplementedError(
-                    "FLAGS_use_fused_attention (the whole-block fused "
-                    "attention op) is not ported")
+                out = fused_self_attention(
+                    x, self.qkv.weight, self.qkv.bias, self.proj.weight,
+                    self.proj.bias, self.num_heads, causal=True)
+                return self.dropout(out)
             out = flash_attention_packed(self.qkv(x), self.num_heads,
                                          causal=True)
             return self.dropout(self.proj(out))

@@ -45,7 +45,8 @@ def _sdpa(query, key, value, attn_mask=None, is_causal=False, scale=None):
 
 def _flash_eligible(query, key) -> bool:
     """Shapes the flash kernels take: ``fa._gqa_route``'s decision, shape
-    only, for grouped and equal head counts alike."""
+    only, for grouped and equal head counts alike ("native", or "ramp" on
+    FLAGS_flash_native_layout=0)."""
     if query.dim() != 4 or key.dim() != 4:
         return False
     return fa._gqa_route(query.shape[2], key.shape[2],
