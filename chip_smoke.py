@@ -20,17 +20,19 @@ Phases, in order; any failure exits non-zero before the last line:
   6. card vs CPU: tiny Llama-GQA and GPT in fp32 with identical weights
      give identical greedy streams.
   7. training kernels vs plain: LayerNorm backward (K3), flash
-     attention forward / backward (K4 / K5) and the head-major forward /
-     one-pass backward (K6 / K7) against their plain versions at the
-     training steps' shapes (GPT-3 1.3B, B=4, S=2048, 16 heads of d=128;
+     attention forward / backward (K4 / K5), the head-major forward /
+     one-pass backward (K6 / K7) and the head-major two-kernel backward
+     (K8) against their plain versions at the training steps' shapes
+     (GPT-3 1.3B, B=4, S=2048, 16 heads of d=128, and B=1, S=16384;
      TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads, which
      the head-major route sees repeated to 32) and at ragged, fp32 and
      grouped-query ones (32:1, 8:2, 8:4, 4:2), every output held per
-     element; two K5 and two K7 calls on the same inputs must give the
-     same bytes; over one 32:4 forward and backward the allocated memory
-     must not rise by a repeat of k and v; gradients through the K1 / K2
-     autograd Functions; card times beside the bound, the plain version
-     and the library call, at both steps' shapes.
+     element; K8 against K7 at S=2048 and 8192; two K5, two K7 and two
+     K8 calls on the same inputs must give the same bytes; over one 32:4
+     forward and backward the allocated memory must not rise by a repeat
+     of k and v; gradients through the K1 / K2 autograd Functions; card
+     times beside the bound, the plain version and the library call, at
+     the steps' shapes.
   8. GPT-3 1.3B training at full width and depth (B=4, S=2048, bf16 amp
      O2, AdamW with fp32 masters, random weights and tokens from a seed):
      2 warm-up and 3 timed steps on one batch; the loss must be finite
@@ -43,10 +45,15 @@ Phases, in order; any failure exits non-zero before the last line:
  10. FLAGS_flash_native_layout=0 ([train_hm]) at full width and 2 layers,
      2 steps each: GPT-3 1.3B's width through the unpack route and
      TinyLlama's through the GQA ramp; K6/K7 launch, K4/K5 never.
- 11. TinyLlama-1.1B training as phase 8 at full width and depth (B=8,
+ 11. GPT-3 1.3B at 16K context ([train_long]: max_seq_len 16384, B=1,
+     S=16384) with FLAGS_use_fused_attention: the head-major backward is
+     above the one-pass budget, so every attention backward runs K8
+     (24 K6, 24 K8, 49 K2, 49 K3 launches per step; K4/K5/K7 none, 0
+     plain), as phase 8 otherwise.
+ 12. TinyLlama-1.1B training as phase 8 at full width and depth (B=8,
      S=2048, GQA 32:4): every attention runs K4/K5 over the shared kv
      heads and every RMSNorm K1 (22/22/45 launches per step, 0 plain).
- 12. card vs CPU: one fp32 training step of gpt_tiny, of gpt_tiny with
+ 13. card vs CPU: one fp32 training step of gpt_tiny, of gpt_tiny with
      FLAGS_use_fused_attention and of llama_tiny at GQA 4:2 (loss, every
      gradient and the updated weights).
 Then one JSON line of the kernels, and as the last line
@@ -72,6 +79,7 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 rate outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core rate
 BATCH, PROMPT, NEW, BLOCK = 4, 128, 64, 64
 TRAIN_B, TRAIN_S = 4, 2048     # the training step's batch and sequence
+LONG_S = 16384                 # [train_long]'s sequence (B=1)
 TRAIN_LLAMA_B = 8              # TinyLlama's batch (bench.py bench_llama)
 
 
@@ -797,43 +805,66 @@ def _timings(t, work, kern, plain, lib):
     return t
 
 
-def _time_attention_hm(which, b, h, d, g):
-    """Card ms of K6 ("fwd") or K7 ("bwd") at head-major [B*H, 2048, D]
-    q, k, v (contiguous, as fused_self_attention and the flag-0 route pass
-    them; grouped k, v come repeated to the H heads), causal bf16, beside
-    the bound, the plain version and the library calls on the same
-    memory viewed [B,H,S,D]."""
+def _time_attention_hm(which, b, h, d, g, s=TRAIN_S, split=None):
+    """Card ms of K6 ("fwd") or the head-major backward ("bwd": K8 with
+    ``split``, else K7; default: K8 where Sq*D*4 passes the one-pass
+    budget, as the dispatch picks it) at head-major [B*H, S, D] q, k, v
+    (contiguous, as fused_self_attention and the flag-0 route pass them;
+    grouped k, v come repeated to the H heads), causal bf16, beside the
+    bound, the plain version and the library calls on the same memory
+    viewed [B,H,S,D]. The plain version runs on as many heads at a time
+    as keep its [heads,S,S] fp32 products within 4 GiB."""
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
 
-    s = TRAIN_S
+    if split is None:
+        split = s * d * 4 > fa._DQ_SCRATCH_BYTES
+    bwd, bwd_ref, kname = _hm_backward(split)
     q, k, v, dout = (torch.randn(b * h, s, d, generator=g, device="cuda").to(
         torch.bfloat16) for _ in range(4))
     out, lse = fa.flash_fwd_hm_cuda(q, k, v, True)
     pairs, fwd_work, bwd_work = _attn_work(b, s, s, h, d, True)
     t = dict(shape=f"G=B*H={b}*{h} S={s} D={d} causal bf16 head-major",
              pairs=pairs)
+    step = max(1, 2 ** 32 // (s * s * 4))
+
+    def chunked(fn, *xs):
+        return [fn(*(x[i:i + step] for x in xs), True)
+                for i in range(0, b * h, step)]
     if which == "fwd":
         work = fwd_work
         kern = partial(fa.flash_fwd_hm_cuda, q, k, v, True)
-        plain = partial(fa._hm_forward_ref, q, k, v, True)
+        plain = partial(chunked, fa._hm_forward_ref, q, k, v)
     else:
+        t["kernel"] = kname
         work = bwd_work
-        kern = partial(fa.flash_bwd_hm_cuda, q, k, v, out, lse, dout, True)
-        plain = partial(fa._hm_backward_ref, q, k, v, out, lse, dout, True)
+        kern = partial(bwd, q, k, v, out, lse, dout, True)
+        plain = partial(chunked, bwd_ref, q, k, v, out, lse, dout)
     return _timings(t, work, kern, plain, _library_attention(
         which, *(x.view(b, h, s, d) for x in (q, k, v, dout))))
 
 
+def _hm_backward(split):
+    """(kernel wrapper, plain version, name) of the head-major backward:
+    K8 with ``split``, else K7."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    if split:
+        return fa.flash_bwd_hm_split_cuda, fa._hm_backward_split_ref, "K8"
+    return fa.flash_bwd_hm_cuda, fa._hm_backward_ref, "K7"
+
+
 def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
-                        strided=False):
-    """K6 and K7 against their plain versions at head-major [G,Sq,D] q and
-    [G,Sk,D] k, v, ``chunk`` heads at a time (the plain version's [G,S,S]
-    products bound memory); two K7 calls on the same inputs must give the
+                        strided=False, split=False):
+    """K6 and the head-major backward (K7, or K8 with ``split``)
+    against their plain versions at head-major [G,Sq,D] q and [G,Sk,D] k,
+    v, ``chunk`` heads at a time (the plain version's [G,S,S] products
+    bound memory); two backward calls on the same inputs must give the
     same bytes. ``strided`` (Sq == Sk): q, k, v are views of one
     [S,3,G,D] buffer (group stride D, row stride 3GD), as the fused op's
     projection gives them at B=1."""
     from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
 
+    bwd, bwd_ref, kname = _hm_backward(split)
     dout = torch.randn(groups, sq, d, generator=g, device="cuda").to(dt)
     if strided:
         buf = torch.randn(sq, 3, groups, d, generator=g, device="cuda").to(dt)
@@ -843,19 +874,19 @@ def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
         k, v = (torch.randn(groups, sk, d, generator=g, device="cuda").to(dt)
                 for _ in range(2))
     out, lse = fa.flash_fwd_hm_cuda(q, k, v, causal)
-    grads = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, causal)
-    again = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, causal)
+    grads = bwd(q, k, v, out, lse, dout, causal)
+    again = bwd(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
     for key, x, y in zip(("dq", "dk", "dv"), grads, again):
-        check(torch.equal(x, y), f"{name} {key}: two K7 calls on the same "
-                                 f"inputs differ")
+        check(torch.equal(x, y), f"{name} {key}: two {kname} calls on the "
+                                 f"same inputs differ")
     del again
     errs = dict(out=0.0, lse=0.0, dq=0.0, dk=0.0, dv=0.0)
     for i in range(0, groups, chunk):
         sl = slice(i, min(groups, i + chunk))
         rout, rlse = fa._hm_forward_ref(q[sl], k[sl], v[sl], causal)
-        rgrads = fa._hm_backward_ref(q[sl], k[sl], v[sl], out[sl], lse[sl],
-                                     dout[sl], causal)
+        rgrads = bwd_ref(q[sl], k[sl], v[sl], out[sl], lse[sl], dout[sl],
+                         causal)
         terms = _attention_terms(q[sl], k[sl], v[sl], out[sl],
                                  lse[sl].unsqueeze(1), dout[sl], 1, causal)
         for key, got, ref, t_ in zip(
@@ -870,7 +901,35 @@ def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
         errs["lse"] = max(errs["lse"], ld)
     print(f"[train_kernels] {name}: max |kernel - plain| "
           + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
-          + "; dq, dk, dv byte-identical over two K7 calls")
+          + f"; dq, dk, dv byte-identical over two {kname} calls")
+    return errs
+
+
+def _check_k8_against_k7(groups, s, d, causal, dt, g, chunk):
+    """K8 and K7 on the same head-major inputs (S at most K7's budget):
+    their dq, dk and dv must agree within _check_close's per-element
+    tolerance, ``chunk`` heads at a time."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    name = (f"K8 vs K7 G={groups} S={s} D={d} {str(dt)[6:]} "
+            f"causal={causal}")
+    q, k, v, dout = (torch.randn(groups, s, d, generator=g,
+                                 device="cuda").to(dt) for _ in range(4))
+    out, lse = fa.flash_fwd_hm_cuda(q, k, v, causal)
+    k7 = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, causal)
+    k8 = fa.flash_bwd_hm_split_cuda(q, k, v, out, lse, dout, causal)
+    errs = dict(dq=0.0, dk=0.0, dv=0.0)
+    for i in range(0, groups, chunk):
+        sl = slice(i, min(groups, i + chunk))
+        terms = _attention_terms(q[sl], k[sl], v[sl], out[sl],
+                                 lse[sl].unsqueeze(1), dout[sl], 1, causal)
+        for key, a, b, t_ in zip(("dq", "dk", "dv"), k8, k7, terms[1:]):
+            errs[key] = max(errs[key], _check_close(
+                a[sl], b[sl], f"{name} {key} (heads {sl.start}-"
+                              f"{sl.stop - 1})", t_))
+    print(f"[train_kernels] {name}: max |K8 - K7| "
+          + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+          + " (within the per-element tolerance)")
     return errs
 
 
@@ -893,7 +952,10 @@ def phase_train_kernels():
            "flash_fwd_hm": {"max_abs_err": 0.0},
            "flash_bwd_hm": {"max_abs_err": 0.0},
            "flash_fwd_hm_ramp": {"max_abs_err": 0.0},
-           "flash_bwd_hm_ramp": {"max_abs_err": 0.0}, "autograd": {}}
+           "flash_bwd_hm_ramp": {"max_abs_err": 0.0},
+           "flash_fwd_hm_long": {"max_abs_err": 0.0},
+           "flash_bwd_hm_split": {"max_abs_err": 0.0},
+           "k8_vs_k7": {"max_abs_err": 0.0}, "autograd": {}}
     rows = TRAIN_B * TRAIN_S
 
     # K3: the step's shape, a ragged row count, the scalar path, fp32
@@ -1051,6 +1113,38 @@ def phase_train_kernels():
                     e["dk"], e["dv"])
                 torch.cuda.empty_cache()
 
+    # K8 (the head-major two-kernel backward): the long step's shape (G=16
+    # at S=16384, where K6 runs too; two heads at a time: the plain
+    # version holds S^2 fp32 a head, 1 GiB), GPT-3 1.3B's 2K shape and a
+    # ragged Sq < Sk; fp32 and bf16, causal on and off; then K8 against
+    # K7 at S=2048 and at K7's longest, 8192
+    for causal in (True, False):
+        for dt, tag in ((bf, "bf16"), (f32, "fp32")):
+            for key, name, groups, sq, sk, d_, chunk in (
+                    ("_long", "gpt3-1.3b 16K", h1, LONG_S, LONG_S, d1, 2),
+                    ("", "gpt3-1.3b", TRAIN_B * h1, TRAIN_S, TRAIN_S, d1,
+                     16),
+                    ("", "ragged sq=77 sk=100", 6, 77, 100, 64, 16)):
+                e = _check_attention_hm(
+                    f"hm K8 {name} {tag} causal={causal}", groups, sq, sk,
+                    d_, causal, dt, g, chunk=chunk, split=True)
+                fk = rec["flash_fwd_hm" + key]
+                fk["max_abs_err"] = max(fk["max_abs_err"], e["out"],
+                                        e["lse"])
+                bk = rec["flash_bwd_hm_split"]
+                bk["max_abs_err"] = max(bk["max_abs_err"], e["dq"],
+                                        e["dk"], e["dv"])
+                torch.cuda.empty_cache()
+    for groups, s_, chunk, variants in (
+            (TRAIN_B * h1, TRAIN_S, 16, ((bf, True), (bf, False),
+                                         (f32, True), (f32, False))),
+            (h1, 8192, 4, ((bf, True), (f32, True)))):
+        for dt, causal in variants:
+            e = _check_k8_against_k7(groups, s_, d1, causal, dt, g, chunk)
+            rec["k8_vs_k7"]["max_abs_err"] = max(
+                rec["k8_vs_k7"]["max_abs_err"], *e.values())
+            torch.cuda.empty_cache()
+
     # timing at the step's shapes (bf16): card ms per call from CUDA
     # events over calls captured in a CUDA graph
     x = (torch.randn(rows, 2048, generator=g, device="cuda") * 2 + 0.5
@@ -1086,10 +1180,25 @@ def phase_train_kernels():
         for which in ("fwd", "bwd"):
             rec[f"flash_{which}{suffix}"].update(
                 _time_attention_hm(which, b_, h_, d_, g))
+    # K6 and K8 at the long step's shape (B=1, S=16384), and K8 at the 2K
+    # GPT shape beside K7's
+    rec["flash_fwd_hm_long"].update(
+        _time_attention_hm("fwd", 1, h1, d1, g, s=LONG_S))
+    rec["flash_bwd_hm_split"].update(
+        _time_attention_hm("bwd", 1, h1, d1, g, s=LONG_S))
     torch.cuda.empty_cache()
+    rec["flash_bwd_hm_split"]["at_2k"] = _time_attention_hm(
+        "bwd", TRAIN_B, h1, d1, g, split=True)
+    torch.cuda.empty_cache()
+    k8_2k = rec["flash_bwd_hm_split"]["at_2k"]
+    print(f"[train_kernels] flash_bwd_hm_split {k8_2k['shape']}: card ms: "
+          f"kernel {k8_2k['ms']:.5f} (K7 {rec['flash_bwd_hm']['ms']:.5f}), "
+          f"plain {k8_2k['plain_ms']:.5f}, library "
+          f"{k8_2k['library_ms']:.5f}, bound {k8_2k['bound_ms']:.6f}")
     for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd", "flash_fwd_gqa",
                 "flash_bwd_gqa", "flash_fwd_hm", "flash_bwd_hm",
-                "flash_fwd_hm_ramp", "flash_bwd_hm_ramp"):
+                "flash_fwd_hm_ramp", "flash_bwd_hm_ramp",
+                "flash_fwd_hm_long", "flash_bwd_hm_split"):
         r = rec[key]
         by_op = ", ".join(f"{n} {v:.5f}" for n, v in r.get(
             "library_ms_by_op", {}).items()) or "native_layer_norm_backward"
@@ -1106,9 +1215,9 @@ def _train_counts(kernels):
 
 
 def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
-           timed=3, profile=True):
+           timed=3, profile=True, seq=TRAIN_S):
     """``warmup`` and ``timed`` bf16 O2 AdamW steps of ``model`` on one
-    batch of [batch, TRAIN_S] tokens from a seed, through the port's entry
+    batch of [batch, seq] tokens from a seed, through the port's entry
     points. Every kernel of ``path`` must launch ``per_step`` times a step
     with 0 plain calls, every kernel of ``absent`` never; the loss must
     be finite and, over two or more timed steps, fall."""
@@ -1123,7 +1232,7 @@ def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
     n_params = sum(p.numel() for p in model.parameters())
     rs = np.random.RandomState(0)
     ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
-                                     (batch, TRAIN_S + 1)), device="cuda")
+                                     (batch, seq + 1)), device="cuda")
     x, y = ids[:, :-1], ids[:, 1:]
 
     def step():
@@ -1155,20 +1264,19 @@ def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
         check(counts[k.symbol] == (0, 0), f"{tag}: {k.symbol} ran")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = t_steps / timed * 1e3
-    tokens = batch * TRAIN_S
+    tokens = batch * seq
     d = cfg.hidden_size // cfg.num_heads
-    pairs, fwd_work, _ = _attn_work(batch, TRAIN_S, TRAIN_S, cfg.num_heads,
-                                    d, True)
+    pairs, fwd_work, _ = _attn_work(batch, seq, seq, cfg.num_heads, d, True)
     attn_flops = 3 * cfg.num_layers * fwd_work["flops"]
     model_flops = 6 * n_params * tokens + attn_flops
-    res = dict(batch=batch, seq=TRAIN_S, steps=n_steps, losses=losses,
+    res = dict(batch=batch, seq=seq, steps=n_steps, losses=losses,
                step_ms=step_ms, tokens_per_s=tokens / (step_ms / 1e3),
                peak_gb=peak_gb, params=n_params, model_flops=model_flops,
                mfu=model_flops / (step_ms / 1e3) / BF16_FLOPS,
                launches={s_: c[0] for s_, c in counts.items()},
                plain_calls={s_: c[1] for s_, c in counts.items()})
     print(f"[{tag}] {title} ({n_params / 1e9:.3f} B params), B={batch}, "
-          f"S={TRAIN_S}, bf16 O2 AdamW: losses "
+          f"S={seq}, bf16 O2 AdamW: losses "
           + ", ".join(f"{v:.4f}" for v in losses)
           + f"; step {step_ms:.1f} ms, {res['tokens_per_s']:.0f} tokens/s, "
           f"MFU {100 * res['mfu']:.1f}% (6N + attention FLOPs over 989 "
@@ -1255,6 +1363,58 @@ def phase_train_fused():
          fused_ops.RMS_NORM_KERNEL)))
     res["base_gb"] = base_gb
     print(f"[train_fused] {base_gb:.1f} GiB of the peak was held before the "
+          f"phase")
+    return res
+
+
+def phase_train_long():
+    """GPT-3 1.3B at 16K context (max_seq_len 16384, B=1, S=16384) with
+    FLAGS_use_fused_attention: Sq*D*4 = 8 MiB passes the one-pass
+    backward's budget, so every attention backward is K8 (24 K6, 24 K8,
+    49 K2, 49 K3 launches a step; K4/K5/K7 never)."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
+    from paddle_tpu_torch.nn.functional import norm
+
+    cfg = replace(gpt3_1p3b(), max_seq_len=LONG_S)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 2 ** 30
+    model = GPTForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
+    n = cfg.num_layers
+    # the strides at which the fused op hands q, k, v to the head-major
+    # Function (at B=1 views of its projection: group stride D, row 3E)
+    strides = set()
+    real = fa._flash_hm
+
+    def spy(qh, kh, vh, causal):
+        strides.add((qh.stride(), kh.stride(), vh.stride()))
+        return real(qh, kh, vh, causal)
+    fa._flash_hm = spy
+    try:
+        res = _with_flag("use_fused_attention", True, lambda: _train(
+            "train_long", "GPT-3 1.3B at 16K, FLAGS_use_fused_attention",
+            model, 1,
+            (fa.FLASH_FWD_HM_KERNEL, fa.FLASH_BWD_HM_SPLIT_KERNEL,
+             norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
+            (n, n, 2 * n + 1, 2 * n + 1),
+            (fa.FLASH_BWD_HM_KERNEL, fa.FLASH_FWD_KERNEL,
+             fa.FLASH_BWD_KERNEL, fused_ops.RMS_NORM_KERNEL), seq=LONG_S))
+    finally:
+        fa._flash_hm = real
+    d, e = cfg.hidden_size // cfg.num_heads, cfg.hidden_size
+    res["qkv_strides"] = sorted(strides)
+    res["qkv_in_place"] = strides == {((d, 3 * e, 1),) * 3}
+    res["base_gb"] = base_gb
+    print(f"[train_long] q, k, v reach the kernels at strides "
+          f"{sorted(strides)}: "
+          + ("views of the projection, read in place" if res["qkv_in_place"]
+             else "not the projection's views"))
+    print(f"[train_long] {base_gb:.1f} GiB of the peak was held before the "
           f"phase")
     return res
 
@@ -1426,6 +1586,7 @@ def main():
                       ("train", phase_train),
                       ("train_fused", phase_train_fused),
                       ("train_hm", phase_train_hm),
+                      ("train_long", phase_train_long),
                       ("train_llama", phase_train_llama),
                       ("train_card_vs_cpu", phase_train_card_vs_cpu)):
         t0 = time.perf_counter()
@@ -1447,6 +1608,7 @@ def main():
     hm_gpt = rec["train_hm"]["gpt"]["launches"]
     hm_llama = rec["train_hm"]["tinyllama"]["launches"]
     ll = rec["train_llama"]["launches"]
+    long = rec["train_long"]["launches"]
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -1459,13 +1621,15 @@ def main():
          {"gpt3_1p3b serving": rec["gpt"]["launches"],
           "gpt3_1p3b train": launches["ptt_layer_norm_fwd"],
           "gpt3_1p3b fused train": fused["ptt_layer_norm_fwd"],
-          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_fwd"]},
+          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_fwd"],
+          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_fwd"]},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
          "paddle_tpu/nn/functional/norm.py:106",
          {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"],
           "gpt3_1p3b fused train": fused["ptt_layer_norm_bwd"],
-          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_bwd"]},
+          "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_bwd"],
+          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_bwd"]},
          tk["layer_norm_bwd"], tk["layer_norm_bwd"]),
         ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
          f"{fl}:769,805",
@@ -1495,6 +1659,14 @@ def main():
         rows.append((key + "_ramp", src, replaces,
                      {"tinyllama-width hm train": hm_llama[sym]},
                      tk[key + "_ramp"], tk[key + "_ramp"]))
+    for key, sym, src, replaces in (
+            ("flash_fwd_hm_long", "ptt_flash_fwd_hm",
+             "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
+            ("flash_bwd_hm_split", "ptt_flash_bwd_hm_split",
+             "paddle_tpu_torch/csrc/flash_bwd.cu", f"{fl}:349,393")):
+        rows.append((key, src, replaces,
+                     {"gpt3_1p3b 16K fused train": long[sym]}, tk[key],
+                     tk[key]))
     kernels = []
     for name, src, replaces, by_path, r, s in rows:
         kernels.append(dict(

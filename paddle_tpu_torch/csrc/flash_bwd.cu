@@ -1,14 +1,31 @@
-// Native-layout flash attention backward for Hopper (sm_90a).
+// Flash attention backward for Hopper (sm_90a): native layout (K5) and
+// the head-major two-kernel backward (K8), the same kernels addressed
+// through per-operand (batch, head, row) strides, as the forward's K4 and
+// K6 (flash_fwd.cu).
 //
-// Replaces the TPU kernel `_bwd_nl_fused` (paddle_tpu/incubate/nn/
-// functional/flash_attention.py:873, driven by `_nl_backward`), the
-// one-pass dq/dk/dv, and the fold of its expanded grouped-query dk/dv in
-// `_flash_nl_bwd` (:1115). Layout as the forward (flash_fwd.cu): q, k, v
+// K5 (entry `ptt_flash_bwd`) replaces the TPU kernel `_bwd_nl_fused`
+// (paddle_tpu/incubate/nn/functional/flash_attention.py:873, driven by
+// `_nl_backward`), the one-pass dq/dk/dv, and the fold of its expanded
+// grouped-query dk/dv in `_flash_nl_bwd` (:1115). Layout as K4: q, k, v
 // read in place by base pointer and row stride, k and v holding KVH heads
 // (KVH divides H; q head h reads kv head h / (H / KVH)); out and dout
 // [B,Sq,H*D] contiguous; lse [B,H,Sq] fp32 from the forward; dq written
 // at its row stride, dk and dv at theirs (a packed [B,S,3E] gradient is
 // filled in place at its three column offsets).
+//
+// K8 (entry `ptt_flash_bwd_hm_split`) replaces `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` (:349, :393, driven by `_flash_backward_pallas`
+// :567), which the JAX package's head-major backward takes once the
+// one-pass K7's whole-sequence fp32 dq scratch (Sq * D * 4 bytes) passes
+// `_DQ_SCRATCH_BYTES` (4 MiB: S > 8192 at D = 128). Layout as K6: q
+// [G,Sq,D] and k, v [G,Sk,D] (G = B*H heads, one each) at their group
+// and row strides; out, dout [G,Sq,D] contiguous; lse [G,Sq] fp32; dq
+// [G,Sq,D], dk, dv [G,Sk,D] written contiguous. The TPU's two kernels are
+// this file's dq and dk/dv kernels below: its dq kernel carries a
+// (bq, D) fp32 accumulator across a sequential kv axis and its dk/dv
+// kernel two (bk, D) ones across a sequential q axis, which here are the
+// loops inside one CTA; nothing crosses CTAs, so K8 needs no scratch but
+// delta, and no atomics.
 //
 // What is computed, per (kv tile, q tile) and q head: p = exp(logits -
 // lse) (masked entries 0), dv += p^T dO, dp = dO v^T, ds = p (dp - delta)
@@ -17,8 +34,8 @@
 // dk and dv sum the terms of all H / KVH q heads that share it.
 //
 // Bound: operations. Five products to the forward's two: about 172
-// GFLOP at B=4, S=2048, H=16, D=128 causal, so the least time is
-// FLOPs / 989 TFLOP/s.
+// GFLOP at B=4, S=2048, H=16, D=128 causal (2.75 TFLOP at B=1, S=16384),
+// so the least time is FLOPs / 989 TFLOP/s.
 //
 // Design. Hopper's CTAs run in parallel, so the TPU's whole-sequence dq
 // scratch carried across a sequential grid does not translate, and a sum
@@ -32,7 +49,7 @@
 // the causal mask), against no scratch at all here, at the price of
 // recomputing p and dp (two more products: seven in all, not five).
 //   1. delta_kernel (flash_common.cuh): delta [B,H,Sq] fp32, one
-//      thread per (row, head).
+//      thread per (row, head) ([G,Sq] head-major: heads = 1).
 //   2. flash_dkdv_kernel: one CTA of 4 warps per (kv tile of 64 rows, kv
 //      head, batch), each warp owning 16 kv rows, holds dk/dv in registers
 //      over a loop of the group's q heads and each head's q tiles of 32,
@@ -41,11 +58,13 @@
 //      re-packed into A operands. The q, dO, lse and delta tiles are
 //      double-buffered with cp.async; bf16 fragments load with `ldmatrix`
 //      (`.trans` where the product reads a tile column-wise). CTAs with
-//      the most causal work (the first kv tiles) are issued first.
+//      the most causal work (the first kv tiles) are issued first. In K8
+//      a group is one head (rep = 1), so a CTA owns (kv tile, head).
 //   3. flash_dq_kernel: one CTA of 4 warps per (q tile of 64 rows, q head,
 //      batch), Q and dO in shared memory, K and V tiles of 64 streamed
 //      through a double buffer; S, P, dP and dS stay in registers, dS
-//      re-packed as the A operand of dS K, as the forward's P V.
+//      re-packed as the A operand of dS K, as the forward's P V. At
+//      G = 16, S = 16384 K8's dq grid has 4096 CTAs (K7 would run 16).
 
 #include "flash_common.cuh"
 
@@ -57,6 +76,12 @@ constexpr int kTileKV = 64;    // dk/dv kernel: kv rows per CTA (16 a warp)
 constexpr int kTileQ = 32;     // dk/dv kernel: q rows per step
 constexpr int kTileQdq = 64;   // dq kernel: q rows per CTA (16 a warp)
 constexpr int kTileKVdq = 64;  // dq kernel: kv rows per step
+
+// The operands' strides: q, k and v (shared), dout, dq, dk and dv
+// (shared).
+struct BwdLayout {
+  Strides q, kv, dout, dq, dkv;
+};
 
 template <typename T, int D>
 constexpr size_t dkdv_smem_bytes() {
@@ -74,12 +99,12 @@ constexpr size_t dq_smem_bytes() {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, int64_t q_stride,
-                      int64_t kv_stride, const T* __restrict__ dout,
+                      const T* __restrict__ v, BwdLayout L,
+                      const T* __restrict__ dout,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int64_t dkv_stride, int sq, int sk,
-                      int heads, int rep, float scale, int causal) {
+                      T* __restrict__ dv, int sq, int sk, int heads, int rep,
+                      float scale, int causal) {
   using P = typename Pair<T>::type;
   constexpr int LD = Ld<T, D>::value;
   constexpr int NQT = kTileQ / 8;  // n-tiles of S^T
@@ -101,8 +126,8 @@ __global__ void __launch_bounds__(kThreads)
   const int t = lane & 3;
   const int off = sk - sq;
   const int r0 = warp * 16;  // this warp's kv rows within the tile
-  const int e_all = heads * D;
-  const int64_t kvcol = static_cast<int64_t>(kh) * D;
+  const T* kb = k + L.kv.at(b, kh);
+  const T* vb = v + L.kv.at(b, kh);
 
   // the q tiles: from the first one any of this CTA's keys is visible to;
   // the loop runs over (q head of the group, q tile), head by head
@@ -116,14 +141,10 @@ __global__ void __launch_bounds__(kThreads)
   auto load_q_tile = [&](int i, int buf) {
     const int h = kh * rep + i / nq;
     const int q0 = q_begin + (i % nq) * kTileQ;
-    const int64_t hcol = static_cast<int64_t>(h) * D;
-    load_tile_async<T, D, kTileQ>(
-        sQ + buf * kTileQ * LD,
-        q + static_cast<int64_t>(b) * sq * q_stride + hcol, q_stride, q0,
-        sq);
-    load_tile_async<T, D, kTileQ>(
-        sdO + buf * kTileQ * LD,
-        dout + static_cast<int64_t>(b) * sq * e_all + hcol, e_all, q0, sq);
+    load_tile_async<T, D, kTileQ>(sQ + buf * kTileQ * LD, q + L.q.at(b, h),
+                                  L.q.r, q0, sq);
+    load_tile_async<T, D, kTileQ>(sdO + buf * kTileQ * LD,
+                                  dout + L.dout.at(b, h), L.dout.r, q0, sq);
     if (threadIdx.x < 2 * kTileQ) {
       const int j = threadIdx.x & (kTileQ - 1);
       const bool live = q0 + j < sq;
@@ -135,12 +156,8 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_commit();
   };
 
-  load_tile_async<T, D, kTileKV>(
-      sK, k + static_cast<int64_t>(b) * sk * kv_stride + kvcol, kv_stride,
-      k0, sk);
-  load_tile_async<T, D, kTileKV>(
-      sV, v + static_cast<int64_t>(b) * sk * kv_stride + kvcol, kv_stride,
-      k0, sk);
+  load_tile_async<T, D, kTileKV>(sK, kb, L.kv.r, k0, sk);
+  load_tile_async<T, D, kTileKV>(sV, vb, L.kv.r, k0, sk);
   if (n_it > 0) {
     load_q_tile(0, 0);  // one group with K and V
   } else {
@@ -249,8 +266,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int rh = 0; rh < 2; ++rh) {
     const int kv = k0 + r0 + g + 8 * rh;
     if (kv >= sk) continue;
-    const int64_t base = (static_cast<int64_t>(b) * sk + kv) * dkv_stride +
-                         kvcol + 2 * t;
+    const int64_t base = L.dkv.at(b, kh) + kv * L.dkv.r + 2 * t;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
       st_pair<T>(dk + base + n * 8, dk_acc[n][2 * rh] * scale,
@@ -263,12 +279,12 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, int64_t q_stride,
-                    int64_t kv_stride, const T* __restrict__ dout,
+                    const T* __restrict__ v, BwdLayout L,
+                    const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int64_t dq_stride, int sq, int sk, int heads, int rep,
-                    float scale, int causal) {
+                    int sq, int sk, int heads, int rep, float scale,
+                    int causal) {
   using P = typename Pair<T>::type;
   constexpr int LD = Ld<T, D>::value;
   constexpr int NKT = kTileKVdq / 8;  // n-tiles of S and dP
@@ -289,12 +305,10 @@ __global__ void __launch_bounds__(kThreads)
   const int t = lane & 3;
   const int off = sk - sq;
   const int r0 = warp * 16;
-  const int e_all = heads * D;
 
-  const int64_t hcol = static_cast<int64_t>(h) * D;
-  const int64_t kvcol = static_cast<int64_t>(h / rep) * D;  // shared kv head
-  const T* kb = k + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
-  const T* vb = v + static_cast<int64_t>(b) * sk * kv_stride + kvcol;
+  const int64_t kvoff = L.kv.at(b, h / rep);  // shared kv head
+  const T* kb = k + kvoff;
+  const T* vb = v + kvoff;
 
   int kv_end = sk;
   if (causal) {
@@ -303,14 +317,12 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int n_tiles = kv_end > 0 ? (kv_end + kTileKVdq - 1) / kTileKVdq : 0;
 
-  load_tile_async<T, D, kTileQdq>(
-      sQ, q + static_cast<int64_t>(b) * sq * q_stride + hcol, q_stride, q0,
-      sq);
-  load_tile_async<T, D, kTileQdq>(
-      sdO, dout + static_cast<int64_t>(b) * sq * e_all + hcol, e_all, q0, sq);
+  load_tile_async<T, D, kTileQdq>(sQ, q + L.q.at(b, h), L.q.r, q0, sq);
+  load_tile_async<T, D, kTileQdq>(sdO, dout + L.dout.at(b, h), L.dout.r, q0,
+                                  sq);
   if (n_tiles > 0) {
-    load_tile_async<T, D, kTileKVdq>(sK, kb, kv_stride, 0, sk);
-    load_tile_async<T, D, kTileKVdq>(sV, vb, kv_stride, 0, sk);
+    load_tile_async<T, D, kTileKVdq>(sK, kb, L.kv.r, 0, sk);
+    load_tile_async<T, D, kTileKVdq>(sV, vb, L.kv.r, 0, sk);
   }
   cp_async_commit();
 
@@ -336,8 +348,8 @@ __global__ void __launch_bounds__(kThreads)
     if (it + 1 < n_tiles) {
       T* nK = sK + ((it + 1) & 1) * kTileKVdq * LD;
       T* nV = sV + ((it + 1) & 1) * kTileKVdq * LD;
-      load_tile_async<T, D, kTileKVdq>(nK, kb, kv_stride, k0 + kTileKVdq, sk);
-      load_tile_async<T, D, kTileKVdq>(nV, vb, kv_stride, k0 + kTileKVdq, sk);
+      load_tile_async<T, D, kTileKVdq>(nK, kb, L.kv.r, k0 + kTileKVdq, sk);
+      load_tile_async<T, D, kTileKVdq>(nV, vb, L.kv.r, k0 + kTileKVdq, sk);
       cp_async_commit();
     }
 
@@ -403,7 +415,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int rh = 0; rh < 2; ++rh) {
     const int row = q0 + r0 + g + 8 * rh;
     if (row >= sq) continue;
-    T* drow = dq + (static_cast<int64_t>(b) * sq + row) * dq_stride + hcol;
+    T* drow = dq + L.dq.at(b, h) + row * L.dq.r;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
       st_pair<T>(drow + n * 8 + 2 * t, acc[n][2 * rh] * scale,
@@ -413,11 +425,10 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, int64_t q_stride,
-        int64_t kv_stride, const void* out, const void* dout,
-        const void* lse, void* delta, void* dq, void* dk, void* dv,
-        int64_t dq_stride, int64_t dkv_stride, int batch, int sq, int sk,
-        int heads, int kv_heads, int causal, cudaStream_t stream) {
+int bwd(const void* q, const void* k, const void* v, const BwdLayout& layout,
+        const void* out, const void* dout, const void* lse, void* delta,
+        void* dq, void* dk, void* dv, int batch, int sq, int sk, int heads,
+        int kv_heads, int causal, cudaStream_t stream) {
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   const int rep = heads / kv_heads;
   const int64_t rows = static_cast<int64_t>(batch) * sq * heads;
@@ -436,10 +447,10 @@ int bwd(const void* q, const void* k, const void* v, int64_t q_stride,
   const dim3 grid_kv((sk + kTileKV - 1) / kTileKV, kv_heads, batch);
   dkdv<<<grid_kv, kThreads, smem_kv, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_stride, kv_stride,
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk),
-      static_cast<T*>(dv), dkv_stride, sq, sk, heads, rep, scale, causal);
+      static_cast<const T*>(v), layout, static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, heads, rep, scale,
+      causal);
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
 
@@ -451,16 +462,19 @@ int bwd(const void* q, const void* k, const void* v, int64_t q_stride,
   const dim3 grid_q((sq + kTileQdq - 1) / kTileQdq, heads, batch);
   dqk<<<grid_q, kThreads, smem_q, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_stride, kv_stride,
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), dq_stride, sq,
-      sk, heads, rep, scale, causal);
+      static_cast<const T*>(v), layout, static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), sq, sk, heads, rep, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, strides, heads and kv_heads as ptt_flash_fwd; out, dout:
+#define PTT_BWD(T, D)                                                    \
+  bwd<T, D>(q, k, v, layout, out, dout, lse, delta, dq, dk, dv, batch, sq, \
+            sk, heads, kv_heads, causal, static_cast<cudaStream_t>(stream))
+
+// K5. q, k, v, strides, heads and kv_heads as ptt_flash_fwd; out, dout:
 // [batch, sq, heads * head_dim] contiguous; lse: [batch, heads, sq] fp32
 // from the forward; delta: fp32 [batch, heads, sq] scratch (written
 // here); dq: [batch, sq, heads * head_dim] rows of stride dq_stride; dk,
@@ -481,11 +495,42 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
       dq == nullptr || dk == nullptr || dv == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_BWD(T, D)                                                       \
-  bwd<T, D>(q, k, v, q_stride, kv_stride, out, dout, lse, delta, dq, dk, dv, \
-            dq_stride, dkv_stride, batch, sq, sk, heads, kv_heads, causal,   \
-            s)
+  const int64_t d = head_dim;
+  const BwdLayout layout{{sq * q_stride, d, q_stride},
+                         {sk * kv_stride, d, kv_stride},
+                         {sq * heads * d, d, heads * d},
+                         {sq * dq_stride, d, dq_stride},
+                         {sk * dkv_stride, d, dkv_stride}};
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
-#undef PTT_BWD
 }
+
+// K8. q: [groups, sq, head_dim] with group stride q_gstride and row
+// stride q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
+// kv_gstride, kv_rstride (as ptt_flash_fwd_hm); out, dout: [groups, sq,
+// head_dim] contiguous; lse: [groups, sq] fp32 from the forward; delta:
+// fp32 [groups, sq] scratch (written here); dq: [groups, sq, head_dim],
+// dk, dv: [groups, sk, head_dim], all contiguous. Pointers and row
+// strides are 16-byte aligned. Launches the delta, dk/dv and dq kernels;
+// returns cudaGetLastError().
+extern "C" int ptt_flash_bwd_hm_split(
+    const void* q, const void* k, const void* v, int64_t q_gstride,
+    int64_t q_rstride, int64_t kv_gstride, int64_t kv_rstride,
+    const void* out, const void* dout, const void* lse, void* delta,
+    void* dq, void* dk, void* dv, int groups, int sq, int sk, int head_dim,
+    int causal, int dtype, void* stream) {
+  if (!ptt_flash::args_ok(groups, sq, sk, 1, 1, head_dim) || q == nullptr ||
+      k == nullptr || v == nullptr || out == nullptr || dout == nullptr ||
+      lse == nullptr || delta == nullptr || dq == nullptr || dk == nullptr ||
+      dv == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int batch = groups, heads = 1, kv_heads = 1;
+  const int64_t d = head_dim;
+  const BwdLayout layout{{q_gstride, 0, q_rstride},
+                         {kv_gstride, 0, kv_rstride},
+                         {sq * d, 0, d},
+                         {sq * d, 0, d},
+                         {sk * d, 0, d}};
+  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
+}
+#undef PTT_BWD

@@ -1,8 +1,8 @@
 // Helpers shared by the flash attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_bwd_hm.cu): warp-level m16n8k16 products, their
-// fragment loads from shared memory, asynchronous tile copies, the
-// backward's delta kernel, and the C entry points' argument checks and
-// dtype / head-dim dispatch.
+// flash_bwd.cu, flash_bwd_hm.cu): operand strides, warp-level m16n8k16
+// products, their fragment loads from shared memory, asynchronous tile
+// copies, the backward's delta kernel, and the C entry points' argument
+// checks and dtype / head-dim dispatch.
 //
 // Fragment layout of c[16x8] += a[16x16] b[16x8] (g = lane / 4,
 // t = lane % 4): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] =
@@ -24,6 +24,17 @@ namespace ptt_flash {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
+
+// Element strides of one attention operand over (batch, head, row); the
+// last dim is contiguous. Native [B,S,H*D] rows of stride R: (S*R, D, R);
+// head-major [G,S,D], G in the batch place and one head: (group, 0, row).
+struct Strides {
+  int64_t b, h, r;
+  // offset of head h of batch element b
+  __device__ __forceinline__ int64_t at(int bi, int hi) const {
+    return static_cast<int64_t>(bi) * b + static_cast<int64_t>(hi) * h;
+  }
+};
 
 // Two adjacent elements of an mma fragment: packed bf16x2, or fp32 pair.
 template <typename T>

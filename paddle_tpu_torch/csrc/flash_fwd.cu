@@ -60,12 +60,9 @@ constexpr size_t fwd_smem_bytes() {
          sizeof(T);
 }
 
-// Element strides of the operands: (batch, head, row) for q, for k and v
-// (shared), and for out.
+// The operands' strides: q, k and v (shared), out.
 struct Layout {
-  int64_t q_b, q_h, q_r;
-  int64_t kv_b, kv_h, kv_r;
-  int64_t o_b, o_h, o_r;
+  Strides q, kv, o;
 };
 
 template <typename T, int D>
@@ -94,8 +91,8 @@ __global__ void __launch_bounds__(kThreads)
   const int off = sk - sq;
   const int r0 = warp * 16;
 
-  const T* qb = q + b * L.q_b + h * L.q_h;
-  const int64_t kvoff = b * L.kv_b + (h / rep) * L.kv_h;  // shared kv head
+  const T* qb = q + L.q.at(b, h);
+  const int64_t kvoff = L.kv.at(b, h / rep);  // shared kv head
   const T* kb = k + kvoff;
   const T* vb = v + kvoff;
 
@@ -106,10 +103,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int n_tiles = kv_end > 0 ? (kv_end + kTileKV - 1) / kTileKV : 0;
 
-  load_tile_async<T, D, kTileQ>(sQ, qb, L.q_r, q0, sq);
+  load_tile_async<T, D, kTileQ>(sQ, qb, L.q.r, q0, sq);
   if (n_tiles > 0) {
-    load_tile_async<T, D, kTileKV>(sK, kb, L.kv_r, 0, sk);
-    load_tile_async<T, D, kTileKV>(sV, vb, L.kv_r, 0, sk);
+    load_tile_async<T, D, kTileKV>(sK, kb, L.kv.r, 0, sk);
+    load_tile_async<T, D, kTileKV>(sV, vb, L.kv.r, 0, sk);
   }
   cp_async_commit();
 
@@ -129,8 +126,8 @@ __global__ void __launch_bounds__(kThreads)
     if (it + 1 < n_tiles) {
       T* nK = sK + ((it + 1) & 1) * kTileKV * LD;
       T* nV = sV + ((it + 1) & 1) * kTileKV * LD;
-      load_tile_async<T, D, kTileKV>(nK, kb, L.kv_r, k0 + kTileKV, sk);
-      load_tile_async<T, D, kTileKV>(nV, vb, L.kv_r, k0 + kTileKV, sk);
+      load_tile_async<T, D, kTileKV>(nK, kb, L.kv.r, k0 + kTileKV, sk);
+      load_tile_async<T, D, kTileKV>(nV, vb, L.kv.r, k0 + kTileKV, sk);
       cp_async_commit();
     }
     if (it == 0) {
@@ -220,7 +217,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + r0 + g + 8 * rh;
     if (row >= sq) continue;
     const float lsafe = fmaxf(l[rh], 1e-30f);
-    T* orow = out + b * L.o_b + h * L.o_h + row * L.o_r;
+    T* orow = out + L.o.at(b, h) + row * L.o.r;
 #pragma unroll
     for (int n = 0; n < NDT; ++n) {
       st_pair<T>(orow + n * 8 + 2 * t, o[n][2 * rh] / lsafe,
@@ -276,9 +273,9 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t d = head_dim;
-  const Layout layout{sq * q_stride,  d, q_stride,
-                      sk * kv_stride, d, kv_stride,
-                      static_cast<int64_t>(sq) * heads * d, d, heads * d};
+  const Layout layout{{sq * q_stride, d, q_stride},
+                      {sk * kv_stride, d, kv_stride},
+                      {sq * heads * d, d, heads * d}};
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
 }
 
@@ -299,9 +296,10 @@ extern "C" int ptt_flash_fwd_hm(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int batch = groups, heads = 1, kv_heads = 1;
-  const Layout layout{q_gstride,  0, q_rstride,
-                      kv_gstride, 0, kv_rstride,
-                      static_cast<int64_t>(sq) * head_dim, 0, head_dim};
+  const int64_t d = head_dim;
+  const Layout layout{{q_gstride, 0, q_rstride},
+                      {kv_gstride, 0, kv_rstride},
+                      {sq * d, 0, d}};
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
 }
 #undef PTT_FWD

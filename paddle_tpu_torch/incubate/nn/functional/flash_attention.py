@@ -20,23 +20,26 @@ Head-major (``FLAGS_flash_native_layout=0``, and always inside
 ``fused_self_attention``, the op behind ``FLAGS_use_fused_attention``):
 ``_flash_hm`` takes [G,S,D] operands (G = B*H) and saves its residuals in
 that layout. Its forward is ``ptt_flash_fwd_hm`` (K6, csrc/flash_fwd.cu,
-replacing ``_fwd_kernel_single`` / ``_fwd_kernel``) and its backward
-``ptt_flash_bwd_hm`` (K7, csrc/flash_bwd_hm.cu, replacing the one-pass
-``_bwd_fused_kernel``). On flag 0 the [B,S,H,D] entries transpose to
+replacing ``_fwd_kernel_single`` / ``_fwd_kernel``). Its backward, as the
+JAX package's ``_flash_backward_pallas`` picks it: while the one-pass
+backward's whole-sequence fp32 dq scratch (Sq*D*4 bytes) fits
+``_DQ_SCRATCH_BYTES`` (4 MiB: S <= 8192 at D=128), ``ptt_flash_bwd_hm``
+(K7, csrc/flash_bwd_hm.cu, replacing the one-pass ``_bwd_fused_kernel``);
+above it the two-kernel ``ptt_flash_bwd_hm_split`` (K8, csrc/flash_bwd.cu,
+replacing ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``: K5's kernels at
+head-major strides). On flag 0 the [B,S,H,D] entries transpose to
 head-major around it, and grouped k, v are repeated to the q heads first
-(the JAX package's "ramp"), only on this route.
+(the JAX package's "ramp"), only on this route. The native route has no
+such budget: K5 keeps no whole-sequence scratch, so it runs at any S.
 
 On a CPU tensor the same Functions run the kernels' plain versions
 (``_nl_forward_ref`` / ``_nl_backward_ref``, ``_hm_forward_ref`` /
-``_hm_backward_ref``). Nothing else: a tensor on any other device raises,
-and a failed build or launch raises.
+``_hm_backward_ref`` / ``_hm_backward_split_ref``). Nothing else: a
+tensor on any other device raises, and a failed build or launch raises.
 
-Not ported here (raise NotImplementedError): the head-major two-kernel
-backward (K8, ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``), which the JAX
-package takes once the one-pass backward's fp32 dq scratch (Sq*D*4 bytes)
-passes ``_DQ_SCRATCH_BYTES``; the dense ``_reference_attention`` /
-``_attend_hm_reference`` fallbacks for head dims other than 32, 64 and
-128; and on the card any such head dim.
+Not ported here (raise NotImplementedError): the dense
+``_reference_attention`` / ``_attend_hm_reference`` fallbacks for head
+dims other than 32, 64 and 128; and on the card any such head dim.
 """
 from __future__ import annotations
 
@@ -81,10 +84,19 @@ FLASH_BWD_HM_KERNEL = Kernel(
     "flash_bwd_hm.cu", "ptt_flash_bwd_hm",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 6)
+# Replaces `_bwd_dq_kernel` / `_bwd_dkv_kernel` (flash_attention.py:349,
+# 393) driven by `_flash_backward_pallas` (:567): K5's delta, dk/dv and dq
+# kernels at head-major strides, its own entry point and counters. Bound:
+# operations, five products, as K5/K7. One launch per call runs the three
+# kernels (each output has one writer: deterministic).
+FLASH_BWD_HM_SPLIT_KERNEL = Kernel(
+    "flash_bwd.cu", "ptt_flash_bwd_hm_split",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 6)
 HEAD_DIMS = (32, 64, 128)
 # Budget of the one-pass head-major backward's whole-sequence fp32 dq
-# scratch, as the JAX package's (:506): above it the JAX package runs the
-# two-kernel backward (K8), which is not ported.
+# scratch, as the JAX package's (:506): above it the head-major backward
+# is the two-kernel K8.
 _DQ_SCRATCH_BYTES = 4 << 20
 
 
@@ -222,12 +234,24 @@ def _hm_forward_ref(qh, kh, vh, causal):
     return out, lse.reshape(qh.shape[0], qh.shape[1])
 
 
-def _hm_backward_ref(qh, kh, vh, out, lse, doh, causal):
-    """Plain K7: -> (dq [G,Sq,D], dk, dv [G,Sk,D]) in doh's dtype; the
-    arithmetic of :func:`_backward_math`, one head per group."""
-    FLASH_BWD_HM_KERNEL.plain_calls += 1
+def _hm_backward_math(qh, kh, vh, out, lse, doh, causal):
+    """-> (dq [G,Sq,D], dk, dv [G,Sk,D]) in doh's dtype: the arithmetic
+    of :func:`_backward_math`, one head per group."""
     return _backward_math(qh, kh, vh, out, lse.reshape(lse.shape[0], 1, -1),
                           doh, 1, causal)
+
+
+def _hm_backward_ref(qh, kh, vh, out, lse, doh, causal):
+    """Plain K7 (:func:`_hm_backward_math`)."""
+    FLASH_BWD_HM_KERNEL.plain_calls += 1
+    return _hm_backward_math(qh, kh, vh, out, lse, doh, causal)
+
+
+def _hm_backward_split_ref(qh, kh, vh, out, lse, doh, causal):
+    """Plain K8 (:func:`_hm_backward_math`: the two kernels compute the
+    one-pass backward's function)."""
+    FLASH_BWD_HM_SPLIT_KERNEL.plain_calls += 1
+    return _hm_backward_math(qh, kh, vh, out, lse, doh, causal)
 
 
 # ---------------------------------------------------------------------------
@@ -374,11 +398,10 @@ def flash_fwd_hm_cuda(qh, kh, vh, causal):
     return out, lse
 
 
-def flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal):
-    """Launch K7. qh, kh, vh as :func:`flash_fwd_hm_cuda`; out, doh
-    [G,Sq,D] contiguous; lse fp32 [G,Sq] from the forward. Returns new
-    (dq [G,Sq,D], dk, dv [G,Sk,D]). Its scratch: delta fp32 [G,Sq] and
-    the whole-sequence dq accumulator fp32 [G,Sq,D]."""
+def _check_hm_bwd_args(qh, kh, vh, out, lse, doh):
+    """The head-major backward's operands (:func:`_check_hm_args`, out
+    and doh [G,Sq,D] contiguous, lse fp32 [G,Sq]) -> (G, Sq, Sk, D) and
+    new (delta fp32 [G,Sq], dq [G,Sq,D], dk, dv [G,Sk,D])."""
     g, sq, sk, d = _check_hm_args(qh, kh, vh)
     for name, x in (("out", out), ("dout", doh)):
         if (x.shape != (g, sq, d) or x.dtype != qh.dtype
@@ -391,16 +414,40 @@ def flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal):
             or not lse.is_contiguous()):
         raise ValueError("flash attention: lse must be fp32 [G,Sq]")
     delta = torch.empty(g, sq, dtype=torch.float32, device=qh.device)
-    dq_acc = torch.empty(g, sq, d, dtype=torch.float32, device=qh.device)
     dq = torch.empty(g, sq, d, dtype=qh.dtype, device=qh.device)
     dk, dv = (torch.empty(g, sk, d, dtype=qh.dtype, device=qh.device)
               for _ in range(2))
+    return (g, sq, sk, d), (delta, dq, dk, dv)
+
+
+def flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal):
+    """Launch K7. qh, kh, vh as :func:`flash_fwd_hm_cuda`; out, doh
+    [G,Sq,D] contiguous; lse fp32 [G,Sq] from the forward. Returns new
+    (dq [G,Sq,D], dk, dv [G,Sk,D]). Its scratch: delta fp32 [G,Sq] and
+    the whole-sequence dq accumulator fp32 [G,Sq,D]."""
+    (g, sq, sk, d), (delta, dq, dk, dv) = _check_hm_bwd_args(
+        qh, kh, vh, out, lse, doh)
+    dq_acc = torch.empty(g, sq, d, dtype=torch.float32, device=qh.device)
     FLASH_BWD_HM_KERNEL.launch(
         qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
         qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
         doh.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), g, sq, sk, d,
         int(bool(causal)), DTYPE_CODES[qh.dtype])
+    return dq, dk, dv
+
+
+def flash_bwd_hm_split_cuda(qh, kh, vh, out, lse, doh, causal):
+    """Launch K8, arguments and results as :func:`flash_bwd_hm_cuda`.
+    Its only scratch is delta fp32 [G,Sq]."""
+    (g, sq, sk, d), (delta, dq, dk, dv) = _check_hm_bwd_args(
+        qh, kh, vh, out, lse, doh)
+    FLASH_BWD_HM_SPLIT_KERNEL.launch(
+        qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
+        qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
+        doh.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), g, sq, sk, d, int(bool(causal)),
+        DTYPE_CODES[qh.dtype])
     return dq, dk, dv
 
 
@@ -437,21 +484,18 @@ def _flash_forward_hm(qh, kh, vh, causal):
 
 
 def _flash_backward_hm(qh, kh, vh, out, lse, doh, causal):
-    """The head-major backward: the one-pass K7 while its whole-sequence
-    fp32 dq scratch fits ``_DQ_SCRATCH_BYTES``, as the JAX package's
-    ``_flash_backward_pallas`` picks it; above that, on every device, the
-    two-kernel K8, which is not ported. -> (dq, dk, dv) head-major."""
-    sq, d = qh.shape[1], qh.shape[2]
-    if sq * d * 4 > _DQ_SCRATCH_BYTES:
-        raise NotImplementedError(
-            f"head-major flash attention backward: Sq={sq} at D={d} needs "
-            f"{sq * d * 4} bytes of dq scratch, above _DQ_SCRATCH_BYTES="
-            f"{_DQ_SCRATCH_BYTES}; the two-kernel backward K8 "
-            f"(_bwd_dq_kernel / _bwd_dkv_kernel) is not ported")
+    """The head-major backward, as the JAX package's
+    ``_flash_backward_pallas`` picks it: the one-pass K7 while its
+    whole-sequence fp32 dq scratch (Sq*D*4 bytes) fits
+    ``_DQ_SCRATCH_BYTES``, the two-kernel K8 above it; on a card the
+    kernel, on the CPU its plain version. -> (dq, dk, dv) head-major."""
+    split = qh.shape[1] * qh.shape[2] * 4 > _DQ_SCRATCH_BYTES
     if qh.device.type == "cuda":
-        return flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal)
+        kernel = flash_bwd_hm_split_cuda if split else flash_bwd_hm_cuda
+        return kernel(qh, kh, vh, out, lse, doh, causal)
     if qh.device.type == "cpu":
-        return _hm_backward_ref(qh, kh, vh, out, lse, doh, causal)
+        plain = _hm_backward_split_ref if split else _hm_backward_ref
+        return plain(qh, kh, vh, out, lse, doh, causal)
     raise ValueError(f"flash attention: unsupported device {qh.device}")
 
 
@@ -658,7 +702,8 @@ def _fused_mha_impl(x, wqkv, bqkv, wo, bo, num_heads=1, causal=False):
     """The whole attention block over the head-major layout: the qkv
     projection contracts x [B,S,E] with the [E,3E] weight viewed
     [E,3,H,D] straight into [3,B,H,S,D], the head-major Function runs
-    K6/K7 on [B*H,S,D], and the output projection contracts [B,H,S,D]
+    K6 and K7 or K8 on [B*H,S,D] (at B=1 on views of the projection, read
+    in place), and the output projection contracts [B,H,S,D]
     with the [E,E] weight viewed [H,D,E]. The matmuls are torch's, as
     they lie outside the Pallas kernel in the JAX package. Biases may be
     None. A head dim outside HEAD_DIMS (the JAX package's dense
@@ -693,8 +738,9 @@ def fused_self_attention(x, qkv_weight, qkv_bias, out_weight, out_bias,
                            num_heads, causal)
 
 
-__all__ = ["FLASH_BWD_HM_KERNEL", "FLASH_BWD_KERNEL", "FLASH_FWD_HM_KERNEL",
-           "FLASH_FWD_KERNEL", "HEAD_DIMS", "flash_attention_fused",
-           "flash_attention_packed", "flash_bwd_cuda", "flash_bwd_hm_cuda",
+__all__ = ["FLASH_BWD_HM_KERNEL", "FLASH_BWD_HM_SPLIT_KERNEL",
+           "FLASH_BWD_KERNEL", "FLASH_FWD_HM_KERNEL", "FLASH_FWD_KERNEL",
+           "HEAD_DIMS", "flash_attention_fused", "flash_attention_packed",
+           "flash_bwd_cuda", "flash_bwd_hm_cuda", "flash_bwd_hm_split_cuda",
            "flash_fwd_cuda", "flash_fwd_hm_cuda", "fused_self_attention",
            "grouped_pv_out", "grouped_qk_logits"]

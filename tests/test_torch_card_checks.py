@@ -1,8 +1,9 @@
 """Card only: chip_smoke.py's per-element checks of the flash-attention
-backwards against their plain versions reject broken kernels, and both
+backwards against their plain versions reject broken kernels, and the
 backwards give the same bytes on every call: K5 (native layout,
-``csrc/flash_bwd.cu``) and K7 (head-major one-pass,
-``csrc/flash_bwd_hm.cu``).
+``csrc/flash_bwd.cu``), K7 (head-major one-pass, ``csrc/flash_bwd_hm.cu``)
+and K8 (head-major two-kernel: K5's kernels at head-major strides, entry
+``ptt_flash_bwd_hm_split`` in ``csrc/flash_bwd.cu``).
 
 Copies of ``paddle_tpu_torch``, each with one edit to one of those
 sources, are built in a temporary directory and run causal, bf16, at
@@ -16,12 +17,16 @@ at 1024, and, grouped, dk/dv skipping the last q head of each kv head's
 group and the CTAs of kv head 1 returning at once. The K7 edits: the dq
 add of the middle kv tile dropped, the last q tile's terms dropped, dk
 left unscaled, and the causal start of each kv tile's q tiles one tile
-late. Each copy must fail the check in exactly the gradients it breaks,
-and the committed kernels must pass it at both shapes; an edit whose
-text is not in its source exactly once fails its test. Each test prints
-its worst |kernel - plain| / tolerance per gradient. Two backward calls
-of a committed kernel on the same inputs must give equal dq, dk and dv
-bytes. The tests skip without a card; on a machine with one (the tests'
+late. The K8 edits, run head-major at GPT-3 1.3B's shape (B*H = 64
+heads, S=2048) or at the long step's (2 heads of D=128 at S=16384): the
+dq kernel skipping the kv tile at 1024, the dk/dv kernel starting each
+kv tile's q tiles one tile late, and the dq kernel's kv loop stopping
+at key 8192 (only the long shape has keys past it). Each copy must fail
+the check in exactly the gradients it breaks, and the committed kernels
+must pass it at their shapes; an edit whose text is not in its source
+exactly once fails its test. Each test prints its worst |kernel -
+plain| / tolerance per gradient. Two backward calls of a committed
+kernel on the same inputs must give equal dq, dk and dv bytes. The tests skip without a card; on a machine with one (the tests'
 conftest.py sets up JAX, which these tests do not use):
 
     python -m pytest --noconftest -m card tests/test_torch_card_checks.py -q -s
@@ -38,12 +43,14 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 CSRC = Path("paddle_tpu_torch") / "csrc"
 # kernel -> its source
-SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_hm.cu"}
+SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_hm.cu",
+           "k8": CSRC / "flash_bwd.cu"}
 COMMITTED = "committed"
 # name -> (B, S, H, KVH, D); H == KVH runs K5 on the packed [B,S,3E]
-# layout; K7 takes KVH == H ([B*H,S,D] q, k, v)
+# layout; K7 and K8 take KVH == H ([B*H,S,D] q, k, v)
 SHAPES = {"gpt": (4, 2048, 16, 16, 128), "tinyllama": (8, 2048, 32, 4, 64),
-          "tinyllama_ramp": (8, 2048, 32, 32, 64)}
+          "tinyllama_ramp": (8, 2048, 32, 32, 64),
+          "long": (1, 16384, 2, 2, 128)}
 
 _DKDV_PREFETCH = "    if (it + 1 < n_it) load_q_tile(it + 1, buf ^ 1);\n"
 # name -> (source text, its replacement, the gradients that must fail,
@@ -99,19 +106,36 @@ MUTANTS = {
         "    return causal && first > 0 ? first / kTileQ : 0;\n",
         "    return causal && first > 0 ? first / kTileQ + 1 : 0;\n",
         {"dq", "dk", "dv"}, "gpt", "k7"),
+    "k8_dq_skips_kv_tile_1024": (
+        "    // S = Q K^T and dP = dO V^T\n",
+        "    if (k0 == 1024) continue;\n    // S = Q K^T and dP = dO V^T\n",
+        {"dq"}, "gpt", "k8"),
+    "k8_dkdv_causal_start_one_tile_late": (
+        "    q_begin = first > 0 ? first / kTileQ * kTileQ : 0;\n",
+        "    q_begin = first > 0 ? first / kTileQ * kTileQ + kTileQ : 0;\n",
+        {"dk", "dv"}, "gpt", "k8"),
+    "k8_dq_kv_loop_stops_at_8192": (
+        "  const int n_tiles = kv_end > 0 ? (kv_end + kTileKVdq - 1) / "
+        "kTileKVdq : 0;\n",
+        "  const int n_tiles = min(kv_end > 0 ? (kv_end + kTileKVdq - 1) / "
+        "kTileKVdq : 0, 8192 / kTileKVdq);\n",
+        {"dq"}, "long", "k8"),
 }
 # test id -> (copy, kernel, shape)
 RUNS = {COMMITTED: (COMMITTED, "k5", "gpt"),
         COMMITTED + "_gqa": (COMMITTED, "k5", "tinyllama"),
         COMMITTED + "_k7": (COMMITTED, "k7", "gpt"),
         COMMITTED + "_k7_ramp": (COMMITTED, "k7", "tinyllama_ramp"),
+        COMMITTED + "_k8": (COMMITTED, "k8", "gpt"),
+        COMMITTED + "_k8_long": (COMMITTED, "k8", "long"),
         **{n: (n, m[4], m[3]) for n, m in MUTANTS.items()}}
 
 # Run with the package's copy as the working directory and the repository
-# root as argv[1] (for chip_smoke), then the kernel (k5 or k7) and B S H
-# KVH D: the forward then the backward twice, chip_smoke's check of dq, dk
-# and dv (K5 batch element by batch element, K7 sixteen heads at a time),
-# and whether the two backward calls gave the same bytes.
+# root as argv[1] (for chip_smoke), then the kernel (k5, k7 or k8) and B S
+# H KVH D: the forward then the backward twice, chip_smoke's check of dq,
+# dk and dv (K5 batch element by batch element, K7 and K8 sixteen heads at
+# a time, one at a time past S=8192: the plain version holds S^2 fp32 a
+# head), and whether the two backward calls gave the same bytes.
 _CHECK = r"""
 import json, os, sys
 import torch
@@ -140,15 +164,18 @@ def rand(*shape):
     return torch.randn(*shape, generator=g, device="cuda").bfloat16()
 
 
-if kernel == "k7":
+if kernel in ("k7", "k8"):
+    bwd, bwd_ref = ((fa.flash_bwd_hm_cuda, fa._hm_backward_ref)
+                    if kernel == "k7" else
+                    (fa.flash_bwd_hm_split_cuda, fa._hm_backward_split_ref))
     q, k, v, dout = (rand(b * h, s, d) for _ in range(4))
     out, lse = fa.flash_fwd_hm_cuda(q, k, v, True)
-    dq, dk, dv = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, True)
-    again = fa.flash_bwd_hm_cuda(q, k, v, out, lse, dout, True)
-    step = 16
+    dq, dk, dv = bwd(q, k, v, out, lse, dout, True)
+    again = bwd(q, k, v, out, lse, dout, True)
+    step = 16 if s <= 8192 else 1
     lse_of = lambda sl: lse[sl].unsqueeze(1)
-    refs_of = lambda sl: fa._hm_backward_ref(q[sl], k[sl], v[sl], out[sl],
-                                             lse[sl], dout[sl], True)
+    refs_of = lambda sl: bwd_ref(q[sl], k[sl], v[sl], out[sl], lse[sl],
+                                 dout[sl], True)
     heads = 1
 else:
     if kvh == h:
@@ -289,4 +316,20 @@ def test_k7_gives_the_same_bytes_twice(copies, shape):
     owns each head and adds into its dq scratch in kv-tile order, without
     atomics."""
     res = _run(copies, COMMITTED, "k7", shape)
+    assert res["same_bytes"], res
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("run_id", [r for r in RUNS if RUNS[r][1] == "k8"])
+def test_k8_check_rejects_broken_kernels(copies, run_id):
+    _check_run(copies, run_id)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", ["gpt", "long"])
+def test_k8_gives_the_same_bytes_twice(copies, shape):
+    """Two K8 calls on the same inputs write equal dq, dk and dv: each
+    element has one writer (its q tile's dq CTA, its kv tile's dk/dv CTA)
+    that sums in a fixed order, without atomics."""
+    res = _run(copies, COMMITTED, "k8", shape)
     assert res["same_bytes"], res

@@ -199,12 +199,10 @@ def test_flash_attention_packed_runs_the_plain_versions_on_cpu():
 
 def test_unported_attention_routes_raise(monkeypatch):
     """The dense fallback of `flash_attention_fused` (a head dim outside
-    HEAD_DIMS) is a later slice on either FLAGS_flash_native_layout, and
-    so is the head-major two-kernel backward (K8) that the JAX package
-    takes above `_DQ_SCRATCH_BYTES`; kv heads that do not divide the q
-    heads are an error (grouped query itself is ported:
-    tests/test_torch_gqa.py; the head-major route: tests/
-    test_torch_flash_hm.py)."""
+    HEAD_DIMS) is a later slice on either FLAGS_flash_native_layout; kv
+    heads that do not divide the q heads are an error (grouped query
+    itself is ported: tests/test_torch_gqa.py; the head-major route and
+    its two-kernel backward: tests/test_torch_flash_hm.py)."""
     with pytest.raises(NotImplementedError):
         tfa.flash_attention_fused(torch.randn(1, 8, 2, 16),
                                   torch.randn(1, 8, 1, 16),
@@ -219,11 +217,6 @@ def test_unported_attention_routes_raise(monkeypatch):
         tfa.flash_attention_fused(torch.randn(1, 8, 4, 16),
                                   torch.randn(1, 8, 2, 16),
                                   torch.randn(1, 8, 2, 16), True)
-    monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", 0)
-    qkv = torch.randn(1, 8, 3 * 64, requires_grad=True)
-    out = tfa.flash_attention_packed(qkv, 2, True)
-    with pytest.raises(NotImplementedError, match="K8"):
-        out.sum().backward()
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

@@ -9,19 +9,24 @@ test_fused_self_attention_pallas_interpret :406),
 tests/test_flash_native_layout.py::test_nl_ineligible_shapes_fall_back
 (:151, the route off the native layout) and
 tests/test_gqa_native.py::test_mqa_keeps_flash_via_repeat_ramp (:127).
-The CUDA kernels K6/K7 run only on a card (chip_smoke.py holds them
+The CUDA kernels K6/K7/K8 run only on a card (chip_smoke.py holds them
 against these plain versions there); here a CPU tensor runs the plain
-versions ``_hm_forward_ref`` / ``_hm_backward_ref`` through the same
-``_FlashHM`` Function the card uses. Each test names what it holds them
-against:
+versions ``_hm_forward_ref`` / ``_hm_backward_ref`` (K7) /
+``_hm_backward_split_ref`` (K8, above ``_DQ_SCRATCH_BYTES``) through the
+same ``_FlashHM`` Function the card uses. Each test names what it holds
+them against:
 - the Pallas kernels ``_fwd_kernel_single`` / ``_fwd_kernel`` /
-  ``_bwd_fused_kernel`` run in interpret mode, called directly
-  (``_flash_forward_pallas`` / ``_flash_backward_fused`` interpret off a
-  TPU) or through ``_fused_mha_impl`` with ``FORCE_PALLAS_INTERPRET``
-  set by monkeypatch, or
+  ``_bwd_fused_kernel`` / ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` run
+  in interpret mode, called directly (``_flash_forward_pallas`` /
+  ``_flash_backward_fused`` / ``_flash_backward_pallas`` interpret off a
+  TPU) or through the models and ``_fused_mha_impl`` with
+  ``FORCE_PALLAS_INTERPRET`` set, or
 - the dense jnp math the JAX models take on the CPU without that flag
   (``_attend_hm_reference`` in the fused op, ``_reference_attention``
   on FLAGS_flash_native_layout=0).
+The two-kernel backward K8 is reached by lowering ``_DQ_SCRATCH_BYTES``
+(in both packages where both run it) below Sq*D*4 of the small shapes;
+every test that lowers it restores it in ``finally`` or by monkeypatch.
 
 Every test that needs FLAGS_use_fused_attention or
 FLAGS_flash_native_layout sets it in both packages through the
@@ -168,24 +173,119 @@ def test_hm_plain_bf16_matches_pallas_interpret(causal):
         _close(t.grad, want, "bfloat16")
 
 
+def _split_inputs(g, sq, sk, d, seed, dtype):
+    """(jax, torch) head-major q [G,Sq,D], k, v [G,Sk,D] and an output
+    gradient [G,Sq,D], made from numpy arrays."""
+    rs = np.random.RandomState(seed)
+    arrs = [rs.randn(g, n, d).astype(np.float32) for n in (sq, sk, sk, sq)]
+    jdt, tdt = DTYPES[dtype]
+    return ([jnp.asarray(a, jdt) for a in arrs],
+            [torch.tensor(a).to(tdt) for a in arrs])
+
+
+def _route_counts():
+    """Plain calls of K7 and K8."""
+    return (tfa.FLASH_BWD_HM_KERNEL.plain_calls,
+            tfa.FLASH_BWD_HM_SPLIT_KERNEL.plain_calls)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,sq,sk,d,blocks", [
+    (2, 256, 256, 64, (64, 128)), (2, 128, 256, 32, (64, 64))],
+    ids=["square", "ragged"])
+def test_hm_split_plain_matches_pallas_two_kernel_interpret(
+        monkeypatch, g, sq, sk, d, blocks, causal, dtype):
+    """Shadows test_fused_ops.py:215. With `_DQ_SCRATCH_BYTES` lowered
+    to 0 in both packages, the JAX package's `_flash_backward_pallas`
+    runs its two-kernel backward (`_bwd_dq_kernel`, `_bwd_dkv_kernel`) in
+    interpret mode and the port's `_flash_backward_hm` runs K8's plain
+    version (and not K7's); dq, dk, dv on the same q, k, v, output
+    gradient and the JAX forward's out and lse, at several tiles (the
+    given blocks), Sq == Sk and a ragged Sq < Sk. The port's plain K6 is
+    held against the JAX forward on the way."""
+    monkeypatch.setattr(fa, "_DQ_SCRATCH_BYTES", 0)
+    monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", 0)
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _split_inputs(
+        g, sq, sk, d, sq + d + causal, dtype)
+    bq, bk = blocks
+    jout, jlse = fa._flash_forward_pallas(jq, jk, jv, causal, bq, bk)
+    jgrads = fa._flash_backward_pallas(jq, jk, jv, jout, jlse, jg, causal,
+                                       bq, bk)
+    tout, tlse = tfa._flash_forward_hm(tq, tk, tv, causal)
+    _close(tout, jout, dtype)
+    _close(tlse, jlse)
+    before = _route_counts()
+    tgrads = tfa._flash_backward_hm(
+        tq, tk, tv, torch.tensor(_np(jout)).to(tq.dtype),
+        torch.tensor(_np(jlse)), tg, causal)
+    assert _route_counts() == (before[0], before[1] + 1)
+    for got, want in zip(tgrads, jgrads):
+        assert got.dtype == tq.dtype
+        _close(got, want, dtype)
+
+
 def test_hm_backward_above_the_dq_scratch_budget_raises_naming_k8(
         monkeypatch):
-    """Shadows test_fused_ops.py:215. The JAX package picks the one-pass
-    backward while Sq*D*4 <= _DQ_SCRATCH_BYTES (4 MiB, so S <= 8192 at
-    D=128) and the two-kernel K8 above it; the port keeps the budget, runs
-    its one-pass K7 up to it and raises naming K8 above it, on the CPU as
-    on a card (the check comes before the device dispatch)."""
+    """Shadows test_fused_ops.py:215 (the name is kept from when the port
+    raised above the budget). The JAX package picks the one-pass backward
+    while Sq*D*4 <= _DQ_SCRATCH_BYTES (4 MiB, so S <= 8192 at D=128) and
+    the two-kernel K8 above it; so does the port: at the budget K7's
+    plain version runs, one byte above it K8's, each counted by its own
+    plain_calls on the CPU, and both give the same dq, dk, dv (the same
+    arithmetic)."""
     assert tfa._DQ_SCRATCH_BYTES == fa._DQ_SCRATCH_BYTES == 4 << 20
     _, (tq, tk, tv, tg) = _hm_inputs(1, 256, 2, 32, 3, "float32")
     out, lse = tfa._flash_forward_hm(tq, tk, tv, True)
-    monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", 256 * 32 * 4)
-    tfa._flash_backward_hm(tq, tk, tv, out, lse, tg, True)
-    monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", 256 * 32 * 4 - 1)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tfa._flash_backward_hm(tq, tk, tv, out, lse, tg, True)
-    monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="_bwd_dq_kernel"):
-        tfa._flash_backward_hm(tq, tk, tv, out, lse, tg, True)
+    runs = []
+    for budget, want in ((256 * 32 * 4, (1, 0)), (256 * 32 * 4 - 1, (0, 1)),
+                         (0, (0, 1))):
+        monkeypatch.setattr(tfa, "_DQ_SCRATCH_BYTES", budget)
+        before = _route_counts()
+        runs.append(tfa._flash_backward_hm(tq, tk, tv, out, lse, tg, True))
+        assert tuple(a - b for a, b in zip(_route_counts(), before)) == want
+    for k7, k8 in zip(runs[0], runs[1]):
+        assert torch.equal(k7, k8)
+
+
+def test_k8_wrapper_rejects_cpu_tensors_and_the_dispatch_other_devices():
+    """K8's wrapper takes only CUDA tensors (no CPU fallback), and the
+    head-major backward raises on a device that is neither the card nor
+    the CPU."""
+    x = torch.randn(2, 64, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_bwd_hm_split_cuda(x, x, x, x, torch.zeros(2, 64), x, True)
+    m = torch.empty(2, 64, 32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa._flash_backward_hm(m, m, m, m, torch.empty(2, 64, device="meta"),
+                               m, True)
+
+
+def test_fused_op_passes_b1_projection_views_in_place(monkeypatch):
+    """At B=1 `_fused_mha_impl` hands the head-major Function views of
+    its projection (group stride D, row stride 3E, with and without the
+    bias), which the kernels read in place; at B=2 a transposing copy
+    (contiguous [B*H,S,D])."""
+    seen = []
+    real = tfa._flash_hm
+
+    def spy(qh, kh, vh, causal):
+        seen.append((qh.stride(), kh.stride(), vh.stride(),
+                     qh.is_contiguous()))
+        return real(qh, kh, vh, causal)
+    monkeypatch.setattr(tfa, "_flash_hm", spy)
+    s, e, h = 16, 64, 2
+    d = e // h
+    for b, with_bias in ((1, True), (1, False), (2, True)):
+        arrs, _ = _fused_inputs(b, s, e, seed=b)
+        ts = [torch.tensor(a) for a in arrs]
+        if not with_bias:
+            ts[2] = ts[4] = None
+        tfa.fused_self_attention(*ts, num_heads=h, causal=True)
+    view = (d, 3 * e, 1)
+    assert seen[0][:3] == seen[1][:3] == (view,) * 3
+    assert not seen[0][3] and not seen[1][3]
+    assert seen[2][3]
 
 
 def _fused_inputs(b, s, e, seed):
@@ -511,3 +611,138 @@ def test_mqa_ramp_keeps_flash_and_matches_pallas_interpret(monkeypatch,
     _close(tout, jout)
     for t, want in zip(ts, pull(jnp.asarray(g))):
         _close(t.grad, want)
+
+
+# ---------------------------------------------------------------------------
+# the two-kernel backward (K8) in the models
+# ---------------------------------------------------------------------------
+
+def _spy_jax_backward_kernels(counts):
+    """Wrap the JAX package's backward kernel bodies so that each trace
+    of one counts; returns a function that restores them."""
+    saved = {}
+    for name in ("_bwd_dq_kernel", "_bwd_dkv_kernel", "_bwd_fused_kernel"):
+        orig = saved[name] = getattr(fa, name)
+
+        def spy(*args, _name=name, _orig=orig, **kw):
+            counts[_name] = counts.get(_name, 0) + 1
+            return _orig(*args, **kw)
+        setattr(fa, name, spy)
+
+    def restore():
+        for name, orig in saved.items():
+            setattr(fa, name, orig)
+    return restore
+
+
+def _jax_split_run(flag, value, steps, seed):
+    """`_jax_run_with` with the JAX package's Pallas kernels in interpret
+    mode (FORCE_PALLAS_INTERPRET) and `_DQ_SCRATCH_BYTES` lowered to 0, so
+    that its head-major backward is the two-kernel one; everything is
+    restored in finally. The run records which backward kernels were
+    traced."""
+    counts = {}
+    old = fa.FORCE_PALLAS_INTERPRET, fa._DQ_SCRATCH_BYTES
+    restore = _spy_jax_backward_kernels(counts)
+    fa.FORCE_PALLAS_INTERPRET, fa._DQ_SCRATCH_BYTES = True, 0
+    try:
+        run = _jax_run_with(flag, value, _gpt_pair, steps, seed)
+    finally:
+        fa.FORCE_PALLAS_INTERPRET, fa._DQ_SCRATCH_BYTES = old
+        restore()
+    run["jax_kernels"] = counts
+    return run
+
+
+@pytest.fixture
+def port_split_budget():
+    """The port's `_DQ_SCRATCH_BYTES` lowered to 0 (K8 on every head-major
+    backward), restored in finally."""
+    old = tfa._DQ_SCRATCH_BYTES
+    tfa._DQ_SCRATCH_BYTES = 0
+    try:
+        yield
+    finally:
+        tfa._DQ_SCRATCH_BYTES = old
+
+
+def _split_route_calls():
+    """[K6, K7, K8, K4, K5] plain calls and launches."""
+    ks = (tfa.FLASH_FWD_HM_KERNEL, tfa.FLASH_BWD_HM_KERNEL,
+          tfa.FLASH_BWD_HM_SPLIT_KERNEL, tfa.FLASH_FWD_KERNEL,
+          tfa.FLASH_BWD_KERNEL)
+    return [k.plain_calls + k.launches for k in ks]
+
+
+@pytest.fixture(scope="module")
+def jax_fused_split_run():
+    """Three fp32 AdamW steps of the JAX gpt_tiny with
+    FLAGS_use_fused_attention, its fused op on the Pallas head-major
+    kernels in interpret mode and the two-kernel backward."""
+    return _jax_split_run("use_fused_attention", True, 3, 12)
+
+
+def _model_step_calls(tm, ref, n_grads):
+    before = _split_route_calls()
+    _check_model_step(tm, ref, n_grads)
+    return [a - b for a, b in zip(_split_route_calls(), before)]
+
+
+def test_gpt_tiny_fused_two_kernel_backward_matches_jax(
+        jax_fused_split_run, both_flags, port_split_budget):
+    """FLAGS_use_fused_attention with `_DQ_SCRATCH_BYTES` lowered in both
+    packages: every layer's backward is the two-kernel one on both sides
+    (the JAX run traced `_bwd_dq_kernel` and `_bwd_dkv_kernel`, never
+    `_bwd_fused_kernel`; the port ran K8's plain version, never K7's);
+    fp32 logits, loss and all 28 gradients of one step."""
+    both_flags("use_fused_attention", True)
+    ref = jax_fused_split_run
+    assert ref["jax_kernels"].get("_bwd_dq_kernel", 0) > 0
+    assert ref["jax_kernels"].get("_bwd_dkv_kernel", 0) > 0
+    assert "_bwd_fused_kernel" not in ref["jax_kernels"]
+    _, tm = _gpt_pair()
+    assert _model_step_calls(tm, ref, 28) == [2, 0, 2, 0, 0]
+
+
+def test_gpt_tiny_fused_two_kernel_adamw_three_steps_match_jax(
+        jax_fused_split_run, both_flags, port_split_budget):
+    """fp32: the loss trajectory and every final weight of three AdamW
+    steps with FLAGS_use_fused_attention on the two-kernel backward in
+    both packages. Losses 1e-5 relative; 99.9% of the weights within
+    1e-6 and every weight within 1e-4, except where the first step's
+    gradient is fp32 rounding noise (within 1e-6 of its tensor's largest
+    value): Adam's first step is lr * sign(g), so such an element moves
+    by lr either way on the two sides and is held to Adam's own bound,
+    lr a step (this batch has one, at 1e-10 with opposite signs)."""
+    both_flags("use_fused_attention", True)
+    _, tm = _gpt_pair()
+    ref = jax_fused_split_run
+    tl = _port_steps(tm, ref["x"], ref["y"], 3, o2=False)
+    _close_rel(tl, ref["losses"])
+    assert tl[2] < tl[0]
+    errs = []
+    for name, p in tm.state_dict().items():
+        err = np.abs(p.numpy() - ref["state"][name])
+        g = np.abs(ref["grads"][name])
+        noise = g <= 1e-6 * g.max()
+        assert err[~noise].max(initial=0.0) <= 1e-4, name
+        assert err[noise].max(initial=0.0) <= 3 * LR, name
+        errs.append(err.ravel())
+    assert (np.concatenate(errs) <= 1e-6).mean() >= 0.999
+
+
+def test_long_context_route_difference_native_k5_vs_jax_k8(
+        both_flags, port_split_budget):
+    """The documented route difference above the one-pass budget. On
+    default flags the JAX package leaves the native layout there (its
+    `_nl_ok` caps Sq at the same VMEM budget), unpacks and runs K6 with
+    the two-kernel backward K8 (traced here in interpret mode with the
+    budget lowered); the port keeps its native K4/K5, whose backward has
+    no whole-sequence scratch and no such cap. Both give the same fp32
+    logits, loss and all 28 gradients of one gpt_tiny step."""
+    both_flags("flash_native_layout", True)
+    ref = _jax_split_run("flash_native_layout", True, 1, 13)
+    assert ref["jax_kernels"].get("_bwd_dq_kernel", 0) > 0
+    assert "_bwd_fused_kernel" not in ref["jax_kernels"]
+    _, tm = _gpt_pair()
+    assert _model_step_calls(tm, ref, 28) == [0, 0, 0, 2, 2]
