@@ -56,6 +56,20 @@ Phases, in order; any failure exits non-zero before the last line:
  13. card vs CPU: one fp32 training step of gpt_tiny, of gpt_tiny with
      FLAGS_use_fused_attention and of llama_tiny at GQA 4:2 (loss, every
      gradient and the updated weights).
+ 14. the custom-op API ([custom_op]): K9 (csrc/scale.cu) against its
+     plain version bit for bit (fp32 and bf16, factors 2, 0.1, 1/3, at
+     the hidden state of a GPT-3 1.3B step [4, 2048, 2048] and at small,
+     offset, transposed and empty inputs; the FFN's [8192, 8192] bf16 at
+     0.5; two calls give the same bytes) and its times at both paths'
+     shapes beside the bound and torch.mul; an op registered with K9 and
+     its VJP (ops.register_op) forward and backward on a to_tensor
+     tensor on the card (1 + 1 launches, 0 plain); a PyLayer forward and
+     backward on the card; an FFN at GPT-3 1.3B's width (Linear(2048,
+     8192), a registered gelu-like op, the K9 op at 0.5, Linear(8192,
+     2048)) trained 10 SGD steps under amp O2 on 8192 rows (loss falls,
+     K9 20 launches counted from 0, 0 plain; the first step's K9 calls
+     equal the plain version bit for bit); cpp_extension.load's host ops
+     on 1M floats on the card.
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -1570,6 +1584,332 @@ def phase_train_card_vs_cpu():
     return out
 
 
+# K9's shape on the main path: the hidden state of a GPT-3 1.3B training
+# step (B=4, S=2048, E=2048); the factors of the reference test (2.0) and
+# two that round in bf16
+SCALE_SHAPE = (TRAIN_B, TRAIN_S, 2048)
+SCALE_FACTORS = (2.0, 0.1, 1 / 3)
+FFN_ROWS, FFN_STEPS = 8192, 10  # [custom_op] (d): rows of data, SGD steps
+# K9's shape, dtype and factor in the FFN of (d): its hidden activation
+# [rows, 4 * 2048] and that activation's gradient, bf16 under O2, x0.5
+FFN_SCALE = ((FFN_ROWS, 4 * 2048), torch.bfloat16, 0.5)
+CPP_SOURCE = r"""
+#include <cstdint>
+#include <cmath>
+extern "C" void softclip(const float* in, float* out, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) out[i] = std::tanh(in[i]);
+}
+extern "C" void plus_one(const float* in, float* out, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) out[i] = in[i] + 1.0f;
+}
+"""
+
+
+def scale_cases(g):
+    """[(name, x, factor)] of [custom_op] (a), fp32 and bf16: the
+    register_op path's shape at every factor; the reference test's
+    [2, 4], n = 1 and n = 4097 (a vector tail), a view whose base is
+    offset by one element (a scalar head) and a transposed view, each at
+    every factor; an empty tensor; and the FFN path's shape, dtype and
+    factor (FFN_SCALE)."""
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).split(".")[-1]
+
+        def rand(*shape):
+            return torch.randn(*shape, generator=g, device="cuda").to(dt)
+
+        for f in SCALE_FACTORS:
+            cases += [
+                (f"{list(SCALE_SHAPE)} {tag} x{f:.4g}", rand(*SCALE_SHAPE), f),
+                (f"[2, 4] {tag} x{f:.4g}", rand(2, 4), f),
+                (f"n=1 {tag} x{f:.4g}", rand(1), f),
+                (f"n=4097 {tag} x{f:.4g}", rand(4097), f),
+                (f"offset view n=4097 {tag} x{f:.4g}", rand(4098)[1:], f),
+                (f"transposed [130, 96] {tag} x{f:.4g}", rand(96, 130).t(),
+                 f)]
+        cases.append((f"empty [0, 3] {tag}", rand(0, 3), 2.0))
+    shape, dt, f = FFN_SCALE
+    cases.append((f"{list(shape)} bfloat16 x{f:.4g}",
+                  torch.randn(*shape, generator=g, device="cuda").to(dt), f))
+    return cases
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def scale_mismatches(x, factor):
+    """(elements where K9 and its plain version differ in any bit, max
+    |K9 - plain|) on x. K9 writes into an output filled with NaN first,
+    so an element it leaves unwritten differs. Fails if K9's result is
+    not a contiguous tensor of x's shape and dtype."""
+    from paddle_tpu_torch.testing import custom_scale as cs
+
+    alloc = cs._empty_at_offset_of
+    cs._empty_at_offset_of = lambda t: alloc(t).fill_(float("nan"))
+    try:
+        got = cs.scale_cuda(x, factor)
+    finally:
+        cs._empty_at_offset_of = alloc
+    ref = cs.scale_plain(x, factor)
+    check(got.shape == x.shape and got.dtype == x.dtype
+          and got.is_contiguous(),
+          f"scale: got {tuple(got.shape)} {got.dtype} for "
+          f"{tuple(x.shape)} {x.dtype}")
+    if not x.numel():
+        return 0, 0.0
+    return (int((_bits(got) != _bits(ref)).sum()),
+            float((got.float() - ref.float()).abs().max()))
+
+
+def _gelu_like(x):
+    return x * 0.5 * (1.0 + torch.tanh(0.79788456 * (x + 0.044715 * x ** 3)))
+
+
+def phase_custom_op():
+    """The custom-op API on the card: K9 against its plain version bit for
+    bit and its times; an op registered with K9 and its VJP, forward and
+    backward; an FFN at GPT-3 1.3B's width trained through a registered
+    op and the K9 op with SGD under amp O2; cpp_extension.load's host ops
+    on CUDA tensors."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.testing import custom_scale as cs
+    from paddle_tpu_torch.utils import cpp_extension
+
+    kernel = cs.SCALE_KERNEL
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rec = {"max_abs_err": 0.0, "cases": 0}
+    # (a) K9 against its plain version, bit for bit
+    for name, x, f in scale_cases(g):
+        before = kernel.launches
+        bad, err = scale_mismatches(x, f)
+        check(bad == 0, f"scale {name}: {bad} of {x.numel()} elements "
+                        f"differ from the plain version (max err {err})")
+        check((kernel.launches - before) == (1 if x.numel() else 0),
+              f"scale {name}: {kernel.launches - before} launches")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["cases"] += 1
+    x = torch.randn(*SCALE_SHAPE, generator=g, device="cuda").bfloat16()
+    check(torch.equal(_bits(cs.scale_cuda(x, 0.1)),
+                      _bits(cs.scale_cuda(x, 0.1))),
+          "scale: two calls gave different bytes")
+    torch.cuda.synchronize()
+    print(f"[custom_op] K9 equals its plain version bit for bit in "
+          f"{rec['cases']} cases (fp32 and bf16, factors 2, 0.1, 1/3; "
+          f"{list(SCALE_SHAPE)}, [2, 4], n=1, n=4097, an offset view, a "
+          f"transposed view, empty; {list(FFN_SCALE[0])} bf16 x0.5); two "
+          f"calls give the same bytes")
+
+    # (b) times at the register_op path's shape, factor 2.0, and at the
+    # FFN path's, factor 0.5. torch.mul computes the same function at
+    # both factors (each is a bf16 value); it is also the plain version's
+    # one call.
+    rec["shapes"] = []
+    for shape, dt, f in ((SCALE_SHAPE, torch.bfloat16, 2.0),
+                         (SCALE_SHAPE, torch.float32, 2.0), FFN_SCALE):
+        x = torch.randn(*shape, generator=g, device="cuda").to(dt)
+        nbytes = 2 * x.numel() * x.element_size()
+        t = dict(shape=f"{list(shape)} {str(dt).split('.')[-1]} x{f:.4g}",
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+        for key, fn in (("ms", lambda: cs.scale_cuda(x, f)),
+                        ("plain_ms", lambda: cs.scale_plain(x, f)),
+                        ("library_ms", lambda: torch.mul(x, f))):
+            t[key] = device_ms(fn)
+            t["eager_" + key] = eager_ms(fn)
+        rec["shapes"].append(t)
+        print(f"[custom_op] K9 {t['shape']}: card ms: kernel {t['ms']:.5f}, "
+              f"plain {t['plain_ms']:.5f}, torch.mul {t['library_ms']:.5f}, "
+              f"bound {t['bound_ms']:.6f} (bytes); kernel at "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of its bound; eager ms "
+              f"per call: kernel {t['eager_ms']:.5f}, plain "
+              f"{t['eager_plain_ms']:.5f}, torch.mul "
+              f"{t['eager_library_ms']:.5f}")
+        del x
+
+    # (c) the register_op path: K9 forward, K9 backward through scale_vjp,
+    # on a tensor that to_tensor puts on the card by default
+    op = ptt.ops.register_op("custom_scale", cs.scale, vjp=cs.scale_vjp)
+    gelu = ptt.ops.register_op("gelu_like", _gelu_like)
+    try:
+        x = ptt.to_tensor(
+            torch.randn(*SCALE_SHAPE, generator=g, device="cuda"),
+            dtype="bfloat16", stop_gradient=False)
+        check(x.is_cuda and x.requires_grad and x.is_leaf,
+              f"to_tensor: got {x.device}, requires_grad "
+              f"{x.requires_grad}, leaf {x.is_leaf}")
+        kernel.reset_counts()
+        out = op(x)
+        out.sum().backward()
+        torch.cuda.synchronize()
+        counts = (kernel.launches, kernel.plain_calls)
+        check(counts == (2, 0), f"custom_op: register_op forward and "
+                                f"backward ran K9 {counts[0]} times, plain "
+                                f"{counts[1]} times (want 2, 0)")
+        check(torch.equal(_bits(out), _bits(x.detach() * 2)),
+              "custom_op: op(x) != 2x")
+        check(bool((x.grad == 2).all()), "custom_op: x.grad is not all 2")
+        rec["launches"] = {"register_op": counts[0]}
+        print(f"[custom_op] register_op('custom_scale', scale, "
+              f"vjp=scale_vjp) on to_tensor's {list(SCALE_SHAPE)} bf16 "
+              f"(on {x.device} by default): out == 2x, x.grad all 2.0; K9 "
+              f"1 launch forward + 1 backward, 0 plain")
+        del x, out
+
+        # PyLayer forward and backward on the card
+        class Cube(ptt.PyLayer):
+            @staticmethod
+            def forward(ctx, v):
+                ctx.save_for_backward(v)
+                return v * v * v
+
+            @staticmethod
+            def backward(ctx, dy):
+                (v,) = ctx.saved_tensor()
+                return dy * 3 * v * v
+
+        v = ptt.to_tensor(torch.randn(1 << 20, generator=g, device="cuda"),
+                          stop_gradient=False)
+        out = Cube.apply(v)
+        out.backward(torch.ones_like(out))
+        vd = v.detach()
+        check(out.is_cuda and type(out.grad_fn).__name__ == "CubeBackward"
+              and torch.equal(out, vd * vd * vd)
+              and torch.equal(v.grad, 3 * vd * vd),
+              "PyLayer: Cube's output or x.grad on the card differs from "
+              "x^3 and 3x^2")
+        print(f"[custom_op] PyLayer Cube on {v.numel()} floats on "
+              f"{v.device}: out == x^3, x.grad == 3x^2")
+        del v, vd, out
+
+        # (d) an FFN at GPT-3 1.3B's width through the registered ops
+        gen = ptt.seed(1234, "cuda")
+        lin1 = ptt.nn.Linear(2048, 8192, device="cuda", generator=gen)
+        lin2 = ptt.nn.Linear(8192, 2048, device="cuda", generator=gen)
+        model = torch.nn.Sequential(lin1, lin2)
+        opt = ptt.optimizer.SGD(learning_rate=1.0,
+                                parameters=model.parameters())
+        model, opt = ptt.amp.decorate(models=model, optimizers=opt,
+                                      level="O2")
+        x = torch.randn(FFN_ROWS, 2048, generator=g, device="cuda")
+        y = torch.randn(FFN_ROWS, 2048, generator=g, device="cuda")
+        # the first step keeps each K9 call's input and output, to hold
+        # them against the plain version after the counts are read
+        seen, launch = [], cs.scale_cuda
+
+        def keep(t, factor=2.0):
+            out = launch(t, factor)
+            seen.append((t.detach().clone(), factor, out.detach().clone()))
+            return out
+
+        def step():
+            with ptt.amp.auto_cast(level="O2"):
+                h = op(gelu(lin1(x)), factor=0.5)
+                loss = ((lin2(h).float() - y) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        kernel.reset_counts()
+        cs.scale_cuda = keep
+        try:
+            warm = [step()]
+        finally:
+            cs.scale_cuda = launch
+        warm.append(step())
+        timed, secs = sync_time(
+            lambda: [step() for _ in range(FFN_STEPS - 2)])
+        launches, plain = kernel.launches, kernel.plain_calls
+        losses = [float(v) for v in warm + timed]
+        check(all(np.isfinite(losses)), f"custom_op: loss not finite: "
+                                         f"{losses}")
+        check(losses[-1] < losses[0], f"custom_op: loss did not fall: "
+                                       f"{losses}")
+        check((launches, plain) == (2 * FFN_STEPS, 0),
+              f"custom_op: K9 ran {launches} times, plain {plain} times "
+              f"in {FFN_STEPS} FFN steps (want {2 * FFN_STEPS}, 0)")
+        shape, dt, f = FFN_SCALE
+        check([(tuple(t.shape), t.dtype, fa) for t, fa, _ in seen]
+              == [(shape, dt, f)] * 2,
+              f"custom_op: the FFN step's K9 calls were "
+              f"{[(tuple(t.shape), t.dtype, fa) for t, fa, _ in seen]}, "
+              f"want forward and backward at {(shape, dt, f)}")
+        ffn_err = 0.0
+        for (t, fa, got), part in zip(seen, ("forward", "backward")):
+            ref = cs.scale_plain(t, fa)
+            bad = int((_bits(got) != _bits(ref)).sum())
+            check(bad == 0, f"custom_op: the FFN step's {part} K9 call: "
+                            f"{bad} elements differ from the plain version")
+            ffn_err = max(ffn_err, float((got.float() - ref.float())
+                                         .abs().max()))
+        del seen
+        step_ms = secs / (FFN_STEPS - 2) * 1e3
+        rec["launches"]["ffn train"] = launches
+        rec.update(ffn=dict(max_abs_err=ffn_err), ffn_losses=losses,
+                   ffn_step_ms=step_ms)
+        print(f"[custom_op] FFN Linear(2048, 8192) -> gelu_like op -> K9 op "
+              f"x0.5 -> Linear(8192, 2048), {FFN_ROWS} rows, SGD lr 1.0, "
+              f"bf16 O2: losses " + ", ".join(f"{v:.6f}" for v in losses)
+              + f"; step {step_ms:.2f} ms (mean of the last "
+              f"{FFN_STEPS - 2}); K9 launches on the path: {launches} "
+              f"({FFN_STEPS} forward + {FFN_STEPS} backward), plain 0; the "
+              f"first step's forward and backward K9 calls "
+              f"({list(shape)} bf16 x{f:.4g}) equal the plain version bit "
+              f"for bit")
+        del model, opt, lin1, lin2, x, y
+    finally:
+        ptt.ops.deregister_op("custom_scale")
+        ptt.ops.deregister_op("gelu_like")
+
+    # (e) cpp_extension.load: host ops on CUDA tensors
+    src = REPO / "build" / "chip_smoke" / "my_ops.cc"
+    src.parent.mkdir(parents=True, exist_ok=True)
+    src.write_text(CPP_SOURCE)
+    fns = cpp_extension.load(
+        "chip_smoke_ext", [str(src)], functions=["softclip", "plus_one"],
+        vjps={"softclip": (lambda v: (torch.tanh(v),) * 2,
+                           lambda t, gr: ((1.0 - t * t) * gr,))})
+    try:
+        x = torch.randn(1 << 20, generator=g, device="cuda")
+        y = fns["plus_one"](x)
+        check(y.device == x.device and y.dtype == torch.float32
+              and torch.equal(y, x + 1), "cpp_extension: plus_one != x + 1")
+        z = fns["softclip"](x)
+        t = torch.tanh(x)
+        rel = float(((z - t).abs() / t.abs().clamp_min(1e-30)).max())
+        check(z.device == x.device and rel <= 1e-6,
+              f"cpp_extension: softclip vs torch.tanh: max rel err {rel}")
+        xg = x.clone().requires_grad_()
+        zg = fns["softclip"](xg)
+        zg.sum().backward()
+        check(torch.equal(zg, t) and torch.equal(xg.grad, 1.0 - t * t),
+              "cpp_extension: softclip's VJP differs from torch")
+        xp = x.clone().requires_grad_()
+        yp = fns["plus_one"](xp)
+        try:
+            yp.sum().backward()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        check("chip_smoke_ext.plus_one" in raised,
+              "cpp_extension: a gradient through plus_one did not raise")
+        host_ms = eager_ms(lambda: fns["plus_one"](x), iters=10, reps=5,
+                           warmup=2)
+        rec.update(cpp_rel_err=rel, cpp_plus_one_ms=host_ms)
+        print(f"[custom_op] cpp_extension.load: plus_one == x + 1 and "
+              f"softclip within {rel:.3g} of torch.tanh on {x.numel()} "
+              f"floats on the card; softclip's VJP matches torch; a "
+              f"gradient through plus_one raises; plus_one {host_ms:.3f} ms "
+              f"a call (a host round trip by contract)")
+    finally:
+        ptt.ops.deregister_op("chip_smoke_ext.softclip")
+        ptt.ops.deregister_op("chip_smoke_ext.plus_one")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -1588,7 +1928,8 @@ def main():
                       ("train_hm", phase_train_hm),
                       ("train_long", phase_train_long),
                       ("train_llama", phase_train_llama),
-                      ("train_card_vs_cpu", phase_train_card_vs_cpu)):
+                      ("train_card_vs_cpu", phase_train_card_vs_cpu),
+                      ("custom_op", phase_custom_op)):
         t0 = time.perf_counter()
         rec[name] = run()
         print(f"[{name}] phase took {time.perf_counter() - t0:.1f} s",
@@ -1667,6 +2008,13 @@ def main():
         rows.append((key, src, replaces,
                      {"gpt3_1p3b 16K fused train": long[sym]}, tk[key],
                      tk[key]))
+    cu = rec["custom_op"]
+    for key, path, r, s in (("scale", "register_op", cu, cu["shapes"][0]),
+                            ("scale_ffn", "ffn train", cu["ffn"],
+                             cu["shapes"][2])):
+        rows.append((key, "paddle_tpu_torch/csrc/scale.cu",
+                     "tests/test_custom_op.py:101",
+                     {path: cu["launches"][path]}, r, s))
     kernels = []
     for name, src, replaces, by_path, r, s in rows:
         kernels.append(dict(

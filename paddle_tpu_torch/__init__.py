@@ -6,13 +6,19 @@ on the card unless the caller passes ``device="cpu"``. Every TPU kernel
 on a ported path is a hand-written Hopper kernel under ``csrc/``.
 
 Ported so far: paged-KV serving of the Llama and GPT models
-(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``) and
+(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``),
 GPT and Llama (grouped-query) training (``model(ids, labels=...)``,
-``loss.backward()``, ``optimizer.AdamW``, ``amp.decorate`` /
-``amp.auto_cast``).
+``loss.backward()``, ``optimizer.AdamW`` / ``optimizer.SGD``,
+``amp.decorate`` / ``amp.auto_cast``), and the custom-op extension API
+(``ops.register_op`` with a custom VJP, ``utils.cpp_extension.load``,
+``PyLayer``, ``to_tensor``). There is no Tensor wrapper class:
+``torch.Tensor`` is the tensor.
 """
-from . import amp, core, inference, models, nn, optimizer
+from . import amp, autograd, core, inference, models, nn, ops, optimizer, utils
+from .autograd import PyLayer
 from .core import CPUPlace, CUDAPlace, seed, set_flags
+from .tensor import to_tensor
 
-__all__ = ["CPUPlace", "CUDAPlace", "amp", "core", "inference", "models",
-           "nn", "optimizer", "seed", "set_flags"]
+__all__ = ["CPUPlace", "CUDAPlace", "PyLayer", "amp", "autograd", "core",
+           "inference", "models", "nn", "ops", "optimizer", "seed",
+           "set_flags", "to_tensor", "utils"]

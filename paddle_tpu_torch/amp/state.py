@@ -2,8 +2,9 @@
 paddle_tpu/amp/state.py.
 
 The functionals of the port call :func:`autocast` with the op name and
-amp policy their JAX counterparts register (``ops/registry.py`` step 1 of
-``apply_op``), so an op runs in the dtype the JAX package would give it.
+amp policy their JAX counterparts register, and the port's op dispatch
+(``ops/registry.py`` ``apply_op``, step 1) does the same for every
+registered op, so an op runs in the dtype the JAX package would give it.
 """
 from __future__ import annotations
 
@@ -46,11 +47,17 @@ _state = _AmpState()
 
 
 def amp_cast_dtype(op_name: str, op_policy: str):
-    """The dtype name an op's floating inputs are cast to, or None."""
+    """The dtype name an op's floating inputs are cast to, or None.
+
+    The ``"block"`` policy forces fp32 as a black-listed op does, which is
+    what the JAX package's ``OpDef`` documents (``ops/registry.py:38``);
+    its ``amp_cast_dtype`` reads only the lists, so there a ``block`` op
+    runs in bf16 under O2 (ROADMAP queue C, reference caveat 5)."""
     if op_policy == "keep":
         return None
     if op_name in _state.custom_black or (
-            op_name in BLACK_LIST and op_name not in _state.custom_white):
+            (op_name in BLACK_LIST or op_policy == "block")
+            and op_name not in _state.custom_white):
         return "float32"
     if (op_policy == "allow" or op_name in WHITE_LIST
             or op_name in _state.custom_white):

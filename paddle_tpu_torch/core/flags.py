@@ -1,7 +1,7 @@
 """Flags and environment knobs the port reads. Counterpart of
 paddle_tpu/core/flags.py, cut to what the ported slices read: the FLAGS
-the training slice consults (``get_flag`` / ``set_flags``) and the
-PADDLE_* knob registry."""
+the training slice and the op dispatch consult (``get_flag`` /
+``set_flags``) and the PADDLE_* knob registry."""
 from __future__ import annotations
 
 import os
@@ -12,7 +12,7 @@ PADDLE_ENV_KNOBS = frozenset({
     "PADDLE_SERVING_SESSION_CACHE",
 })
 
-_flags: Dict[str, bool] = {
+_flags: Dict[str, Any] = {
     # route GPT self-attention through the whole-block fused op
     # (fused_self_attention: einsum projections around the head-major
     # flash kernels)
@@ -21,6 +21,10 @@ _flags: Dict[str, bool] = {
     # directly; off = the head-major [B*H,S,D] route (grouped k, v
     # repeated to the q heads first)
     "flash_native_layout": True,
+    # ops/registry.py apply_op: check every floating output for NaN/Inf;
+    # level 0 raises FloatingPointError, any other level warns
+    "check_nan_inf": False,
+    "check_nan_inf_level": 0,
 }
 
 
@@ -31,13 +35,16 @@ def _key(name: str) -> str:
     return key
 
 
-def get_flag(name: str) -> bool:
+def get_flag(name: str):
     return _flags[_key(name)]
 
 
 def set_flags(flags: Dict[str, Any]) -> None:
+    """Set registered flags, each converted to its default's type (bool
+    or int)."""
     for n, v in flags.items():
-        _flags[_key(n)] = bool(v)
+        k = _key(n)
+        _flags[k] = type(_flags[k])(v)
 
 
 def env_int(name: str, default: int) -> int:

@@ -1,4 +1,4 @@
 from .optimizer import Optimizer
-from .optimizers import AdamW
+from .optimizers import SGD, AdamW
 
-__all__ = ["AdamW", "Optimizer"]
+__all__ = ["SGD", "AdamW", "Optimizer"]

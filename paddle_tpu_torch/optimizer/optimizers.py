@@ -1,7 +1,12 @@
-"""AdamW. Counterpart of paddle_tpu/optimizer/optimizers.py, cut to the
-training slice.
+"""SGD and AdamW. Counterpart of paddle_tpu/optimizer/optimizers.py, cut
+to the ported slices.
 
-The update is the JAX package's (``Adam._update_param`` /
+SGD's update is the JAX package's (``SGD._update_param``), in fp32 on the
+master weights: with g the gradient in fp32 and wd the L2 coefficient,
+  p <- p - lr * (g + wd * p)
+then the parameter is the master rounded to its dtype.
+
+AdamW's update is the JAX package's (``Adam._update_param`` /
 ``_fused_update``, whose per-tensor and flat-buffer paths compute the
 same fp32 arithmetic), on the master weights: with g the gradient in fp32
 and per-parameter bias corrections c1 = 1 - beta1^t, c2 = 1 - beta2^t
@@ -21,6 +26,30 @@ import numpy as np
 import torch
 
 from .optimizer import Optimizer
+
+
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False):
+        if isinstance(weight_decay, str):
+            raise NotImplementedError(
+                "string regularizer modes are not ported; pass a float "
+                "L2 coefficient")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._coeff = (None if weight_decay is None
+                       else float(getattr(weight_decay, "coeff",
+                                          weight_decay)))
+
+    def _update(self, params):
+        p32s = [self._param32(p) for p in params]
+        gs = [p.grad.float() for p in params]
+        if self._coeff is not None:
+            gs = torch._foreach_add(gs, torch._foreach_mul(p32s, self._coeff))
+        torch._foreach_sub_(p32s, torch._foreach_mul(
+            gs, float(np.float32(self._learning_rate))))
+        self._write_back(params, p32s)
 
 
 class AdamW(Optimizer):
@@ -87,4 +116,4 @@ class AdamW(Optimizer):
         self._write_back(params, p32s)
 
 
-__all__ = ["AdamW"]
+__all__ = ["AdamW", "SGD"]

@@ -1,6 +1,7 @@
 """Card only: chip_smoke.py's per-element checks of the flash-attention
-backwards against their plain versions reject broken kernels, and the
-backwards give the same bytes on every call: K5 (native layout,
+backwards and of K9 (``csrc/scale.cu``) against their plain versions
+reject broken kernels, and the kernels give the same bytes on every
+call: K5 (native layout,
 ``csrc/flash_bwd.cu``), K7 (head-major one-pass, ``csrc/flash_bwd_hm.cu``)
 and K8 (head-major two-kernel: K5's kernels at head-major strides, entry
 ``ptt_flash_bwd_hm_split`` in ``csrc/flash_bwd.cu``).
@@ -26,7 +27,10 @@ the check in exactly the gradients it breaks, and the committed kernels
 must pass it at their shapes; an edit whose text is not in its source
 exactly once fails its test. Each test prints its worst |kernel -
 plain| / tolerance per gradient. Two backward calls of a committed
-kernel on the same inputs must give equal dq, dk and dv bytes. The tests skip without a card; on a machine with one (the tests'
+kernel on the same inputs must give equal dq, dk and dv bytes. K9 is
+held bit for bit at chip_smoke's [custom_op] cases; a copy without its
+scalar tail must fail exactly the cases that have one (n = 1, n = 4097
+and a view offset by one element). The tests skip without a card; on a machine with one (the tests'
 conftest.py sets up JAX, which these tests do not use):
 
     python -m pytest --noconftest -m card tests/test_torch_card_checks.py -q -s
@@ -44,7 +48,7 @@ REPO = Path(__file__).resolve().parents[1]
 CSRC = Path("paddle_tpu_torch") / "csrc"
 # kernel -> its source
 SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_hm.cu",
-           "k8": CSRC / "flash_bwd.cu"}
+           "k8": CSRC / "flash_bwd.cu", "k9": CSRC / "scale.cu"}
 COMMITTED = "committed"
 # name -> (B, S, H, KVH, D); H == KVH runs K5 on the packed [B,S,3E]
 # layout; K7 and K8 take KVH == H ([B*H,S,D] q, k, v)
@@ -120,6 +124,12 @@ MUTANTS = {
         "  const int n_tiles = min(kv_end > 0 ? (kv_end + kTileKVdq - 1) / "
         "kTileKVdq : 0, 8192 / kTileKVdq);\n",
         {"dq"}, "long", "k8"),
+    # K9 without its scalar tail: the cases whose length leaves one
+    # (n = 1, n = 4097, the offset view) must fail, and no other
+    "k9_tail_dropped": (
+        "  if (tid < n - t0) {\n",
+        "  if (false && tid < n - t0) {\n",
+        set(), None, "k9"),
 }
 # test id -> (copy, kernel, shape)
 RUNS = {COMMITTED: (COMMITTED, "k5", "gpt"),
@@ -218,6 +228,26 @@ for i in range(0, q.shape[0], step):
         ratio = (got.float() - ref.float()).abs() / cs._close_tol(ref, t)
         r["worst_err_over_tol"] = max(r["worst_err_over_tol"],
                                       float(ratio.max()))
+print(json.dumps(res))
+"""
+
+
+# Run as _CHECK is, with the repository root as argv[1]: chip_smoke's
+# [custom_op] cases of K9 against its plain version (each output filled
+# with NaN before K9 writes it), and whether two calls give equal bytes.
+_SCALE_CHECK = r"""
+import json, os, sys
+import torch
+sys.path.insert(1, sys.argv[1])
+import chip_smoke as cs
+from paddle_tpu_torch.testing import custom_scale
+assert custom_scale.__file__.startswith(os.getcwd()), custom_scale.__file__
+g = torch.Generator(device="cuda").manual_seed(5)
+res = {"mismatches": {name: cs.scale_mismatches(x, f)[0]
+                      for name, x, f in cs.scale_cases(g)}}
+x = torch.randn(*cs.SCALE_SHAPE, generator=g, device="cuda").bfloat16()
+a, b = (custom_scale.scale_cuda(x, 0.1) for _ in range(2))
+res["same_bytes"] = torch.equal(cs._bits(a), cs._bits(b))
 print(json.dumps(res))
 """
 
@@ -333,3 +363,32 @@ def test_k8_gives_the_same_bytes_twice(copies, shape):
     that sums in a fixed order, without atomics."""
     res = _run(copies, COMMITTED, "k8", shape)
     assert res["same_bytes"], res
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("copy", [COMMITTED, "k9_tail_dropped"])
+def test_k9_check_rejects_a_kernel_without_its_tail(copies, copy):
+    """The committed K9 equals its plain version bit for bit at every
+    case of chip_smoke's [custom_op] phase (fp32 and bf16, factors 2,
+    0.1, 1/3; [4, 2048, 2048], [2, 4], n = 1, n = 4097, a view offset by
+    one element, a transposed view, empty; the FFN's [8192, 8192] bf16 at
+    0.5) and gives equal bytes twice;
+    a copy that drops the scalar tail fails exactly the cases whose
+    length leaves a tail, n = 4097 among them."""
+    dirs, missing = copies
+    assert copy not in missing, \
+        f"{copy}: the edited text is not in {SOURCES['k9']} exactly once"
+    run = subprocess.run([sys.executable, "-c", _SCALE_CHECK, str(REPO)],
+                         cwd=dirs[copy], capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"{copy} (k9): " + json.dumps(res))
+    failed = {n for n, bad in res["mismatches"].items() if bad}
+    if copy == COMMITTED:
+        assert not failed and res["same_bytes"], res
+        return
+    tails = {n for n in res["mismatches"]
+             if n.startswith(("n=1 ", "n=4097", "offset view"))}
+    assert failed == tails, res
+    assert {n for n in tails if n.startswith("n=4097")}, res
