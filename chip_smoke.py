@@ -4,7 +4,10 @@
 Phases, in order; any failure exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
-     checkout (one nvcc per source, in parallel).
+     checkout (one nvcc per source, in parallel); the warpgroup kernels of
+     the bf16 head-major backward (csrc/flash_bwd_sm90.cu) print their
+     registers, shared memory and spills, and must hold HGMMA (`wgmma`)
+     instructions in their SASS (cuobjdump).
   3. kernels vs plain: each kernel against its plain PyTorch version on
      the card, at the serving path's shapes and at ragged ones, with
      kernel / plain / library times (CUDA events over a CUDA graph, and
@@ -25,10 +28,12 @@ Phases, in order; any failure exits non-zero before the last line:
      (K8) against their plain versions at the training steps' shapes
      (GPT-3 1.3B, B=4, S=2048, 16 heads of d=128, and B=1, S=16384;
      TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads, which
-     the head-major route sees repeated to 32) and at ragged, fp32 and
-     grouped-query ones (32:1, 8:2, 8:4, 4:2), every output held per
-     element; K8 against K7 at S=2048 and 8192; two K5, two K7 and two
-     K8 calls on the same inputs must give the same bytes; over one 32:4
+     the head-major route sees repeated to 32) and at ragged (Sq < Sk, and
+     in bf16 Sq > Sk), d=32, fp32 and grouped-query ones (32:1, 8:2, 8:4,
+     4:2), every output held per element; K8 against K7 at S=2048 and
+     8192; the kernels a bf16 and an fp32 K7 and K8 call launch (by name,
+     from a CUDA graph of the call); two K5, two K7 and two K8 calls on the same
+     inputs must give the same bytes; over one 32:4
      forward and backward the allocated memory must not rise by a repeat
      of k and v; gradients through the K1 / K2 autograd Functions; card
      times beside the bound, the plain version and the library call, at
@@ -41,15 +46,16 @@ Phases, in order; any failure exits non-zero before the last line:
      model-FLOP utilisation, peak memory and the card's share of a step.
   9. The same with FLAGS_use_fused_attention ([train_fused]): every
      attention block is one fused_self_attention op on K6/K7 (24/24
-     launches per step, K4/K5 none) beside K2/K3 (49/49), 0 plain.
+     launches per step, K4/K5, K8 and the fp32 K7 none) beside K2/K3
+     (49/49), 0 plain.
  10. FLAGS_flash_native_layout=0 ([train_hm]) at full width and 2 layers,
      2 steps each: GPT-3 1.3B's width through the unpack route and
      TinyLlama's through the GQA ramp; K6/K7 launch, K4/K5 never.
  11. GPT-3 1.3B at 16K context ([train_long]: max_seq_len 16384, B=1,
      S=16384) with FLAGS_use_fused_attention: the head-major backward is
      above the one-pass budget, so every attention backward runs K8
-     (24 K6, 24 K8, 49 K2, 49 K3 launches per step; K4/K5/K7 none, 0
-     plain), as phase 8 otherwise.
+     (24 K6, 24 K8, 49 K2, 49 K3 launches per step; K4/K5/K7 and the
+     fp32 K8 none, 0 plain), as phase 8 otherwise.
  12. TinyLlama-1.1B training as phase 8 at full width and depth (B=8,
      S=2048, GQA 32:4): every attention runs K4/K5 over the shared kv
      heads and every RMSNorm K1 (22/22/45 launches per step, 0 plain).
@@ -99,6 +105,7 @@ TRAIN_LLAMA_B = 8              # TinyLlama's batch (bench.py bench_llama)
 
 def fail(msg):
     print(f"FAIL: {msg}", flush=True)
+    print(f"chip_smoke.py: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -224,6 +231,50 @@ def phase_card():
     return line
 
 
+# The warpgroup kernels of the bf16 head-major backward (K7: the kv kernel
+# with dq; K8: the kv kernel without it and the dq kernel), by the name
+# fragment of their symbols
+SM90_SOURCE = "flash_bwd_sm90"
+SM90_KERNELS = tuple(f"{k}ILi{d}E{t}" for d in (32, 64, 128)
+                     for k, t in (("bwd_kv_kernel", "Lb1E"),
+                                  ("bwd_kv_kernel", "Lb0E"),
+                                  ("bwd_dq_kernel", "")))
+
+
+def _ptxas_report(log):
+    """{kernel symbol: 'N registers, M bytes smem, spills ...'} from
+    nvcc's -Xptxas -v output, and the lines that warn."""
+    report, name, warnings = {}, None, []
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            report[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            report[name].append(ln.split(":", 1)[-1].strip())
+        if "arning" in ln or "Performance" in ln:
+            warnings.append(ln.strip())
+    return {k: "; ".join(v) for k, v in report.items()}, warnings
+
+
+def sass_hgmma_counts(lib):
+    """{kernel symbol: count of HGMMA instructions} in the SASS of a
+    built library (cuobjdump -sass)."""
+    from paddle_tpu_torch import csrc
+
+    tool = Path(csrc.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, name = {}, None
+    for ln in out.stdout.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name and "HGMMA" in ln:
+            counts[name] += 1
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch import csrc
 
@@ -233,10 +284,31 @@ def phase_build():
     print(f"[build] {len(logs)} of {len(csrc.sources())} kernel libraries "
           f"built in {secs:.2f} s ({', '.join(sorted(logs)) or 'cached'})")
     for name, log in sorted(logs.items()):
+        if name == SM90_SOURCE:
+            continue
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name}: {ln.strip()}")
-    return secs
+    rec = dict(build_s=secs)
+    if SM90_SOURCE in logs:
+        report, warnings = _ptxas_report(logs[SM90_SOURCE])
+        for w in warnings:
+            print(f"[build] {SM90_SOURCE}: {w}")
+        rec["ptxas"] = {k: v for k, v in report.items()
+                        if any(f in k for f in SM90_KERNELS)}
+    lib = csrc.library_path(csrc._SRC_DIR / f"{SM90_SOURCE}.cu")
+    hgmma = sass_hgmma_counts(lib)
+    rec["hgmma"] = {}
+    for frag in SM90_KERNELS:
+        names = [n for n in hgmma if frag in n]
+        check(len(names) == 1, f"{SM90_SOURCE}: {len(names)} kernels named "
+                               f"*{frag}* in the SASS")
+        rec["hgmma"][frag] = hgmma[names[0]]
+        check(hgmma[names[0]] > 0, f"{names[0]}: no HGMMA in its SASS")
+        ptx = rec.get("ptxas", {}).get(names[0], "built earlier")
+        print(f"[build] {SM90_SOURCE} {frag}: {hgmma[names[0]]} HGMMA in "
+              f"SASS; {ptx}")
+    return rec
 
 
 def _bound(rows, d, itemsize, param_vectors, flops_per_elem):
@@ -947,6 +1019,117 @@ def _check_k8_against_k7(groups, s, d, causal, dt, g, chunk):
     return errs
 
 
+def graph_kernels(fn, tag):
+    """The kernels one fn() launches: {mangled name: grid}, read from the
+    nodes of a CUDA graph that captures fn() (cudaGraphDebugDotPrint,
+    written under build/graphs/). Unlike the profiler, which on the card
+    at times records none or only part of a session's kernels, the graph
+    holds every launch."""
+    import re
+    import warnings
+
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
+    graph.enable_debug_mode()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    path = REPO / "build" / "graphs" / f"{tag.replace(' ', '_')}.dot"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")      # its "DEBUG: ..." notes
+        graph.debug_dump(str(path))
+    check(path.exists(), f"{tag}: no CUDA graph dump at {path}")
+    # a kernel node reads "<name>\<\<\<\{x,y\},threads,smem\>\>\>"
+    # (or a single x)
+    nodes = re.findall(r"(_Z\w+)\\<\\<\\<(?:\\\{([\d,]+)\\\}|(\d+)),",
+                       path.read_text())
+    del graph
+    return {name: tuple(int(x) for x in (grid or one).split(","))
+            for name, grid, one in nodes}
+
+
+def _hm_backward_routes(g):
+    """Which kernels a K7 and a K8 call launch: in bf16 (GPT-3 1.3B's 2K
+    shape) the warpgroup kernels of csrc/flash_bwd_sm90.cu (K7: the kv
+    kernel with dq; K8: the kv kernel without it, then the dq kernel), in
+    fp32 (G=16, S=1024) the earlier kernels. Three calls each must count
+    three launches on the expected entry point, whose library is built
+    from the expected source, and none on the other three; and one call
+    captured in a CUDA graph must hold the expected kernels after the
+    delta kernel, and nothing else but the zeroing of K7's counters."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    entries = (fa.FLASH_BWD_HM_KERNEL, fa.FLASH_BWD_HM_FP32_KERNEL,
+               fa.FLASH_BWD_HM_SPLIT_KERNEL, fa.FLASH_BWD_HM_SPLIT_FP32_KERNEL)
+    # mangled-name fragments of the kernels each call launches
+    want = {("K7", torch.bfloat16): (entries[0], "flash_bwd_sm90.cu",
+                                     ("bwd_kv_kernelILi128ELb1E",)),
+            ("K8", torch.bfloat16): (entries[2], "flash_bwd_sm90.cu",
+                                     ("bwd_kv_kernelILi128ELb0E",
+                                      "bwd_dq_kernelILi128E")),
+            ("K7", torch.float32): (entries[1], "flash_bwd_hm.cu",
+                                    ("flash_bwd_hm_kernelIfLi128E",)),
+            ("K8", torch.float32): (entries[3], "flash_bwd.cu",
+                                    ("flash_dkdv_kernelIfLi128E",
+                                     "flash_dq_kernelIfLi128E"))}
+    out = {}
+    for (kname, dt), (entry, source, kernels) in want.items():
+        tag = f"{kname} {str(dt)[6:]}"
+        check(entry.source.name == source,
+              f"{tag}: {entry.symbol} is built from {entry.source.name}, "
+              f"want {source}")
+        groups, s_ = (TRAIN_B * 16, TRAIN_S) if dt == torch.bfloat16 else \
+            (16, 1024)
+        q, k, v, dout = (torch.randn(groups, s_, 128, generator=g,
+                                     device="cuda").to(dt) for _ in range(4))
+        o, lse = fa.flash_fwd_hm_cuda(q, k, v, True)
+        bwd = (fa.flash_bwd_hm_cuda if kname == "K7"
+               else fa.flash_bwd_hm_split_cuda)
+        bwd(q, k, v, o, lse, dout, True)
+        torch.cuda.synchronize()
+        for e in entries:
+            e.reset_counts()
+        for _ in range(3):
+            bwd(q, k, v, o, lse, dout, True)
+        torch.cuda.synchronize()
+        counts = {e.symbol: e.launches for e in entries}
+        check(counts == {e.symbol: 3 if e is entry else 0 for e in entries},
+              f"{tag}: launches by entry point {counts}, want 3 on "
+              f"{entry.symbol} only")
+        nodes = graph_kernels(lambda: bwd(q, k, v, o, lse, dout, True), tag)
+        expected = kernels + ("delta_kernelI",)
+        for kern in expected:
+            check(sum(kern in n for n in nodes) == 1,
+                  f"{tag}: {kern} is not once among the kernels of its "
+                  f"CUDA graph {nodes}")
+        others = [n for n in nodes
+                  if not any(kern in n for kern in expected)]
+        check(all("FillFunctor" in n for n in others),
+              f"{tag}: other kernels launched: {others}")
+        grids = {kern: next(grid for n, grid in nodes.items() if kern in n)
+                 for kern in expected}
+        if dt == torch.bfloat16:
+            # the kv kernel: one CTA per (kv tile of 128, head)
+            check(grids[kernels[0]] == (-(-s_ // 128), groups),
+                  f"{tag}: the kv kernel's grid is {grids[kernels[0]]}, "
+                  f"want ({-(-s_ // 128)}, {groups})")
+        out[tag] = dict(entry=entry.symbol, source=source,
+                        kernels=list(nodes), grids=grids)
+        print(f"[train_kernels] {tag} (G={groups}, S={s_}, D=128): 3 calls, "
+              f"3 launches of {entry.symbol} ({source}); one call's CUDA "
+              f"graph: " + ", ".join(f"{kern} grid {grid}"
+                                     for kern, grid in grids.items())
+              + (f", {len(others)} counter fill" if others else ""))
+        del q, k, v, dout, o, lse
+    return out
+
+
 def phase_train_kernels():
     """K3-K7 against their plain versions on the card, gradients
     through the K1 / K2 Functions, and the timing table at the training
@@ -1115,7 +1298,10 @@ def phase_train_kernels():
                     ("_hm_ramp", "tinyllama ramp", TRAIN_LLAMA_B * 32,
                      TRAIN_S, TRAIN_S, 64),
                     ("_hm", "ragged sq=77 sk=100", 6, 77, 100, 64),
-                    ("_hm", "strided S=200", 16, 200, 200, 128)):
+                    ("_hm", "d=32 S=300", 4, 300, 300, 32),
+                    ("_hm", "strided S=200", 16, 200, 200, 128)) + (
+                    (("_hm", "ragged sq=200 sk=77", 4, 200, 77, 64),)
+                    if dt == bf else ()):
                 e = _check_attention_hm(
                     f"hm {name} {tag} causal={causal}", groups, sq, sk, d_,
                     causal, dt, g, strided=name.startswith("strided"))
@@ -1138,7 +1324,10 @@ def phase_train_kernels():
                     ("_long", "gpt3-1.3b 16K", h1, LONG_S, LONG_S, d1, 2),
                     ("", "gpt3-1.3b", TRAIN_B * h1, TRAIN_S, TRAIN_S, d1,
                      16),
-                    ("", "ragged sq=77 sk=100", 6, 77, 100, 64, 16)):
+                    ("", "ragged sq=77 sk=100", 6, 77, 100, 64, 16),
+                    ("", "d=32 S=300", 4, 300, 300, 32, 16)) + (
+                    (("", "ragged sq=200 sk=77", 4, 200, 77, 64, 16),)
+                    if dt == bf else ()):
                 e = _check_attention_hm(
                     f"hm K8 {name} {tag} causal={causal}", groups, sq, sk,
                     d_, causal, dt, g, chunk=chunk, split=True)
@@ -1158,6 +1347,8 @@ def phase_train_kernels():
             rec["k8_vs_k7"]["max_abs_err"] = max(
                 rec["k8_vs_k7"]["max_abs_err"], *e.values())
             torch.cuda.empty_cache()
+
+    rec["routes"] = _hm_backward_routes(g)
 
     # timing at the step's shapes (bf16): card ms per call from CUDA
     # events over calls captured in a CUDA graph
@@ -1374,6 +1565,7 @@ def phase_train_fused():
          norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
         (n, n, 2 * n + 1, 2 * n + 1),
         (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
+         fa.FLASH_BWD_HM_FP32_KERNEL, fa.FLASH_BWD_HM_SPLIT_KERNEL,
          fused_ops.RMS_NORM_KERNEL)))
     res["base_gb"] = base_gb
     print(f"[train_fused] {base_gb:.1f} GiB of the peak was held before the "
@@ -1417,7 +1609,8 @@ def phase_train_long():
              norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
             (n, n, 2 * n + 1, 2 * n + 1),
             (fa.FLASH_BWD_HM_KERNEL, fa.FLASH_FWD_KERNEL,
-             fa.FLASH_BWD_KERNEL, fused_ops.RMS_NORM_KERNEL), seq=LONG_S))
+             fa.FLASH_BWD_KERNEL, fa.FLASH_BWD_HM_SPLIT_FP32_KERNEL,
+             fused_ops.RMS_NORM_KERNEL), seq=LONG_S))
     finally:
         fa._flash_hm = real
     d, e = cfg.hidden_size // cfg.num_heads, cfg.hidden_size
@@ -1918,7 +2111,7 @@ def main():
     sys.path.insert(0, str(REPO))
     t_start = time.perf_counter()
     card = phase_card()
-    build_s = phase_build()
+    build = phase_build()
     rec = {}
     for name, run in (("kernels", phase_kernels), ("llama", phase_llama),
                       ("gpt", phase_gpt), ("card_vs_cpu", phase_card_vs_cpu),
@@ -1935,7 +2128,7 @@ def main():
         print(f"[{name}] phase took {time.perf_counter() - t0:.1f} s",
               flush=True)
     record = dict(card=card, torch=torch.__version__, cuda=torch.version.cuda,
-                  build_s=build_s, phases=rec,
+                  build_s=build["build_s"], build=build, phases=rec,
                   seconds=time.perf_counter() - t_start)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1992,7 +2185,7 @@ def main():
             ("flash_fwd_hm", "ptt_flash_fwd_hm",
              "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
             ("flash_bwd_hm", "ptt_flash_bwd_hm",
-             "paddle_tpu_torch/csrc/flash_bwd_hm.cu", f"{fl}:441")):
+             "paddle_tpu_torch/csrc/flash_bwd_sm90.cu", f"{fl}:441")):
         rows.append((key, src, replaces,
                      {"gpt3_1p3b fused train": fused[sym],
                       "gpt3_1p3b-width hm train": hm_gpt[sym]},
@@ -2004,7 +2197,7 @@ def main():
             ("flash_fwd_hm_long", "ptt_flash_fwd_hm",
              "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
             ("flash_bwd_hm_split", "ptt_flash_bwd_hm_split",
-             "paddle_tpu_torch/csrc/flash_bwd.cu", f"{fl}:349,393")):
+             "paddle_tpu_torch/csrc/flash_bwd_sm90.cu", f"{fl}:349,393")):
         rows.append((key, src, replaces,
                      {"gpt3_1p3b 16K fused train": long[sym]}, tk[key],
                      tk[key]))

@@ -13,7 +13,9 @@
 // at its row stride, dk and dv at theirs (a packed [B,S,3E] gradient is
 // filled in place at its three column offsets).
 //
-// K8 (entry `ptt_flash_bwd_hm_split`) replaces `_bwd_dq_kernel` and
+// K8's fp32 calls (entry `ptt_flash_bwd_hm_split_fp32`; its bf16 calls
+// run the warpgroup kernels of flash_bwd_sm90.cu, `wgmma` having no fp32
+// product): K8 replaces `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (:349, :393, driven by `_flash_backward_pallas`
 // :567), which the JAX package's head-major backward takes once the
 // one-pass K7's whole-sequence fp32 dq scratch (Sq * D * 4 bytes) passes
@@ -504,7 +506,7 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
 }
 
-// K8. q: [groups, sq, head_dim] with group stride q_gstride and row
+// K8, fp32. q: [groups, sq, head_dim] with group stride q_gstride and row
 // stride q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
 // kv_gstride, kv_rstride (as ptt_flash_fwd_hm); out, dout: [groups, sq,
 // head_dim] contiguous; lse: [groups, sq] fp32 from the forward; delta:
@@ -512,12 +514,12 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
 // dk, dv: [groups, sk, head_dim], all contiguous. Pointers and row
 // strides are 16-byte aligned. Launches the delta, dk/dv and dq kernels;
 // returns cudaGetLastError().
-extern "C" int ptt_flash_bwd_hm_split(
+extern "C" int ptt_flash_bwd_hm_split_fp32(
     const void* q, const void* k, const void* v, int64_t q_gstride,
     int64_t q_rstride, int64_t kv_gstride, int64_t kv_rstride,
     const void* out, const void* dout, const void* lse, void* delta,
     void* dq, void* dk, void* dv, int groups, int sq, int sk, int head_dim,
-    int causal, int dtype, void* stream) {
+    int causal, void* stream) {
   if (!ptt_flash::args_ok(groups, sq, sk, 1, 1, head_dim) || q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr || dout == nullptr ||
       lse == nullptr || delta == nullptr || dq == nullptr || dk == nullptr ||
@@ -531,6 +533,13 @@ extern "C" int ptt_flash_bwd_hm_split(
                          {sq * d, 0, d},
                          {sq * d, 0, d},
                          {sk * d, 0, d}};
-  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
+  switch (head_dim) {
+    case 32:
+      return PTT_BWD(float, 32);
+    case 64:
+      return PTT_BWD(float, 64);
+    default:
+      return PTT_BWD(float, 128);
+  }
 }
 #undef PTT_BWD

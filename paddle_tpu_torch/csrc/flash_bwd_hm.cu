@@ -1,10 +1,13 @@
-// Head-major flash attention one-pass backward for Hopper (sm_90a): K7.
+// Head-major flash attention one-pass backward, fp32: K7's fp32 calls.
 //
-// Replaces the TPU kernel `_bwd_fused_kernel` (paddle_tpu/incubate/nn/
+// K7 replaces the TPU kernel `_bwd_fused_kernel` (paddle_tpu/incubate/nn/
 // functional/flash_attention.py:441, driven by `_flash_backward_fused`
 // :531), which the JAX package's head-major backward picks while the
 // whole-sequence fp32 dq scratch fits its budget (sq * D * 4 bytes up to
-// `_DQ_SCRATCH_BYTES`, 4 MiB); the caller raises above it. Layout as K6
+// `_DQ_SCRATCH_BYTES`, 4 MiB). Its bf16 calls run the warpgroup kernel of
+// flash_bwd_sm90.cu (`wgmma` has no fp32 product); its fp32 calls, which
+// serve the card-vs-CPU checks, run this file's kernel, whose products are
+// emulated in exact fp32 FMAs (flash_common.cuh). Layout as K6
 // (flash_fwd.cu, `ptt_flash_fwd_hm`): q [G,Sq,D] and k, v [G,Sk,D] with
 // G = B*H heads, read at their group and row strides; out, dout
 // [G,Sq,D] contiguous; lse [G,Sq] fp32 from the forward; dq [G,Sq,D] and
@@ -12,15 +15,14 @@
 //
 // What is computed, per head, for each live (kv tile, q tile) pair: p =
 // exp(logits - lse) (masked entries 0), recomputed once and feeding all
-// three gradients: dv += p^T dO, dp = dO v^T, ds = p (dp - delta) cast to
-// the input dtype, dk += ds^T q * scale, dq += ds k * scale, where delta
-// = rowsum(dO * O) (the shared delta kernel, flash_common.cuh, computed
-// before the products as the JAX package's `_bwd_operands` does); every
-// product accumulates in fp32.
+// three gradients: dv += p^T dO, dp = dO v^T, ds = p (dp - delta),
+// dk += ds^T q * scale, dq += ds k * scale, where delta = rowsum(dO * O)
+// (the shared delta kernel, flash_common.cuh, computed before the
+// products as the JAX package's `_bwd_operands` does); every product
+// accumulates in fp32.
 //
-// Bound: operations, five products to the forward's two: about 172 GFLOP
-// at B=4, S=2048, H=16, D=128 causal, so the least time is
-// FLOPs / 989 TFLOP/s.
+// Bound: operations, as the bf16 kernel's (flash_bwd_sm90.cu), but at the
+// card's fp32 rate outside the tensor cores.
 //
 // Design. The TPU kernel walks a sequential grid (head, kv block, q
 // block) and carries dq across kv blocks in one whole-sequence fp32 VMEM
@@ -37,9 +39,8 @@
 // product dS K by (16 q rows, D/2 columns) and read-add-write their part
 // of the scratch. K/V tiles and the q, dO, lse and delta tiles are
 // double-buffered with cp.async, the next pair's tiles in flight while
-// this pair is computed. Only B*H CTAs run (64 at GPT-3 1.3B's B=4, H=16,
-// of 132 SMs): this is the simple first kernel; an ordered add across
-// kv-tile CTAs is later speed work.
+// this pair is computed. Only B*H CTAs run: it serves fp32 checks, not
+// the training step.
 
 #include "flash_common.cuh"
 
@@ -373,8 +374,8 @@ int bwd_hm(const void* q, const void* k, const void* v, int64_t q_gs,
 
 }  // namespace
 
-// q: [groups, sq, head_dim] with group stride q_gstride and row stride
-// q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
+// fp32. q: [groups, sq, head_dim] with group stride q_gstride and row
+// stride q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
 // kv_gstride, kv_rstride (as ptt_flash_fwd_hm); out, dout: [groups, sq,
 // head_dim] contiguous; lse: [groups, sq] fp32 from the forward; delta:
 // fp32 [groups, sq] and dq_acc: fp32 [groups, sq, head_dim] scratch
@@ -382,14 +383,12 @@ int bwd_hm(const void* q, const void* k, const void* v, int64_t q_gs,
 // head_dim], all contiguous. Pointers and row strides are 16-byte
 // aligned. Launches the delta kernel and the one-pass kernel; returns
 // cudaGetLastError().
-extern "C" int ptt_flash_bwd_hm(const void* q, const void* k, const void* v,
-                                int64_t q_gstride, int64_t q_rstride,
-                                int64_t kv_gstride, int64_t kv_rstride,
-                                const void* out, const void* dout,
-                                const void* lse, void* delta, void* dq_acc,
-                                void* dq, void* dk, void* dv, int groups,
-                                int sq, int sk, int head_dim, int causal,
-                                int dtype, void* stream) {
+extern "C" int ptt_flash_bwd_hm_fp32(
+    const void* q, const void* k, const void* v, int64_t q_gstride,
+    int64_t q_rstride, int64_t kv_gstride, int64_t kv_rstride,
+    const void* out, const void* dout, const void* lse, void* delta,
+    void* dq_acc, void* dq, void* dk, void* dv, int groups, int sq, int sk,
+    int head_dim, int causal, void* stream) {
   if (!ptt_flash::args_ok(groups, sq, sk, 1, 1, head_dim) || q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr || dout == nullptr ||
       lse == nullptr || delta == nullptr || dq_acc == nullptr ||
@@ -397,10 +396,17 @@ extern "C" int ptt_flash_bwd_hm(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define PTT_BWD_HM(T, D)                                                    \
-  bwd_hm<T, D>(q, k, v, q_gstride, q_rstride, kv_gstride, kv_rstride, out, \
-               dout, lse, delta, dq_acc, dq, dk, dv, groups, sq, sk,        \
-               causal, s)
-  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD_HM)
+#define PTT_BWD_HM(D)                                                       \
+  bwd_hm<float, D>(q, k, v, q_gstride, q_rstride, kv_gstride, kv_rstride,   \
+                   out, dout, lse, delta, dq_acc, dq, dk, dv, groups, sq,   \
+                   sk, causal, s)
+  switch (head_dim) {
+    case 32:
+      return PTT_BWD_HM(32);
+    case 64:
+      return PTT_BWD_HM(64);
+    default:
+      return PTT_BWD_HM(128);
+  }
 #undef PTT_BWD_HM
 }

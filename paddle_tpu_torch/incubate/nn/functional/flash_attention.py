@@ -24,12 +24,14 @@ replacing ``_fwd_kernel_single`` / ``_fwd_kernel``). Its backward, as the
 JAX package's ``_flash_backward_pallas`` picks it: while the one-pass
 backward's whole-sequence fp32 dq scratch (Sq*D*4 bytes) fits
 ``_DQ_SCRATCH_BYTES`` (4 MiB: S <= 8192 at D=128), ``ptt_flash_bwd_hm``
-(K7, csrc/flash_bwd_hm.cu, replacing the one-pass ``_bwd_fused_kernel``);
-above it the two-kernel ``ptt_flash_bwd_hm_split`` (K8, csrc/flash_bwd.cu,
-replacing ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``: K5's kernels at
-head-major strides). On flag 0 the [B,S,H,D] entries transpose to
-head-major around it, and grouped k, v are repeated to the q heads first
-(the JAX package's "ramp"), only on this route. The native route has no
+(K7, replacing the one-pass ``_bwd_fused_kernel``); above it the
+two-kernel ``ptt_flash_bwd_hm_split`` (K8, replacing ``_bwd_dq_kernel`` /
+``_bwd_dkv_kernel``). In bf16 both are the warpgroup (``wgmma``) kernels
+of csrc/flash_bwd_sm90.cu; fp32 calls run the earlier kernels, whose
+products are exact fp32 FMAs (K7 csrc/flash_bwd_hm.cu, K8 K5's kernels at
+head-major strides in csrc/flash_bwd.cu). On flag 0 the [B,S,H,D]
+entries transpose to head-major around it, and grouped k, v are repeated
+to the q heads first (the JAX package's "ramp"), only on this route. The native route has no
 such budget: K5 keeps no whole-sequence scratch, so it runs at any S.
 
 On a CPU tensor the same Functions run the kernels' plain versions
@@ -77,27 +79,67 @@ FLASH_FWD_HM_KERNEL = Kernel(
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 6)
 # Replaces `_bwd_fused_kernel` (flash_attention.py:441) driven by
-# `_flash_backward_fused` (:531). Bound: as K5. One launch per call runs
-# the delta kernel and the one-pass kernel (one CTA per head; dq summed in
-# a whole-sequence fp32 scratch in a fixed order: deterministic).
+# `_flash_backward_fused` (:531), bf16: the warpgroup kernel of
+# csrc/flash_bwd_sm90.cu. Bound: operations, as K5. One launch per call
+# runs the delta kernel and the one-pass kernel (one CTA per (kv tile of
+# 128, head); dq summed over kv tiles in ascending order through a
+# whole-sequence fp32 scratch and a counter per (head, q tile):
+# deterministic).
 FLASH_BWD_HM_KERNEL = Kernel(
-    "flash_bwd_hm.cu", "ptt_flash_bwd_hm",
+    "flash_bwd_sm90.cu", "ptt_flash_bwd_hm",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 5)
+# K7's fp32 calls (exact fp32 FMAs in place of `wgmma`, which has no fp32
+# product): csrc/flash_bwd_hm.cu, one CTA per head.
+FLASH_BWD_HM_FP32_KERNEL = Kernel(
+    "flash_bwd_hm.cu", "ptt_flash_bwd_hm_fp32",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 8
-    + [ctypes.c_int] * 6)
+    + [ctypes.c_int] * 5)
 # Replaces `_bwd_dq_kernel` / `_bwd_dkv_kernel` (flash_attention.py:349,
-# 393) driven by `_flash_backward_pallas` (:567): K5's delta, dk/dv and dq
-# kernels at head-major strides, its own entry point and counters. Bound:
-# operations, five products, as K5/K7. One launch per call runs the three
-# kernels (each output has one writer: deterministic).
+# 393) driven by `_flash_backward_pallas` (:567), bf16: csrc/
+# flash_bwd_sm90.cu's kv kernel without dq, then its dq kernel. Bound:
+# operations, five products, as K5/K7. One launch per call runs the delta
+# and the two kernels (each output has one writer: deterministic).
 FLASH_BWD_HM_SPLIT_KERNEL = Kernel(
-    "flash_bwd.cu", "ptt_flash_bwd_hm_split",
+    "flash_bwd_sm90.cu", "ptt_flash_bwd_hm_split",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 6)
+    + [ctypes.c_int] * 5)
+# K8's fp32 calls: K5's kernels at head-major strides (csrc/flash_bwd.cu).
+FLASH_BWD_HM_SPLIT_FP32_KERNEL = Kernel(
+    "flash_bwd.cu", "ptt_flash_bwd_hm_split_fp32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 5)
 HEAD_DIMS = (32, 64, 128)
 # Budget of the one-pass head-major backward's whole-sequence fp32 dq
 # scratch, as the JAX package's (:506): above it the head-major backward
 # is the two-kernel K8.
 _DQ_SCRATCH_BYTES = 4 << 20
+# Tiles of the bf16 head-major backward (csrc/flash_bwd_sm90.cu): q tiles
+# of 64 rows, kv tiles of 128.
+HM_BWD_TILE_Q, HM_BWD_TILE_KV = 64, 128
+
+
+def hm_bwd_schedule(sq, sk, causal):
+    """The live kv tiles of each q tile of the bf16 one-pass backward K7,
+    as (first, last) per q tile of HM_BWD_TILE_Q rows over kv tiles of
+    HM_BWD_TILE_KV, None where the tile's rows see no key. Causal
+    alignment is bottom-right (q row r sees keys k <= r + Sk - Sq); key 0
+    is visible to every row that sees any key, so ``first`` is 0 and a q
+    tile's dq partials are summed over kv tiles 0..last in that order, the
+    CTA of kv tile j adding once its (head, q tile) counter reads j.
+    Mirrored by ``Schedule`` in csrc/flash_bwd_sm90.cuh (``kv_last``; a
+    kv tile's first live q tile, ``q_first``, is the first q tile whose
+    ``last`` reaches it)."""
+    tq, tk = HM_BWD_TILE_Q, HM_BWD_TILE_KV
+    nkv = -(-sk // tk)
+    tiles = []
+    for i in range(-(-sq // tq)):
+        if not causal:
+            tiles.append((0, nkv - 1))
+            continue
+        top = min(i * tq + tq, sq) - 1 + sk - sq
+        tiles.append(None if top < 0 else (0, min(nkv - 1, top // tk)))
+    return tiles
 
 
 def grouped_qk_logits(qh, kh):
@@ -423,17 +465,24 @@ def _check_hm_bwd_args(qh, kh, vh, out, lse, doh):
 def flash_bwd_hm_cuda(qh, kh, vh, out, lse, doh, causal):
     """Launch K7. qh, kh, vh as :func:`flash_fwd_hm_cuda`; out, doh
     [G,Sq,D] contiguous; lse fp32 [G,Sq] from the forward. Returns new
-    (dq [G,Sq,D], dk, dv [G,Sk,D]). Its scratch: delta fp32 [G,Sq] and
-    the whole-sequence dq accumulator fp32 [G,Sq,D]."""
+    (dq [G,Sq,D], dk, dv [G,Sk,D]). Its scratch: delta fp32 [G,Sq], the
+    whole-sequence dq accumulator fp32 [G,Sq,D] and, in bf16, an int32
+    counter per (head, q tile of :func:`hm_bwd_schedule`), zeroed."""
     (g, sq, sk, d), (delta, dq, dk, dv) = _check_hm_bwd_args(
         qh, kh, vh, out, lse, doh)
     dq_acc = torch.empty(g, sq, d, dtype=torch.float32, device=qh.device)
-    FLASH_BWD_HM_KERNEL.launch(
-        qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
-        qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
-        doh.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), g, sq, sk, d,
-        int(bool(causal)), DTYPE_CODES[qh.dtype])
+    head = (qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+            qh.stride(0), qh.stride(1), kh.stride(0), kh.stride(1),
+            out.data_ptr(), doh.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq_acc.data_ptr())
+    tail = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), g, sq, sk, d,
+            int(bool(causal)))
+    if qh.dtype == torch.bfloat16:
+        tiles = len(hm_bwd_schedule(sq, sk, causal))
+        counters = torch.zeros(g, tiles, dtype=torch.int32, device=qh.device)
+        FLASH_BWD_HM_KERNEL.launch(*head, counters.data_ptr(), *tail)
+    else:
+        FLASH_BWD_HM_FP32_KERNEL.launch(*head, *tail)
     return dq, dk, dv
 
 
@@ -442,12 +491,13 @@ def flash_bwd_hm_split_cuda(qh, kh, vh, out, lse, doh, causal):
     Its only scratch is delta fp32 [G,Sq]."""
     (g, sq, sk, d), (delta, dq, dk, dv) = _check_hm_bwd_args(
         qh, kh, vh, out, lse, doh)
-    FLASH_BWD_HM_SPLIT_KERNEL.launch(
+    kernel = (FLASH_BWD_HM_SPLIT_KERNEL if qh.dtype == torch.bfloat16
+              else FLASH_BWD_HM_SPLIT_FP32_KERNEL)
+    kernel.launch(
         qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
         qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
         doh.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), g, sq, sk, d, int(bool(causal)),
-        DTYPE_CODES[qh.dtype])
+        dk.data_ptr(), dv.data_ptr(), g, sq, sk, d, int(bool(causal)))
     return dq, dk, dv
 
 
@@ -738,9 +788,10 @@ def fused_self_attention(x, qkv_weight, qkv_bias, out_weight, out_bias,
                            num_heads, causal)
 
 
-__all__ = ["FLASH_BWD_HM_KERNEL", "FLASH_BWD_HM_SPLIT_KERNEL",
+__all__ = ["FLASH_BWD_HM_FP32_KERNEL", "FLASH_BWD_HM_KERNEL",
+           "FLASH_BWD_HM_SPLIT_FP32_KERNEL", "FLASH_BWD_HM_SPLIT_KERNEL",
            "FLASH_BWD_KERNEL", "FLASH_FWD_HM_KERNEL", "FLASH_FWD_KERNEL",
            "HEAD_DIMS", "flash_attention_fused", "flash_attention_packed",
            "flash_bwd_cuda", "flash_bwd_hm_cuda", "flash_bwd_hm_split_cuda",
            "flash_fwd_cuda", "flash_fwd_hm_cuda", "fused_self_attention",
-           "grouped_pv_out", "grouped_qk_logits"]
+           "grouped_pv_out", "grouped_qk_logits", "hm_bwd_schedule"]

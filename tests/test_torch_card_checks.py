@@ -1,10 +1,10 @@
 """Card only: chip_smoke.py's per-element checks of the flash-attention
 backwards and of K9 (``csrc/scale.cu``) against their plain versions
 reject broken kernels, and the kernels give the same bytes on every
-call: K5 (native layout,
-``csrc/flash_bwd.cu``), K7 (head-major one-pass, ``csrc/flash_bwd_hm.cu``)
-and K8 (head-major two-kernel: K5's kernels at head-major strides, entry
-``ptt_flash_bwd_hm_split`` in ``csrc/flash_bwd.cu``).
+call: K5 (native layout, ``csrc/flash_bwd.cu``), and in bf16 K7
+(head-major one-pass, entry ``ptt_flash_bwd_hm``) and K8 (head-major
+two-kernel, entry ``ptt_flash_bwd_hm_split``), both on the warpgroup
+kernels of ``csrc/flash_bwd_sm90.cu``.
 
 Copies of ``paddle_tpu_torch``, each with one edit to one of those
 sources, are built in a temporary directory and run causal, bf16, at
@@ -15,14 +15,17 @@ repeated to the 32 heads). The K5 edits: a kv-tile CTA of the dk/dv
 kernel that returns at once, every dk/dv CTA skipping its last q tile,
 dV skipping the q tile at row 1024, the dq kernel skipping the kv tile
 at 1024, and, grouped, dk/dv skipping the last q head of each kv head's
-group and the CTAs of kv head 1 returning at once. The K7 edits: the dq
-add of the middle kv tile dropped, the last q tile's terms dropped, dk
-left unscaled, and the causal start of each kv tile's q tiles one tile
-late. The K8 edits, run head-major at GPT-3 1.3B's shape (B*H = 64
-heads, S=2048) or at the long step's (2 heads of D=128 at S=16384): the
-dq kernel skipping the kv tile at 1024, the dk/dv kernel starting each
-kv tile's q tiles one tile late, and the dq kernel's kv loop stopping
-at key 8192 (only the long shape has keys past it). Each copy must fail
+group and the CTAs of kv head 1 returning at once. The K7 edits: the
+ordered dq add of the middle kv tile dropped (it adds 0 in place of its
+partial), the last q tile's terms dropped, dk left unscaled, the causal
+start of each kv tile's q tiles one tile late, and the last live kv tile
+of each q tile never writing dq (it adds into the scratch like the
+others).
+The K8 edits, run head-major at GPT-3 1.3B's shape (B*H = 64 heads,
+S=2048) or at the long step's (2 heads of D=128 at S=16384): the dq
+kernel skipping the kv tile at 1024, the kv (dk/dv) kernel starting each
+kv tile's q tiles one tile late, and the dq kernel's kv loop stopping at
+key 8192 (only the long shape has keys past it). Each copy must fail
 the check in exactly the gradients it breaks, and the committed kernels
 must pass it at their shapes; an edit whose text is not in its source
 exactly once fails its test. Each test prints its worst |kernel -
@@ -47,8 +50,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 CSRC = Path("paddle_tpu_torch") / "csrc"
 # kernel -> its source
-SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_hm.cu",
-           "k8": CSRC / "flash_bwd.cu", "k9": CSRC / "scale.cu"}
+SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_sm90.cu",
+           "k8": CSRC / "flash_bwd_sm90.cu", "k9": CSRC / "scale.cu"}
 COMMITTED = "committed"
 # name -> (B, S, H, KVH, D); H == KVH runs K5 on the packed [B,S,3E]
 # layout; K7 and K8 take KVH == H ([B*H,S,D] q, k, v)
@@ -88,41 +91,50 @@ MUTANTS = {
         "  const int kh = blockIdx.y;  // this CTA's kv head\n"
         "  if (kh == 1) return;\n",
         {"dk", "dv"}, "tinyllama", "k5"),
+    # K7 and K8 (bf16): csrc/flash_bwd_sm90.cu
     "k7_dq_add_of_kv_tile_dropped": (
-        "        a.x += dqp[n][2 * rh];\n"
-        "        a.y += dqp[n][2 * rh + 1];\n",
-        "        if (j != nkv / 2) {\n          a.x += dqp[n][2 * rh];\n"
-        "          a.y += dqp[n][2 * rh + 1];\n        }\n",
+        "          const float2 part =\n"
+        "              make_float2(q_acc[4 * c + 2 * h], "
+        "q_acc[4 * c + 2 * h + 1]);\n",
+        "          const float2 part =\n"
+        "              j == static_cast<int>(gridDim.x) / 2\n"
+        "                  ? make_float2(0.f, 0.f)\n"
+        "                  : make_float2(q_acc[4 * c + 2 * h], "
+        "q_acc[4 * c + 2 * h + 1]);\n",
         {"dq"}, "gpt", "k7"),
     "k7_last_q_tile_skipped": (
-        "        const bool ok = kv < sk && qrow < sq && "
-        "(!causal || kv <= qrow + off);\n",
-        "        const bool ok = kv < sk && qrow < sq && "
-        "(!causal || kv <= qrow + off) && i != nq - 1;\n",
+        "        const bool live = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off);\n",
+        "        const bool live = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off) && i != nq - 1;\n",
         {"dq", "dk", "dv"}, "gpt", "k7"),
     "k7_dk_unscaled": (
-        "          st_pair<T>(dk + base + n * 8, dk_acc[n][2 * rh] * scale,\n"
-        "                     dk_acc[n][2 * rh + 1] * scale);\n",
-        "          st_pair<T>(dk + base + n * 8, dk_acc[n][2 * rh],\n"
-        "                     dk_acc[n][2 * rh + 1]);\n",
+        "      st_bf16x2(dk + at, dk_acc[4 * c + 2 * h] * scale,\n"
+        "                dk_acc[4 * c + 2 * h + 1] * scale);\n",
+        "      st_bf16x2(dk + at, dk_acc[4 * c + 2 * h],\n"
+        "                dk_acc[4 * c + 2 * h + 1]);\n",
         {"dk"}, "gpt", "k7"),
     "k7_causal_start_one_tile_late": (
-        "    return causal && first > 0 ? first / kTileQ : 0;\n",
-        "    return causal && first > 0 ? first / kTileQ + 1 : 0;\n",
+        "  const int i_lo = sched.q_first(j, kTK, kTQ);\n",
+        "  const int i_lo = sched.q_first(j, kTK, kTQ) + (causal && j > 0);\n",
         {"dq", "dk", "dv"}, "gpt", "k7"),
+    "k7_last_kv_tile_never_writes_dq": (
+        "      const bool last = j == sched.kv_last(q0, kTQ, kTK);\n",
+        "      const bool last = false;\n",
+        {"dq"}, "gpt", "k7"),
     "k8_dq_skips_kv_tile_1024": (
-        "    // S = Q K^T and dP = dO V^T\n",
-        "    if (k0 == 1024) continue;\n    // S = Q K^T and dP = dO V^T\n",
+        "        const bool keep = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off);\n",
+        "        const bool keep = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off) && k0 != 1024;\n",
         {"dq"}, "gpt", "k8"),
     "k8_dkdv_causal_start_one_tile_late": (
-        "    q_begin = first > 0 ? first / kTileQ * kTileQ : 0;\n",
-        "    q_begin = first > 0 ? first / kTileQ * kTileQ + kTileQ : 0;\n",
+        "  const int i_lo = sched.q_first(j, kTK, kTQ);\n",
+        "  const int i_lo = sched.q_first(j, kTK, kTQ) + (causal && j > 0);\n",
         {"dk", "dv"}, "gpt", "k8"),
     "k8_dq_kv_loop_stops_at_8192": (
-        "  const int n_tiles = kv_end > 0 ? (kv_end + kTileKVdq - 1) / "
-        "kTileKVdq : 0;\n",
-        "  const int n_tiles = min(kv_end > 0 ? (kv_end + kTileKVdq - 1) / "
-        "kTileKVdq : 0, 8192 / kTileKVdq);\n",
+        "  const int n_kv = kv_end;\n",
+        "  const int n_kv = min(kv_end, 8192 / kTK);\n",
         {"dq"}, "long", "k8"),
     # K9 without its scalar tail: the cases whose length leaves one
     # (n = 1, n = 4097, the offset view) must fail, and no other
@@ -342,9 +354,10 @@ def test_k7_check_rejects_broken_kernels(copies, run_id):
 @pytest.mark.card
 @pytest.mark.parametrize("shape", ["gpt", "tinyllama_ramp"])
 def test_k7_gives_the_same_bytes_twice(copies, shape):
-    """Two K7 calls on the same inputs write equal dq, dk and dv: one CTA
-    owns each head and adds into its dq scratch in kv-tile order, without
-    atomics."""
+    """Two K7 calls on the same inputs write equal dq, dk and dv: each
+    (kv tile, head) CTA owns its dk and dv, and dq's partials are added
+    into the scratch in ascending kv-tile order, one CTA after another
+    through the per-(head, q tile) counters."""
     res = _run(copies, COMMITTED, "k7", shape)
     assert res["same_bytes"], res
 
@@ -359,7 +372,7 @@ def test_k8_check_rejects_broken_kernels(copies, run_id):
 @pytest.mark.parametrize("shape", ["gpt", "long"])
 def test_k8_gives_the_same_bytes_twice(copies, shape):
     """Two K8 calls on the same inputs write equal dq, dk and dv: each
-    element has one writer (its q tile's dq CTA, its kv tile's dk/dv CTA)
+    element has one writer (its q tile's dq CTA, its kv tile's kv CTA)
     that sums in a fixed order, without atomics."""
     res = _run(copies, COMMITTED, "k8", shape)
     assert res["same_bytes"], res

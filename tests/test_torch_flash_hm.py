@@ -746,3 +746,163 @@ def test_long_context_route_difference_native_k5_vs_jax_k8(
     assert "_bwd_fused_kernel" not in ref["jax_kernels"]
     _, tm = _gpt_pair()
     assert _model_step_calls(tm, ref, 28) == [0, 0, 0, 2, 2]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 head-major backward's schedule (csrc/flash_bwd_sm90.cu)
+# ---------------------------------------------------------------------------
+
+# (Sq, Sk): Sq = 1, Sq < Sk and Sq > Sk, multiples of the kernel's tiles (64
+# q rows, 128 kv rows) and not
+SCHEDULE_SHAPES = [(1, 1), (1, 100), (1, 300), (64, 64), (64, 128),
+                   (77, 100), (77, 300), (100, 77), (128, 128), (128, 256),
+                   (130, 130), (200, 77), (256, 256), (300, 1000),
+                   (513, 1000), (1000, 513), (63, 129), (129, 63),
+                   (192, 320), (2048, 2048)]
+
+
+def _live_blocks(sq, sk, causal, tq, tk):
+    """[q tiles, kv tiles] bool, brute force: the blocks of the attention
+    mask (bottom-right causal: q row r sees keys k <= r + Sk - Sq) that
+    hold a visible (q row < Sq, key < Sk) pair."""
+    keep = np.ones((sq, sk), bool)
+    if causal:
+        keep = np.arange(sk)[None, :] <= np.arange(sq)[:, None] + (sk - sq)
+    nq, nkv = -(-sq // tq), -(-sk // tk)
+    padded = np.zeros((nq * tq, nkv * tk), bool)
+    padded[:sq, :sk] = keep
+    return padded.reshape(nq, tq, nkv, tk).any(axis=(1, 3))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", SCHEDULE_SHAPES)
+def test_hm_bwd_schedule_matches_the_mask(sq, sk, causal):
+    """`hm_bwd_schedule`, the live-tile arithmetic of the bf16 K7 (its
+    counters, one per q tile of 64 rows, and their targets) mirrored by
+    `Schedule` in csrc/flash_bwd_sm90.cuh, against a brute-force count of
+    the non-empty blocks of the mask: each q tile's live kv tiles (of 128
+    rows) run from 0 to its `last`, without a gap, so the CTA of kv tile j
+    adds its dq partial once the counter reads j; a q tile that sees no
+    key is None (its dq is 0); and each kv tile's live q tiles run from the
+    kernel's `q_first` (first visible row // 64) to the last q tile, the
+    q tiles whose `last` reaches that kv tile."""
+    blocks = _live_blocks(sq, sk, causal, tfa.HM_BWD_TILE_Q,
+                          tfa.HM_BWD_TILE_KV)
+    tiles = tfa.hm_bwd_schedule(sq, sk, causal)
+    assert len(tiles) == blocks.shape[0]
+    for i, row in enumerate(blocks):
+        live = np.flatnonzero(row)
+        if not live.size:
+            assert tiles[i] is None
+            continue
+        assert tiles[i] == (0, int(live[-1]))
+        assert (live == np.arange(live[-1] + 1)).all()
+    for j, col in enumerate(blocks.T):
+        first_row = j * tfa.HM_BWD_TILE_KV - (sk - sq)
+        q_first = (first_row // tfa.HM_BWD_TILE_Q
+                   if causal and first_row > 0 else 0)
+        live = np.flatnonzero(col)
+        assert (live == np.arange(q_first, blocks.shape[0])).all()
+        assert q_first == min(i for i, tile in enumerate(tiles)
+                              if tile is not None and tile[1] >= j)
+
+
+def _tiled_hm_backward(q, k, v, out, lse, dout, causal):
+    """The bf16 K7's algorithm in plain fp32 torch: for each q tile of
+    `hm_bwd_schedule`, its live kv tiles in ascending order; per pair p =
+    exp(q k^T * scale - lse) (masked: 0), dp = dO v^T, ds = p (dp -
+    delta); dq's partials ds k summed over the kv tiles in that order (the
+    kernel's ordered add), dk += ds^T q and dv += p^T dO; dq and dk
+    scaled at the end. q [G,Sq,D], k, v [G,Sk,D] -> (dq, dk, dv)."""
+    g, sq, d = q.shape
+    sk = k.shape[1]
+    tq, tk = tfa.HM_BWD_TILE_Q, tfa.HM_BWD_TILE_KV
+    scale = 1.0 / np.sqrt(d)
+    delta = (dout * out).sum(-1)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for i, tile in enumerate(tfa.hm_bwd_schedule(sq, sk, causal)):
+        if tile is None:
+            continue
+        qs = slice(i * tq, min(sq, (i + 1) * tq))
+        rows = torch.arange(qs.start, qs.stop)[:, None]
+        acc = torch.zeros(g, qs.stop - qs.start, d)
+        for j in range(tile[0], tile[1] + 1):
+            ks = slice(j * tk, min(sk, (j + 1) * tk))
+            keys = torch.arange(ks.start, ks.stop)[None, :]
+            s = q[:, qs] @ k[:, ks].transpose(1, 2) * scale
+            p = torch.exp(s - lse[:, qs, None])
+            if causal:
+                p = torch.where(keys <= rows + sk - sq, p, torch.zeros(()))
+            dp = dout[:, qs] @ v[:, ks].transpose(1, 2)
+            ds = p * (dp - delta[:, qs, None])
+            acc = acc + ds @ k[:, ks]
+            dk[:, ks] += ds.transpose(1, 2) @ q[:, qs]
+            dv[:, ks] += p.transpose(1, 2) @ dout[:, qs]
+        dq[:, qs] = acc * scale
+    return dq, dk * scale, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,sq,sk", [(2, 77, 300), (2, 1, 100), (2, 200, 77),
+                                     (2, 130, 130), (1, 256, 256)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tiled_hm_backward_matches_the_plain_k7(g, sq, sk, d, causal):
+    """The kernel's tiled order (`_tiled_hm_backward`) against the port's
+    plain K7 `_hm_backward_ref` (whole-sequence products), fp32, at
+    ragged Sq < Sk, Sq > Sk (rows that see no key), Sq = 1, several tiles
+    and every head dim of the kernel. Tolerance 1e-5 absolute and
+    relative: the same fp32 terms summed in other orders."""
+    _, (tq, tk, tv, tg) = _split_inputs(g, sq, sk, d, sq + sk + d, "float32")
+    out, lse = tfa._flash_forward_hm(tq, tk, tv, causal)
+    want = tfa._hm_backward_ref(tq, tk, tv, out, lse, tg, causal)
+    for got, ref in zip(_tiled_hm_backward(tq, tk, tv, out, lse, tg, causal),
+                        want):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,sq,sk", [(2, 256, 256), (2, 128, 256)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tiled_hm_backward_matches_pallas_k7_interpret(g, sq, sk, d, causal):
+    """The kernel's tiled order against the JAX package's one-pass
+    `_flash_backward_fused` (`_bwd_fused_kernel`, interpret mode off a
+    TPU) at its blocks of 64 q rows and 128 keys, the Hopper kernel's
+    tiles: the TPU kernel too sums dq over kv blocks in ascending order,
+    through its sequential grid. fp32, on the JAX forward's out and lse;
+    tolerance 1e-5 absolute and relative (the TPU kernel scales each
+    partial, the tiled order scales the sum)."""
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _split_inputs(g, sq, sk, d, 7 * d,
+                                                       "float32")
+    jout, jlse = fa._flash_forward_pallas(jq, jk, jv, causal, 64, 128)
+    jgrads = fa._flash_backward_fused(jq, jk, jv, jout, jlse, jg, causal,
+                                      64, 128)
+    tgrads = _tiled_hm_backward(tq, tk, tv, torch.tensor(_np(jout)),
+                                torch.tensor(_np(jlse)), tg, causal)
+    for got, want in zip(tgrads, jgrads):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("name", ["FLASH_BWD_HM_KERNEL",
+                                  "FLASH_BWD_HM_FP32_KERNEL",
+                                  "FLASH_BWD_HM_SPLIT_KERNEL",
+                                  "FLASH_BWD_HM_SPLIT_FP32_KERNEL"])
+def test_hm_backward_entry_points_match_their_bindings(name):
+    """Each head-major backward entry point (bf16 in
+    csrc/flash_bwd_sm90.cu, fp32 in the earlier sources) is declared in
+    its source with the arguments its ctypes binding passes: pointers,
+    int64 strides and ints in that order, then the stream."""
+    import ctypes
+    import re
+
+    kernel = getattr(tfa, name)
+    src = kernel.source.read_text()
+    found = re.findall(r'extern "C" int ' + kernel.symbol + r"\((.*?)\)\s*\{",
+                       src, re.S)
+    assert len(found) == 1, f"{kernel.symbol} not declared once in " \
+                            f"{kernel.source.name}"
+    kinds = {ctypes.c_void_p: "void*", ctypes.c_int64: "int64_t",
+             ctypes.c_int: "int"}
+    params = [" ".join(p.split()[:-1]).replace("const ", "").replace(" *",
+                                                                      "*")
+              for p in found[0].split(",")]
+    assert params == [kinds[a] for a in kernel.argtypes]
