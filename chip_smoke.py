@@ -5,9 +5,10 @@ Phases, in order; any failure exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
-     the bf16 head-major backward (csrc/flash_bwd_sm90.cu) print their
-     registers, shared memory and spills, and must hold HGMMA (`wgmma`)
-     instructions in their SASS (cuobjdump).
+     the bf16 attention forward (K4 / K6, csrc/flash_fwd_sm90.cu) and
+     backward (K5 / K7 / K8, csrc/flash_bwd_sm90.cu) print their
+     registers, shared memory and spills, must spill nothing, and must
+     hold HGMMA (`wgmma`) instructions in their SASS (cuobjdump).
   3. kernels vs plain: each kernel against its plain PyTorch version on
      the card, at the serving path's shapes and at ragged ones, with
      kernel / plain / library times (CUDA events over a CUDA graph, and
@@ -31,9 +32,11 @@ Phases, in order; any failure exits non-zero before the last line:
      the head-major route sees repeated to 32) and at ragged (Sq < Sk, and
      in bf16 Sq > Sk), d=32, fp32 and grouped-query ones (32:1, 8:2, 8:4,
      4:2), every output held per element; K8 against K7 at S=2048 and
-     8192; the kernels a bf16 and an fp32 K7 and K8 call launch (by name,
-     from a CUDA graph of the call); two K5, two K7 and two K8 calls on the same
-     inputs must give the same bytes; over one 32:4
+     8192; the kernels a bf16 and an fp32 K4, K5, K6, K7 and K8 call
+     launch (by name and grid, from a CUDA graph of the call: in bf16 the
+     warpgroup kernels, in fp32 the earlier ones); two forward and two
+     backward calls on the same inputs must give the same bytes; over one
+     32:4
      forward and backward the allocated memory must not rise by a repeat
      of k and v; gradients through the K1 / K2 autograd Functions; card
      times beside the bound, the plain version and the library call, at
@@ -42,7 +45,8 @@ Phases, in order; any failure exits non-zero before the last line:
      O2, AdamW with fp32 masters, random weights and tokens from a seed):
      2 warm-up and 3 timed steps on one batch; the loss must be finite
      and fall, and every attention and LayerNorm must run K4/K5 and
-     K2/K3 (24/24/49/49 launches per step, 0 plain). Step ms, tokens/s,
+     K2/K3 (24/24/49/49 launches per step, 0 plain; the fp32 entries of
+     K4/K5/K6 none, in this and every training phase). Step ms, tokens/s,
      model-FLOP utilisation, peak memory and the card's share of a step.
   9. The same with FLAGS_use_fused_attention ([train_fused]): every
      attention block is one fused_self_attention op on K6/K7 (24/24
@@ -231,14 +235,15 @@ def phase_card():
     return line
 
 
-# The warpgroup kernels of the bf16 head-major backward (K7: the kv kernel
-# with dq; K8: the kv kernel without it and the dq kernel), by the name
-# fragment of their symbols
-SM90_SOURCE = "flash_bwd_sm90"
-SM90_KERNELS = tuple(f"{k}ILi{d}E{t}" for d in (32, 64, 128)
-                     for k, t in (("bwd_kv_kernel", "Lb1E"),
-                                  ("bwd_kv_kernel", "Lb0E"),
-                                  ("bwd_dq_kernel", "")))
+# The warpgroup (`wgmma`) kernels by source, by the name fragment of their
+# symbols: the bf16 forward (K4 and K6), and the backward (K7: the kv
+# kernel with dq; K5 and K8: the kv kernel without it and the dq kernel)
+SM90_KERNELS = {
+    "flash_fwd_sm90": tuple(f"fwd_kernelILi{d}E" for d in (32, 64, 128)),
+    "flash_bwd_sm90": tuple(f"{k}ILi{d}E{t}" for d in (32, 64, 128)
+                            for k, t in (("bwd_kv_kernel", "Lb1E"),
+                                         ("bwd_kv_kernel", "Lb0E"),
+                                         ("bwd_dq_kernel", "")))}
 
 
 def _ptxas_report(log):
@@ -284,30 +289,32 @@ def phase_build():
     print(f"[build] {len(logs)} of {len(csrc.sources())} kernel libraries "
           f"built in {secs:.2f} s ({', '.join(sorted(logs)) or 'cached'})")
     for name, log in sorted(logs.items()):
-        if name == SM90_SOURCE:
+        if name in SM90_KERNELS:
             continue
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"[build] {name}: {ln.strip()}")
-    rec = dict(build_s=secs)
-    if SM90_SOURCE in logs:
-        report, warnings = _ptxas_report(logs[SM90_SOURCE])
-        for w in warnings:
-            print(f"[build] {SM90_SOURCE}: {w}")
-        rec["ptxas"] = {k: v for k, v in report.items()
-                        if any(f in k for f in SM90_KERNELS)}
-    lib = csrc.library_path(csrc._SRC_DIR / f"{SM90_SOURCE}.cu")
-    hgmma = sass_hgmma_counts(lib)
-    rec["hgmma"] = {}
-    for frag in SM90_KERNELS:
-        names = [n for n in hgmma if frag in n]
-        check(len(names) == 1, f"{SM90_SOURCE}: {len(names)} kernels named "
-                               f"*{frag}* in the SASS")
-        rec["hgmma"][frag] = hgmma[names[0]]
-        check(hgmma[names[0]] > 0, f"{names[0]}: no HGMMA in its SASS")
-        ptx = rec.get("ptxas", {}).get(names[0], "built earlier")
-        print(f"[build] {SM90_SOURCE} {frag}: {hgmma[names[0]]} HGMMA in "
-              f"SASS; {ptx}")
+    rec = dict(build_s=secs, ptxas={}, hgmma={})
+    for source, frags in SM90_KERNELS.items():
+        if source in logs:
+            report, warnings = _ptxas_report(logs[source])
+            for w in warnings:
+                print(f"[build] {source}: {w}")
+            rec["ptxas"].update({k: v for k, v in report.items()
+                                 if any(f in k for f in frags)})
+        hgmma = sass_hgmma_counts(
+            csrc.library_path(csrc._SRC_DIR / f"{source}.cu"))
+        for frag in frags:
+            names = [n for n in hgmma if frag in n]
+            check(len(names) == 1, f"{source}: {len(names)} kernels named "
+                                   f"*{frag}* in the SASS")
+            rec["hgmma"][frag] = hgmma[names[0]]
+            check(hgmma[names[0]] > 0, f"{names[0]}: no HGMMA in its SASS")
+            ptx = rec["ptxas"].get(names[0])
+            check(ptx is None or "0 bytes spill stores, 0 bytes spill loads"
+                  in ptx, f"{names[0]} spills: {ptx}")
+            print(f"[build] {source} {frag}: {hgmma[names[0]]} HGMMA in "
+                  f"SASS; {ptx or 'built earlier'}")
     return rec
 
 
@@ -731,6 +738,8 @@ def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed,
         dk, dv = torch.empty_like(k), torch.empty_like(v)
     dout = torch.randn(b, sq, e, generator=g, device="cuda").to(dt)
     out, lse = fa.flash_fwd_cuda(q, k, v, h, causal)
+    _same_forward_bytes(name, (out, lse), fa.flash_fwd_cuda(q, k, v, h,
+                                                            causal))
     fa.flash_bwd_cuda(q, k, v, out, lse, dout, h, causal, dq, dk, dv)
     again = [torch.full_like(x, float("nan")) for x in (dq, dk, dv)]
     fa.flash_bwd_cuda(q, k, v, out, lse, dout, h, causal, *again)
@@ -759,8 +768,18 @@ def _check_attention(name, b, sq, sk, h, d, causal, dt, g, packed,
         errs["lse"] = max(errs["lse"], ld)
     print(f"[train_kernels] {name}: max |kernel - plain| "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-          + "; dq, dk, dv byte-identical over two backward calls")
+          + "; out, lse and dq, dk, dv byte-identical over two forward and "
+            "two backward calls")
     return errs
+
+
+def _same_forward_bytes(name, first, second):
+    """Two forward calls on the same inputs: out and lse byte-identical
+    (each element has one writer)."""
+    torch.cuda.synchronize()
+    for key, x, y in zip(("out", "lse"), first, second):
+        check(torch.equal(x.view(torch.int8), y.view(torch.int8)),
+              f"{name} {key}: two forward calls on the same inputs differ")
 
 
 def _no_repeat_memory(g):
@@ -960,6 +979,8 @@ def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
         k, v = (torch.randn(groups, sk, d, generator=g, device="cuda").to(dt)
                 for _ in range(2))
     out, lse = fa.flash_fwd_hm_cuda(q, k, v, causal)
+    _same_forward_bytes(name, (out, lse), fa.flash_fwd_hm_cuda(q, k, v,
+                                                               causal))
     grads = bwd(q, k, v, out, lse, dout, causal)
     again = bwd(q, k, v, out, lse, dout, causal)
     torch.cuda.synchronize()
@@ -987,7 +1008,8 @@ def _check_attention_hm(name, groups, sq, sk, d, causal, dt, g, chunk=16,
         errs["lse"] = max(errs["lse"], ld)
     print(f"[train_kernels] {name}: max |kernel - plain| "
           + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
-          + f"; dq, dk, dv byte-identical over two {kname} calls")
+          + f"; out, lse byte-identical over two K6 calls, dq, dk, dv "
+            f"over two {kname} calls")
     return errs
 
 
@@ -1054,6 +1076,104 @@ def graph_kernels(fn, tag):
             for name, grid, one in nodes}
 
 
+def _grid3(grid):
+    """A CUDA graph node's grid as (x, y, z): the dump leaves out
+    trailing dimensions of 1."""
+    return tuple(grid) + (1,) * (3 - len(grid))
+
+
+def _flash_routes(g):
+    """Which kernels a K4, K5 and K6 call launch, read from a CUDA graph
+    of one call (graph_kernels): in bf16 the warpgroup kernels (K4 and K6:
+    csrc/flash_fwd_sm90.cu's forward, grid (ceil(Sq/128), H, B), head-major
+    (ceil(Sq/128), 1, G); K5: csrc/flash_bwd_sm90.cu's delta, kv kernel
+    without dq, grid (ceil(Sk/128), KVH, B), and dq kernel, grid
+    (ceil(Sq/128), H, B)), at TinyLlama's 32:4 (native) and GPT-3 1.3B's
+    head-major shape; in fp32 (small shapes) the earlier kernels of
+    csrc/flash_fwd.cu and csrc/flash_bwd.cu. Three calls each must count
+    three launches on the expected entry point, built from the expected
+    source, and none on the other five; the graph must hold exactly the
+    expected kernels."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    entries = (fa.FLASH_FWD_KERNEL, fa.FLASH_FWD_FP32_KERNEL,
+               fa.FLASH_FWD_HM_KERNEL, fa.FLASH_FWD_HM_FP32_KERNEL,
+               fa.FLASH_BWD_KERNEL, fa.FLASH_BWD_FP32_KERNEL)
+    bf, f32 = torch.bfloat16, torch.float32
+    b, s, h, kvh, d = TRAIN_LLAMA_B, TRAIN_S, 32, 4, 64
+    nq = -(-s // 128)
+    # (tag, dtype, shape (B, S, H, KVH, D) or head-major (G, S, D), entry,
+    # source, {kernel fragment: grid or None})
+    cases = [
+        ("K4 bf16", bf, (b, s, h, kvh, d), entries[0], "flash_fwd_sm90.cu",
+         {"fwd_kernelILi64E": (nq, h, b)}),
+        ("K5 bf16", bf, (b, s, h, kvh, d), entries[4], "flash_bwd_sm90.cu",
+         {"delta_kernelI13__nv_bfloat16Li64E": None,
+          "bwd_kv_kernelILi64ELb0E": (nq, kvh, b),
+          "bwd_dq_kernelILi64E": (nq, h, b)}),
+        ("K6 bf16", bf, (TRAIN_B * 16, s, 128), entries[2],
+         "flash_fwd_sm90.cu", {"fwd_kernelILi128E": (nq, 1, TRAIN_B * 16)}),
+        ("K4 fp32", f32, (1, 256, 4, 2, 64), entries[1], "flash_fwd.cu",
+         {"flash_fwd_kernelIfLi64E": None}),
+        ("K5 fp32", f32, (1, 256, 4, 2, 64), entries[5], "flash_bwd.cu",
+         {"delta_kernelIfLi64E": None, "flash_dkdv_kernelIfLi64E": None,
+          "flash_dq_kernelIfLi64E": None}),
+        ("K6 fp32", f32, (16, 256, 128), entries[3], "flash_fwd.cu",
+         {"flash_fwd_kernelIfLi128E": None})]
+    out = {}
+    for tag, dt, shape, entry, source, kernels in cases:
+        check(entry.source.name == source,
+              f"{tag}: {entry.symbol} is built from {entry.source.name}, "
+              f"want {source}")
+        if len(shape) == 3:
+            q, k, v = (torch.randn(*shape, generator=g, device="cuda").to(dt)
+                       for _ in range(3))
+            call = partial(fa.flash_fwd_hm_cuda, q, k, v, True)
+        else:
+            b_, s_, h_, kvh_, d_ = shape
+            q, dout = (torch.randn(b_, s_, h_ * d_, generator=g,
+                                   device="cuda").to(dt) for _ in range(2))
+            k, v = (torch.randn(b_, s_, kvh_ * d_, generator=g,
+                                device="cuda").to(dt) for _ in range(2))
+            call = partial(fa.flash_fwd_cuda, q, k, v, h_, True)
+            if tag.startswith("K5"):
+                o, lse = call()
+                grads = [torch.empty_like(x) for x in (q, k, v)]
+                call = partial(fa.flash_bwd_cuda, q, k, v, o, lse, dout, h_,
+                               True, *grads)
+        call()
+        torch.cuda.synchronize()
+        for e in entries:
+            e.reset_counts()
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        counts = {e.symbol: e.launches for e in entries}
+        check(counts == {e.symbol: 3 if e is entry else 0 for e in entries},
+              f"{tag}: launches by entry point {counts}, want 3 on "
+              f"{entry.symbol} only")
+        nodes = graph_kernels(call, tag)
+        for kern in kernels:
+            check(sum(kern in n for n in nodes) == 1,
+                  f"{tag}: {kern} is not once among the kernels of its "
+                  f"CUDA graph {nodes}")
+        others = [n for n in nodes if not any(kern in n for kern in kernels)]
+        check(not others, f"{tag}: other kernels launched: {others}")
+        grids = {kern: _grid3(next(grid for n, grid in nodes.items()
+                                   if kern in n)) for kern in kernels}
+        for kern, want in kernels.items():
+            check(want is None or grids[kern] == want,
+                  f"{tag}: {kern}'s grid is {grids[kern]}, want {want}")
+        out[tag] = dict(entry=entry.symbol, source=source,
+                        kernels=list(nodes), grids=grids)
+        print(f"[train_kernels] {tag} {shape}: 3 calls, 3 launches of "
+              f"{entry.symbol} ({source}); one call's CUDA graph: "
+              + ", ".join(f"{kern} grid {grid}"
+                          for kern, grid in grids.items()))
+        del q, k, v
+    return out
+
+
 def _hm_backward_routes(g):
     """Which kernels a K7 and a K8 call launch: in bf16 (GPT-3 1.3B's 2K
     shape) the warpgroup kernels of csrc/flash_bwd_sm90.cu (K7: the kv
@@ -1115,10 +1235,12 @@ def _hm_backward_routes(g):
         grids = {kern: next(grid for n, grid in nodes.items() if kern in n)
                  for kern in expected}
         if dt == torch.bfloat16:
-            # the kv kernel: one CTA per (kv tile of 128, head)
-            check(grids[kernels[0]] == (-(-s_ // 128), groups),
+            # the kv kernel: one CTA per (kv tile of 128, head), the heads
+            # in the batch place
+            want_grid = (-(-s_ // 128), 1, groups)
+            check(_grid3(grids[kernels[0]]) == want_grid,
                   f"{tag}: the kv kernel's grid is {grids[kernels[0]]}, "
-                  f"want ({-(-s_ // 128)}, {groups})")
+                  f"want {want_grid}")
         out[tag] = dict(entry=entry.symbol, source=source,
                         kernels=list(nodes), grids=grids)
         print(f"[train_kernels] {tag} (G={groups}, S={s_}, D=128): 3 calls, "
@@ -1349,6 +1471,7 @@ def phase_train_kernels():
             torch.cuda.empty_cache()
 
     rec["routes"] = _hm_backward_routes(g)
+    rec["flash_routes"] = _flash_routes(g)
 
     # timing at the step's shapes (bf16): card ms per call from CUDA
     # events over calls captured in a CUDA graph
@@ -1413,6 +1536,13 @@ def phase_train_kernels():
               f"({r['bound_by']}); kernel at "
               f"{100 * r['bound_ms'] / r['ms']:.1f}% of its bound")
     return rec
+
+
+def _fp32_entries(fa):
+    """The attention kernels' fp32 entry points, which no bf16 training
+    step may reach: K4, K5 and K6 in fp32."""
+    return (fa.FLASH_FWD_FP32_KERNEL, fa.FLASH_BWD_FP32_KERNEL,
+            fa.FLASH_FWD_HM_FP32_KERNEL)
 
 
 def _train_counts(kernels):
@@ -1524,7 +1654,8 @@ def phase_train():
     res = _train("train", "GPT-3 1.3B", model, TRAIN_B,
                  (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
                   norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL),
-                 (n, n, 2 * n + 1, 2 * n + 1), (fused_ops.RMS_NORM_KERNEL,))
+                 (n, n, 2 * n + 1, 2 * n + 1),
+                 (fused_ops.RMS_NORM_KERNEL,) + _fp32_entries(fa))
     res["base_gb"] = base_gb
     print(f"[train] {base_gb:.1f} GiB of the peak was held before the phase")
     return res
@@ -1566,7 +1697,7 @@ def phase_train_fused():
         (n, n, 2 * n + 1, 2 * n + 1),
         (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
          fa.FLASH_BWD_HM_FP32_KERNEL, fa.FLASH_BWD_HM_SPLIT_KERNEL,
-         fused_ops.RMS_NORM_KERNEL)))
+         fused_ops.RMS_NORM_KERNEL) + _fp32_entries(fa)))
     res["base_gb"] = base_gb
     print(f"[train_fused] {base_gb:.1f} GiB of the peak was held before the "
           f"phase")
@@ -1610,7 +1741,7 @@ def phase_train_long():
             (n, n, 2 * n + 1, 2 * n + 1),
             (fa.FLASH_BWD_HM_KERNEL, fa.FLASH_FWD_KERNEL,
              fa.FLASH_BWD_KERNEL, fa.FLASH_BWD_HM_SPLIT_FP32_KERNEL,
-             fused_ops.RMS_NORM_KERNEL), seq=LONG_S))
+             fused_ops.RMS_NORM_KERNEL) + _fp32_entries(fa), seq=LONG_S))
     finally:
         fa._flash_hm = real
     d, e = cfg.hidden_size // cfg.num_heads, cfg.hidden_size
@@ -1699,7 +1830,8 @@ def phase_train_llama():
                  (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL,
                   fused_ops.RMS_NORM_KERNEL),
                  (n, n, 2 * n + 1),
-                 (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL))
+                 (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL)
+                 + _fp32_entries(fa))
     res["base_gb"] = base_gb
     print(f"[train_llama] {base_gb:.1f} GiB of the peak was held before the "
           f"phase")
@@ -2165,25 +2297,25 @@ def main():
           "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_bwd"],
           "gpt3_1p3b 16K fused train": long["ptt_layer_norm_bwd"]},
          tk["layer_norm_bwd"], tk["layer_norm_bwd"]),
-        ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
+        ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
          f"{fl}:769,805",
          {"gpt3_1p3b train": launches["ptt_flash_fwd"]},
          tk["flash_fwd"], tk["flash_fwd"]),
-        ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd.cu",
+        ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
          f"{fl}:873",
          {"gpt3_1p3b train": launches["ptt_flash_bwd"]},
          tk["flash_bwd"], tk["flash_bwd"]),
-        ("flash_fwd_gqa", "paddle_tpu_torch/csrc/flash_fwd.cu",
+        ("flash_fwd_gqa", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
          f"{fl}:769,805",
          {"tinyllama train": ll["ptt_flash_fwd"]},
          tk["flash_fwd_gqa"], tk["flash_fwd_gqa"]),
-        ("flash_bwd_gqa", "paddle_tpu_torch/csrc/flash_bwd.cu",
+        ("flash_bwd_gqa", "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
          f"{fl}:873,1115",
          {"tinyllama train": ll["ptt_flash_bwd"]},
          tk["flash_bwd_gqa"], tk["flash_bwd_gqa"])]
     for key, sym, src, replaces in (
             ("flash_fwd_hm", "ptt_flash_fwd_hm",
-             "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
+             "paddle_tpu_torch/csrc/flash_fwd_sm90.cu", f"{fl}:135,167"),
             ("flash_bwd_hm", "ptt_flash_bwd_hm",
              "paddle_tpu_torch/csrc/flash_bwd_sm90.cu", f"{fl}:441")):
         rows.append((key, src, replaces,
@@ -2195,7 +2327,7 @@ def main():
                      tk[key + "_ramp"], tk[key + "_ramp"]))
     for key, sym, src, replaces in (
             ("flash_fwd_hm_long", "ptt_flash_fwd_hm",
-             "paddle_tpu_torch/csrc/flash_fwd.cu", f"{fl}:135,167"),
+             "paddle_tpu_torch/csrc/flash_fwd_sm90.cu", f"{fl}:135,167"),
             ("flash_bwd_hm_split", "ptt_flash_bwd_hm_split",
              "paddle_tpu_torch/csrc/flash_bwd_sm90.cu", f"{fl}:349,393")):
         rows.append((key, src, replaces,

@@ -1,9 +1,13 @@
-// Flash attention backward for Hopper (sm_90a): native layout (K5) and
-// the head-major two-kernel backward (K8), the same kernels addressed
+// Flash attention backward for Hopper (sm_90a) in fp32: native layout
+// (K5, entry `ptt_flash_bwd_fp32`) and the head-major two-kernel backward
+// (K8, entry `ptt_flash_bwd_hm_split_fp32`), the same kernels addressed
 // through per-operand (batch, head, row) strides, as the forward's K4 and
-// K6 (flash_fwd.cu).
+// K6 (flash_fwd.cu). bf16 K5 and K8 run the warpgroup kernels of
+// flash_bwd_sm90.cu (entries `ptt_flash_bwd`, `ptt_flash_bwd_hm_split`);
+// `wgmma` has no fp32 product, so fp32 keeps these kernels, whose products
+// are exact fp32 FMAs.
 //
-// K5 (entry `ptt_flash_bwd`) replaces the TPU kernel `_bwd_nl_fused`
+// K5 replaces the TPU kernel `_bwd_nl_fused`
 // (paddle_tpu/incubate/nn/functional/flash_attention.py:873, driven by
 // `_nl_backward`), the one-pass dq/dk/dv, and the fold of its expanded
 // grouped-query dk/dv in `_flash_nl_bwd` (:1115). Layout as K4: q, k, v
@@ -13,9 +17,7 @@
 // at its row stride, dk and dv at theirs (a packed [B,S,3E] gradient is
 // filled in place at its three column offsets).
 //
-// K8's fp32 calls (entry `ptt_flash_bwd_hm_split_fp32`; its bf16 calls
-// run the warpgroup kernels of flash_bwd_sm90.cu, `wgmma` having no fp32
-// product): K8 replaces `_bwd_dq_kernel` and
+// K8 replaces `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` (:349, :393, driven by `_flash_backward_pallas`
 // :567), which the JAX package's head-major backward takes once the
 // one-pass K7's whole-sequence fp32 dq scratch (Sq * D * 4 bytes) passes
@@ -476,21 +478,23 @@ int bwd(const void* q, const void* k, const void* v, const BwdLayout& layout,
   bwd<T, D>(q, k, v, layout, out, dout, lse, delta, dq, dk, dv, batch, sq, \
             sk, heads, kv_heads, causal, static_cast<cudaStream_t>(stream))
 
-// K5. q, k, v, strides, heads and kv_heads as ptt_flash_fwd; out, dout:
-// [batch, sq, heads * head_dim] contiguous; lse: [batch, heads, sq] fp32
-// from the forward; delta: fp32 [batch, heads, sq] scratch (written
-// here); dq: [batch, sq, heads * head_dim] rows of stride dq_stride; dk,
-// dv: [batch, sk, kv_heads * head_dim] rows of stride dkv_stride (all
-// three may be column views of one packed gradient). Launches the delta,
-// dk/dv and dq kernels; returns cudaGetLastError().
-extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
-                             int64_t q_stride, int64_t kv_stride,
-                             const void* out, const void* dout,
-                             const void* lse, void* delta, void* dq,
-                             void* dk, void* dv, int64_t dq_stride,
-                             int64_t dkv_stride, int batch, int sq, int sk,
-                             int heads, int kv_heads, int head_dim,
-                             int causal, int dtype, void* stream) {
+// K5, fp32 (bf16 calls go to ptt_flash_bwd, flash_bwd_sm90.cu). q, k,
+// v, strides, heads and kv_heads as ptt_flash_fwd; out, dout: [batch, sq,
+// heads * head_dim] contiguous; lse: [batch, heads, sq] fp32 from the
+// forward; delta: fp32 [batch, heads, sq] scratch (written here); dq:
+// [batch, sq, heads * head_dim] rows of stride dq_stride; dk, dv: [batch,
+// sk, kv_heads * head_dim] rows of stride dkv_stride (all three may be
+// column views of one packed gradient). Launches the delta, dk/dv and dq
+// kernels; returns cudaGetLastError().
+extern "C" int ptt_flash_bwd_fp32(const void* q, const void* k,
+                                  const void* v, int64_t q_stride,
+                                  int64_t kv_stride, const void* out,
+                                  const void* dout, const void* lse,
+                                  void* delta, void* dq, void* dk, void* dv,
+                                  int64_t dq_stride, int64_t dkv_stride,
+                                  int batch, int sq, int sk, int heads,
+                                  int kv_heads, int head_dim, int causal,
+                                  void* stream) {
   if (!ptt_flash::args_ok(batch, sq, sk, heads, kv_heads, head_dim) ||
       q == nullptr || k == nullptr || v == nullptr || out == nullptr ||
       dout == nullptr || lse == nullptr || delta == nullptr ||
@@ -503,7 +507,14 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                          {sq * heads * d, d, heads * d},
                          {sq * dq_stride, d, dq_stride},
                          {sk * dkv_stride, d, dkv_stride}};
-  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_BWD)
+  switch (head_dim) {
+    case 32:
+      return PTT_BWD(float, 32);
+    case 64:
+      return PTT_BWD(float, 64);
+    default:
+      return PTT_BWD(float, 128);
+  }
 }
 
 // K8, fp32. q: [groups, sq, head_dim] with group stride q_gstride and row

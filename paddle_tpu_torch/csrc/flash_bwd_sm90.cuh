@@ -1,8 +1,9 @@
-// Building blocks of the Hopper attention backward (flash_bwd_sm90.cu):
-// warpgroup products (`wgmma.mma_async`, bf16 in, fp32 accumulators in
-// registers), their shared-memory descriptors, the swizzled tile layout
-// they read and the cp.async copies that fill it, and the ordered add's
-// acquire / release counters.
+// Building blocks of the Hopper attention kernels (flash_bwd_sm90.cu,
+// flash_fwd_sm90.cu): warpgroup products (`wgmma.mma_async`, bf16 in,
+// fp32 accumulators in registers), their shared-memory descriptors, the
+// swizzled tile layout they read and the cp.async copies that fill it,
+// the live-tile schedule, and the ordered add's acquire / release
+// counters.
 //
 // Tile layout. A [ROWS, D] bf16 tile is stored as D / CB column blocks of
 // CB = min(D, 64) columns, each block [ROWS][CB] row-major with rows of
@@ -91,12 +92,27 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed product groups are still in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 // Keep the compiler from moving reads or writes of accumulator registers
 // across an issue or a wait: the products write them asynchronously.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for register A operands, which a product reads
+// asynchronously until its group is waited for.
+template <int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[s][r])::"memory");
+  }
 }
 // Make this thread's generic-proxy shared-memory writes (cp.async,
 // st.shared) visible to the async proxy that `wgmma` reads through.
@@ -109,11 +125,12 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A fragments of the 4 depth steps of a 64 x 64 accumulator.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
-                                       const float (&d)[32]) {
+// The A fragments of the N / 16 depth steps of a 64 x N accumulator.
+template <int S>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[S][4],
+                                       const float (&d)[8 * S]) {
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
+  for (int s = 0; s < S; ++s) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       a[s][r] = pack_bf16(d[8 * s + 2 * r], d[8 * s + 2 * r + 1]);
@@ -164,6 +181,24 @@ __device__ __forceinline__ void wait_count(const int* p, int target) {
   while (ld_acquire(p) < target) {
     if (clock64() - t0 > (1ll << 31)) __trap();
   }
+}
+
+// A CTA's place in a grid of (tiles, heads, batch elements) taken longest
+// first. The hardware issues CTAs in linear order (x fastest); this maps
+// the linear index so that the tile is the slowest index: tile 0 of
+// every head and batch element (the callers number the tile with the
+// most causal work 0) comes before any tile 1, and so on, so the last
+// wave holds the shortest tiles.
+struct GridPlace {
+  int tile, head, batch;
+};
+__device__ __forceinline__ GridPlace longest_first() {
+  const int per_tile = gridDim.y * gridDim.z;
+  const int lin = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *
+                                                             blockIdx.z);
+  const int hb = lin % per_tile;
+  return {lin / per_tile, hb % static_cast<int>(gridDim.y),
+          hb / static_cast<int>(gridDim.y)};
 }
 
 // The live tiles under bottom-right causal alignment (q row r sees keys
@@ -263,6 +298,41 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
+// d[64 x 128] (+)= A B, A and B in shared memory.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 

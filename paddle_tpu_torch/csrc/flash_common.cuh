@@ -1,17 +1,17 @@
-// Helpers shared by the flash attention kernels (flash_fwd.cu,
-// flash_bwd.cu, flash_bwd_hm.cu): operand strides, warp-level m16n8k16
-// products, their fragment loads from shared memory, asynchronous tile
-// copies, the backward's delta kernel, and the C entry points' argument
-// checks and dtype / head-dim dispatch.
+// Helpers shared by the flash attention kernels: operand strides,
+// asynchronous tile copies, the backward's delta kernel and the C entry
+// points' argument checks (every source); and for the fp32 kernels
+// (flash_fwd.cu, flash_bwd.cu, flash_bwd_hm.cu) warp-level m16n8k16
+// products and their fragment loads from shared memory.
 //
 // Fragment layout of c[16x8] += a[16x16] b[16x8] (g = lane / 4,
 // t = lane % 4): a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] =
 // A[g][2t+8..], a[3] = A[g+8][2t+8..]; b[0] = B[2t..2t+1][g], b[1] =
-// B[2t+8..2t+9][g]; c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..].
-// bf16 runs on `mma.sync` with fragments loaded by `ldmatrix`; fp32 keeps
-// the same layout, loads pairs with plain shared-memory reads and
-// emulates the product in exact fp32 FMAs over warp shuffles (slow; it
-// serves fp32 checks).
+// B[2t+8..2t+9][g]; c[0..1] = C[g][2t..2t+1], c[2..3] = C[g+8][2t..],
+// the layout of `mma.sync`. fp32 loads pairs with plain shared-memory
+// reads and emulates the product in exact fp32 FMAs over warp shuffles
+// (slow; it serves fp32 checks). bf16 runs on `wgmma` instead
+// (flash_bwd_sm90.cuh).
 #pragma once
 
 #include <math.h>
@@ -36,13 +36,9 @@ struct Strides {
   }
 };
 
-// Two adjacent elements of an mma fragment: packed bf16x2, or fp32 pair.
+// Two adjacent elements of an mma fragment: an fp32 pair.
 template <typename T>
 struct Pair;
-template <>
-struct Pair<__nv_bfloat16> {
-  using type = uint32_t;
-};
 template <>
 struct Pair<float> {
   using type = float2;
@@ -50,11 +46,6 @@ struct Pair<float> {
 
 template <typename T>
 __device__ __forceinline__ typename Pair<T>::type pack2(float lo, float hi);
-template <>
-__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo: low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 template <>
 __device__ __forceinline__ float2 pack2<float>(float lo, float hi) {
   return make_float2(lo, hi);
@@ -74,15 +65,6 @@ __device__ __forceinline__ typename Pair<T>::type ld_pair_strided(
 template <typename T>
 __device__ __forceinline__ void st_pair(T* p, float lo, float hi) {
   *reinterpret_cast<typename Pair<T>::type*>(p) = pack2<T>(lo, hi);
-}
-
-__device__ __forceinline__ void mma(float c[4], const uint32_t a[4],
-                                    const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // The same product in fp32, one exact FMA per term in order of k; each
@@ -113,41 +95,16 @@ __device__ __forceinline__ void mma(float c[4], const float2 a[4],
   }
 }
 
-// Four 8x8 b16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8. With `trans` each lane receives the
-// transposed pair (rows 2t, 2t+1 of column g).
-template <bool kTrans>
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (kTrans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  }
-}
-
 // A fragment: rows [r, r + 16) x cols [c, c + 16) of a row-major tile.
 template <typename T>
 __device__ __forceinline__ void frag_a(typename Pair<T>::type a[4],
                                        const T* tile, int ld, int r, int c) {
   const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    ldsm_x4<false>(a, tile + (r + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                          c + (lane >> 4) * 8);
-  } else {
-    const T* p = tile + (r + (lane >> 2)) * ld + c + 2 * (lane & 3);
-    a[0] = ld_pair(p);
-    a[1] = ld_pair(p + 8 * ld);
-    a[2] = ld_pair(p + 8);
-    a[3] = ld_pair(p + 8 * ld + 8);
-  }
+  const T* p = tile + (r + (lane >> 2)) * ld + c + 2 * (lane & 3);
+  a[0] = ld_pair(p);
+  a[1] = ld_pair(p + 8 * ld);
+  a[2] = ld_pair(p + 8);
+  a[3] = ld_pair(p + 8 * ld + 8);
 }
 
 // A fragment of the transpose: A[m][k] = tile[c + k][r + m].
@@ -156,16 +113,11 @@ __device__ __forceinline__ void frag_a_t(typename Pair<T>::type a[4],
                                          const T* tile, int ld, int r,
                                          int c) {
   const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    ldsm_x4<true>(a, tile + (c + (lane & 7) + (lane >> 4) * 8) * ld + r +
-                         ((lane >> 3) & 1) * 8);
-  } else {
-    const T* p = tile + (c + 2 * (lane & 3)) * ld + r + (lane >> 2);
-    a[0] = ld_pair_strided(p, ld);
-    a[1] = ld_pair_strided(p + 8, ld);
-    a[2] = ld_pair_strided(p + 8 * ld, ld);
-    a[3] = ld_pair_strided(p + 8 * ld + 8, ld);
-  }
+  const T* p = tile + (c + 2 * (lane & 3)) * ld + r + (lane >> 2);
+  a[0] = ld_pair_strided(p, ld);
+  a[1] = ld_pair_strided(p + 8, ld);
+  a[2] = ld_pair_strided(p + 8 * ld, ld);
+  a[3] = ld_pair_strided(p + 8 * ld + 8, ld);
 }
 
 // B fragments of two n-tiles (n0, n0 + 8) with B[k][n] = tile[n0 + n]
@@ -176,21 +128,11 @@ __device__ __forceinline__ void frag_bt2(typename Pair<T>::type b0[2],
                                          const T* tile, int ld, int k0,
                                          int n0) {
   const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    uint32_t r[4];
-    ldsm_x4<false>(r, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 +
-                          ((lane >> 3) & 1) * 8);
-    b0[0] = r[0];
-    b0[1] = r[1];
-    b1[0] = r[2];
-    b1[1] = r[3];
-  } else {
-    const T* p = tile + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
-    b0[0] = ld_pair(p);
-    b0[1] = ld_pair(p + 8);
-    b1[0] = ld_pair(p + 8 * ld);
-    b1[1] = ld_pair(p + 8 * ld + 8);
-  }
+  const T* p = tile + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  b0[0] = ld_pair(p);
+  b0[1] = ld_pair(p + 8);
+  b1[0] = ld_pair(p + 8 * ld);
+  b1[1] = ld_pair(p + 8 * ld + 8);
 }
 
 // B fragments of two n-tiles (n0, n0 + 8) with B[k][n] = tile[k0 + k]
@@ -201,21 +143,11 @@ __device__ __forceinline__ void frag_b2(typename Pair<T>::type b0[2],
                                         const T* tile, int ld, int k0,
                                         int n0) {
   const int lane = threadIdx.x & 31;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    uint32_t r[4];
-    ldsm_x4<true>(r, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
-                         n0 + (lane >> 4) * 8);
-    b0[0] = r[0];
-    b0[1] = r[1];
-    b1[0] = r[2];
-    b1[1] = r[3];
-  } else {
-    const T* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
-    b0[0] = ld_pair_strided(p, ld);
-    b0[1] = ld_pair_strided(p + 8 * ld, ld);
-    b1[0] = ld_pair_strided(p + 8, ld);
-    b1[1] = ld_pair_strided(p + 8 * ld + 8, ld);
-  }
+  const T* p = tile + (k0 + 2 * (lane & 3)) * ld + n0 + (lane >> 2);
+  b0[0] = ld_pair_strided(p, ld);
+  b0[1] = ld_pair_strided(p + 8 * ld, ld);
+  b1[0] = ld_pair_strided(p + 8, ld);
+  b1[1] = ld_pair_strided(p + 8 * ld + 8, ld);
 }
 
 // The A fragment (16 x 16) of columns [16 ks, 16 ks + 16) of a 16-row
@@ -328,22 +260,3 @@ inline bool args_ok(int batch, int sq, int sk, int heads, int kv_heads,
 }
 
 }  // namespace ptt_flash
-
-// return CALL(T, D) for the (dtype, head_dim) pair, or an error code.
-#define PTT_FLASH_DISPATCH(DTYPE, HEAD_DIM, CALL)                \
-  switch ((DTYPE) * 1000 + (HEAD_DIM)) {                         \
-    case ptt::kFloat32 * 1000 + 32:                              \
-      return CALL(float, 32);                                    \
-    case ptt::kFloat32 * 1000 + 64:                              \
-      return CALL(float, 64);                                    \
-    case ptt::kFloat32 * 1000 + 128:                             \
-      return CALL(float, 128);                                   \
-    case ptt::kBFloat16 * 1000 + 32:                             \
-      return CALL(__nv_bfloat16, 32);                            \
-    case ptt::kBFloat16 * 1000 + 64:                             \
-      return CALL(__nv_bfloat16, 64);                            \
-    case ptt::kBFloat16 * 1000 + 128:                            \
-      return CALL(__nv_bfloat16, 128);                           \
-    default:                                                     \
-      return static_cast<int>(cudaErrorInvalidValue);            \
-  }

@@ -1,12 +1,16 @@
-// Flash attention forward for Hopper (sm_90a): native layout (K4) and
-// head-major (K6), one kernel addressed through per-operand strides.
+// Flash attention forward for Hopper (sm_90a) in fp32: native layout (K4,
+// entry `ptt_flash_fwd_fp32`) and head-major (K6, entry
+// `ptt_flash_fwd_hm_fp32`), one kernel addressed through per-operand
+// strides. bf16 calls run the warpgroup kernel of flash_fwd_sm90.cu
+// (entries `ptt_flash_fwd`, `ptt_flash_fwd_hm`); `wgmma` has no fp32
+// product, so fp32 (the card-vs-CPU checks) keeps this kernel, whose
+// products are exact fp32 FMAs.
 //
-// Replaces the TPU kernels `_fwd_nl_single` / `_fwd_nl_stream`
+// Replaces, in fp32, the TPU kernels `_fwd_nl_single` / `_fwd_nl_stream`
 // (paddle_tpu/incubate/nn/functional/flash_attention.py:769,805, driven by
-// `_nl_forward`; entry `ptt_flash_fwd`) and `_fwd_kernel_single` /
-// `_fwd_kernel` (:135,167, driven by `_flash_forward_pallas`; entry
-// `ptt_flash_fwd_hm`). Each operand is a base pointer and a (batch, head,
-// row) stride triple, so both layouts run the same code:
+// `_nl_forward`) and `_fwd_kernel_single` / `_fwd_kernel` (:135,167,
+// driven by `_flash_forward_pallas`). Each operand is a base pointer and a
+// (batch, head, row) stride triple, so both layouts run the same code:
 // - native: q [B,Sq,H*D] and k, v [B,Sk,KVH*D] at their row strides, so
 //   the packed [B,S,3E] qkv of a fused projection is read in place at
 //   column offsets 0, E and 2E with no slice copies; out [B,Sq,H*D]
@@ -32,8 +36,9 @@
 // 68.7 GFLOP against 0.1 GB of bf16 inputs and outputs, far above the
 // card's flop/byte balance: the least time is FLOPs / 989 TFLOP/s.
 //
-// Design (a simple tensor-core kernel; wgmma/TMA pipelines are later
-// work): one CTA of 4 warps per (q tile of 64 rows, head, batch), each
+// Design (the first, simple kernel of the port; its bf16 path, on
+// `mma.sync`, was replaced by flash_fwd_sm90.cu): one CTA of 4 warps per
+// (q tile of 64 rows, head, batch), each
 // warp owning 16 q rows; a loop over kv tiles of 64 replaces the TPU's
 // sequential kv grid axis, and fully masked causal tiles are never
 // visited. K and V tiles are double-buffered in shared memory: cp.async
@@ -254,19 +259,30 @@ int fwd(const void* q, const void* k, const void* v, const Layout& layout,
 #define PTT_FWD(T, D)                                                      \
   fwd<T, D>(q, k, v, layout, out, lse, batch, sq, sk, heads, kv_heads,     \
             causal, static_cast<cudaStream_t>(stream))
+// return the fp32 kernel's launch at HEAD_DIM (32, 64, else 128)
+#define PTT_FWD_FP32(HEAD_DIM)        \
+  switch (HEAD_DIM) {                 \
+    case 32:                          \
+      return PTT_FWD(float, 32);      \
+    case 64:                          \
+      return PTT_FWD(float, 64);      \
+    default:                          \
+      return PTT_FWD(float, 128);     \
+  }
 
-// K4. q: [batch, sq, heads * head_dim] rows of stride q_stride elements;
-// k, v: [batch, sk, kv_heads * head_dim] rows of stride kv_stride (k and v
-// may be column views of one packed array; kv_heads divides heads); out:
+// K4, fp32 (bf16 calls go to ptt_flash_fwd, flash_fwd_sm90.cu). q:
+// [batch, sq, heads * head_dim] rows of stride q_stride elements; k, v:
+// [batch, sk, kv_heads * head_dim] rows of stride kv_stride (k and v may
+// be column views of one packed array; kv_heads divides heads); out:
 // [batch, sq, heads * head_dim] contiguous; lse: [batch, heads, sq] fp32.
 // Pointers and row strides are 16-byte aligned; head_dim is 32, 64 or
-// 128; one dtype (ptt::DType). Returns cudaGetLastError() after the
-// launch.
-extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
-                             int64_t q_stride, int64_t kv_stride, void* out,
-                             void* lse, int batch, int sq, int sk, int heads,
-                             int kv_heads, int head_dim, int causal,
-                             int dtype, void* stream) {
+// 128. Returns cudaGetLastError() after the launch.
+extern "C" int ptt_flash_fwd_fp32(const void* q, const void* k,
+                                  const void* v, int64_t q_stride,
+                                  int64_t kv_stride, void* out, void* lse,
+                                  int batch, int sq, int sk, int heads,
+                                  int kv_heads, int head_dim, int causal,
+                                  void* stream) {
   if (!ptt_flash::args_ok(batch, sq, sk, heads, kv_heads, head_dim) ||
       q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr || lse == nullptr) {
@@ -276,21 +292,22 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   const Layout layout{{sq * q_stride, d, q_stride},
                       {sk * kv_stride, d, kv_stride},
                       {sq * heads * d, d, heads * d}};
-  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
+  PTT_FWD_FP32(head_dim)
 }
 
-// K6. q: [groups, sq, head_dim] with group stride q_gstride and row
-// stride q_rstride elements; k, v: [groups, sk, head_dim] sharing strides
-// kv_gstride, kv_rstride (one head per group: grouped k, v come repeated);
-// out: [groups, sq, head_dim] contiguous; lse: [groups, sq] fp32. The
-// last dim is contiguous; pointers and row strides are 16-byte aligned;
-// head_dim is 32, 64 or 128; one dtype. Returns cudaGetLastError().
-extern "C" int ptt_flash_fwd_hm(const void* q, const void* k, const void* v,
-                                int64_t q_gstride, int64_t q_rstride,
-                                int64_t kv_gstride, int64_t kv_rstride,
-                                void* out, void* lse, int groups, int sq,
-                                int sk, int head_dim, int causal, int dtype,
-                                void* stream) {
+// K6, fp32 (bf16: ptt_flash_fwd_hm, flash_fwd_sm90.cu). q: [groups, sq,
+// head_dim] with group stride q_gstride and row stride q_rstride
+// elements; k, v: [groups, sk, head_dim] sharing strides kv_gstride,
+// kv_rstride (one head per group: grouped k, v come repeated); out:
+// [groups, sq, head_dim] contiguous; lse: [groups, sq] fp32. The last dim
+// is contiguous; pointers and row strides are 16-byte aligned; head_dim
+// is 32, 64 or 128. Returns cudaGetLastError().
+extern "C" int ptt_flash_fwd_hm_fp32(const void* q, const void* k,
+                                     const void* v, int64_t q_gstride,
+                                     int64_t q_rstride, int64_t kv_gstride,
+                                     int64_t kv_rstride, void* out, void* lse,
+                                     int groups, int sq, int sk, int head_dim,
+                                     int causal, void* stream) {
   if (!ptt_flash::args_ok(groups, sq, sk, 1, 1, head_dim) || q == nullptr ||
       k == nullptr || v == nullptr || out == nullptr || lse == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -300,6 +317,7 @@ extern "C" int ptt_flash_fwd_hm(const void* q, const void* k, const void* v,
   const Layout layout{{q_gstride, 0, q_rstride},
                       {kv_gstride, 0, kv_rstride},
                       {sq * d, 0, d}};
-  PTT_FLASH_DISPATCH(dtype, head_dim, PTT_FWD)
+  PTT_FWD_FP32(head_dim)
 }
+#undef PTT_FWD_FP32
 #undef PTT_FWD

@@ -6,38 +6,57 @@ Native layout (the default): ``flash_attention_packed`` (self-attention
 over a fused projection's packed [B,S,3E] output), ``flash_attention_fused``
 (the [B,S,H,D] entry sdpa takes) and ``_flash_nl`` / ``_flash_nl_packed``
 run through ``torch.autograd.Function``s (the JAX package's custom VJPs).
-On a CUDA tensor the forward is the hand-written Hopper kernel
-``ptt_flash_fwd`` (K4) and the backward ``ptt_flash_bwd`` (K5)
-(csrc/flash_fwd.cu and csrc/flash_bwd.cu, replacing the TPU kernels
-``_fwd_nl_single`` / ``_fwd_nl_stream`` and ``_bwd_nl_fused``); q, k and v
-are read in place from the packed array by column offset and the
-backward writes d(qkv) straight into one [B,S,3E] buffer. Grouped query
-(k, v [B,Sk,KVH*D] with KVH dividing H) is native: q head h reads kv head
-h // (H/KVH) in place, and dk, dv come out at the kv width; K and V are
-never repeated on this route.
+On a CUDA tensor the forward is K4 and the backward K5, replacing the TPU
+kernels ``_fwd_nl_single`` / ``_fwd_nl_stream`` and ``_bwd_nl_fused``;
+q, k and v are read in place from the packed array by column offset and
+the backward writes d(qkv) straight into one [B,S,3E] buffer. Grouped
+query (k, v [B,Sk,KVH*D] with KVH dividing H) is native: q head h reads kv
+head h // (H/KVH) in place, and dk, dv come out at the kv width, summed
+over the group by one writer; K and V are never repeated on this route.
 
 Head-major (``FLAGS_flash_native_layout=0``, and always inside
 ``fused_self_attention``, the op behind ``FLAGS_use_fused_attention``):
 ``_flash_hm`` takes [G,S,D] operands (G = B*H) and saves its residuals in
-that layout. Its forward is ``ptt_flash_fwd_hm`` (K6, csrc/flash_fwd.cu,
-replacing ``_fwd_kernel_single`` / ``_fwd_kernel``). Its backward, as the
-JAX package's ``_flash_backward_pallas`` picks it: while the one-pass
-backward's whole-sequence fp32 dq scratch (Sq*D*4 bytes) fits
-``_DQ_SCRATCH_BYTES`` (4 MiB: S <= 8192 at D=128), ``ptt_flash_bwd_hm``
-(K7, replacing the one-pass ``_bwd_fused_kernel``); above it the
-two-kernel ``ptt_flash_bwd_hm_split`` (K8, replacing ``_bwd_dq_kernel`` /
-``_bwd_dkv_kernel``). In bf16 both are the warpgroup (``wgmma``) kernels
-of csrc/flash_bwd_sm90.cu; fp32 calls run the earlier kernels, whose
-products are exact fp32 FMAs (K7 csrc/flash_bwd_hm.cu, K8 K5's kernels at
-head-major strides in csrc/flash_bwd.cu). On flag 0 the [B,S,H,D]
+that layout. Its forward is K6 (replacing ``_fwd_kernel_single`` /
+``_fwd_kernel``). Its backward, as the JAX package's
+``_flash_backward_pallas`` picks it: while the one-pass backward's
+whole-sequence fp32 dq scratch (Sq*D*4 bytes) fits ``_DQ_SCRATCH_BYTES``
+(4 MiB: S <= 8192 at D=128), K7 (replacing the one-pass
+``_bwd_fused_kernel``); above it the two-kernel K8 (replacing
+``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``). On flag 0 the [B,S,H,D]
 entries transpose to head-major around it, and grouped k, v are repeated
-to the q heads first (the JAX package's "ramp"), only on this route. The native route has no
-such budget: K5 keeps no whole-sequence scratch, so it runs at any S.
+to the q heads first (the JAX package's "ramp"), only on this route. The
+native route has no such budget: K5 keeps no whole-sequence scratch, so
+it runs at any S.
+
+Which entry runs which kernel (csrc/):
+
+=====  ========================================  ===========================
+       bf16 (``wgmma``)                          fp32 (exact fp32 FMAs)
+=====  ========================================  ===========================
+K4     ``ptt_flash_fwd``, flash_fwd_sm90.cu      ``ptt_flash_fwd_fp32``,
+                                                 flash_fwd.cu
+K6     ``ptt_flash_fwd_hm``, flash_fwd_sm90.cu   ``ptt_flash_fwd_hm_fp32``,
+                                                 flash_fwd.cu
+K5     ``ptt_flash_bwd``, flash_bwd_sm90.cu      ``ptt_flash_bwd_fp32``,
+       (delta, kv kernel without dq, dq kernel)  flash_bwd.cu
+K7     ``ptt_flash_bwd_hm``, flash_bwd_sm90.cu   ``ptt_flash_bwd_hm_fp32``,
+       (kv kernel with the ordered dq add)       flash_bwd_hm.cu
+K8     ``ptt_flash_bwd_hm_split``,               ``ptt_flash_bwd_hm_split_fp32``,
+       flash_bwd_sm90.cu                         flash_bwd.cu
+=====  ========================================  ===========================
+
+Each entry has its own ``Kernel`` object and counts (``FLASH_*_KERNEL``,
+the fp32 ones ``FLASH_*_FP32_KERNEL``): ``wgmma`` has no fp32 product, so
+only fp32 calls (the card-vs-CPU checks) reach the earlier kernels.
 
 On a CPU tensor the same Functions run the kernels' plain versions
 (``_nl_forward_ref`` / ``_nl_backward_ref``, ``_hm_forward_ref`` /
 ``_hm_backward_ref`` / ``_hm_backward_split_ref``). Nothing else: a
 tensor on any other device raises, and a failed build or launch raises.
+The bf16 kernels' tile orders are mirrored for the CPU tests in
+``paddle_tpu_torch/testing/flash_tiled.py`` (schedules: ``fwd_schedule``,
+``k5_kv_schedule``, ``hm_bwd_schedule``).
 
 Not ported here (raise NotImplementedError): the dense
 ``_reference_attention`` / ``_attend_hm_reference`` fallbacks for head
@@ -55,29 +74,50 @@ from ....core.flags import get_flag
 from ....csrc import DTYPE_CODES, Kernel
 
 # Replaces `_fwd_nl_single` / `_fwd_nl_stream` (paddle_tpu/incubate/nn/
-# functional/flash_attention.py:769,805) driven by `_nl_forward` (:944).
-# Bound: operations, causal 2*B*H*Sq*Sk*D (half of 4*B*H*Sq*Sk*D) over the
-# card's bf16 tensor-core rate.
+# functional/flash_attention.py:769,805) driven by `_nl_forward` (:944),
+# bf16: the warpgroup kernel of csrc/flash_fwd_sm90.cu (a CTA of two
+# ping-ponged warpgroups per (q tile of 128, head, batch)). Bound:
+# operations, causal 2*B*H*Sq*Sk*D (half of 4*B*H*Sq*Sk*D) over the card's
+# bf16 tensor-core rate.
 FLASH_FWD_KERNEL = Kernel(
-    "flash_fwd.cu", "ptt_flash_fwd",
+    "flash_fwd_sm90.cu", "ptt_flash_fwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 8)
+# K4's fp32 calls (exact fp32 FMAs in place of `wgmma`, which has no fp32
+# product): the earlier kernel of csrc/flash_fwd.cu.
+FLASH_FWD_FP32_KERNEL = Kernel(
+    "flash_fwd.cu", "ptt_flash_fwd_fp32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 7)
 # Replaces `_bwd_nl_fused` (flash_attention.py:873) driven by
 # `_nl_backward` (:1021), and the grouped dk/dv fold of `_flash_nl_bwd`
-# (:1115). Bound: operations, five products to the forward's two. One
-# launch per call runs the delta, dk/dv and dq kernels (deterministic:
-# no atomics).
+# (:1115), bf16: csrc/flash_bwd_sm90.cu's kv kernel (a CTA per (kv tile of
+# 128, kv head, batch) summing dk/dv over the group's q heads) and dq
+# kernel at native strides. Bound: operations, five products to the
+# forward's two. One launch per call runs the delta, kv and dq kernels
+# (each output has one writer: deterministic).
 FLASH_BWD_KERNEL = Kernel(
-    "flash_bwd.cu", "ptt_flash_bwd",
+    "flash_bwd_sm90.cu", "ptt_flash_bwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 7
     + [ctypes.c_int64] * 2 + [ctypes.c_int] * 8)
+# K5's fp32 calls: the earlier delta, dk/dv and dq kernels of
+# csrc/flash_bwd.cu.
+FLASH_BWD_FP32_KERNEL = Kernel(
+    "flash_bwd.cu", "ptt_flash_bwd_fp32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 7
+    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 7)
 # Replaces `_fwd_kernel_single` / `_fwd_kernel` (flash_attention.py:135,
-# 167) driven by `_flash_forward_pallas` (:297): K4's kernel at head-major
-# strides, its own entry point and counters. Bound: as K4.
+# 167) driven by `_flash_forward_pallas` (:297), bf16: K4's kernel at
+# head-major strides, its own entry point and counters. Bound: as K4.
 FLASH_FWD_HM_KERNEL = Kernel(
-    "flash_fwd.cu", "ptt_flash_fwd_hm",
+    "flash_fwd_sm90.cu", "ptt_flash_fwd_hm",
     [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 6)
+# K6's fp32 calls: csrc/flash_fwd.cu at head-major strides.
+FLASH_FWD_HM_FP32_KERNEL = Kernel(
+    "flash_fwd.cu", "ptt_flash_fwd_hm_fp32",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 5)
 # Replaces `_bwd_fused_kernel` (flash_attention.py:441) driven by
 # `_flash_backward_fused` (:531), bf16: the warpgroup kernel of
 # csrc/flash_bwd_sm90.cu. Bound: operations, as K5. One launch per call
@@ -117,20 +157,26 @@ _DQ_SCRATCH_BYTES = 4 << 20
 # Tiles of the bf16 head-major backward (csrc/flash_bwd_sm90.cu): q tiles
 # of 64 rows, kv tiles of 128.
 HM_BWD_TILE_Q, HM_BWD_TILE_KV = 64, 128
+# Tiles of the bf16 forward (csrc/flash_fwd_sm90.cu `FwdTile`): q tiles of
+# 128 rows (64 a warpgroup); kv tiles of 128 keys at D=128, 64 at D <= 64.
+FWD_TILE_Q = 128
 
 
-def hm_bwd_schedule(sq, sk, causal):
-    """The live kv tiles of each q tile of the bf16 one-pass backward K7,
-    as (first, last) per q tile of HM_BWD_TILE_Q rows over kv tiles of
-    HM_BWD_TILE_KV, None where the tile's rows see no key. Causal
-    alignment is bottom-right (q row r sees keys k <= r + Sk - Sq); key 0
-    is visible to every row that sees any key, so ``first`` is 0 and a q
-    tile's dq partials are summed over kv tiles 0..last in that order, the
-    CTA of kv tile j adding once its (head, q tile) counter reads j.
-    Mirrored by ``Schedule`` in csrc/flash_bwd_sm90.cuh (``kv_last``; a
-    kv tile's first live q tile, ``q_first``, is the first q tile whose
-    ``last`` reaches it)."""
-    tq, tk = HM_BWD_TILE_Q, HM_BWD_TILE_KV
+def fwd_tile_kv(d):
+    """Keys per kv tile of the bf16 forward at head dim ``d``."""
+    return 128 if d > 64 else 64
+# Tiles of bf16 K5 (csrc/flash_bwd_sm90.cu at native strides): the kv
+# kernel's kv tiles of 128 keys and streamed q tiles of 64 rows, the dq
+# kernel's q tiles of 128 rows.
+K5_TILE_Q, K5_TILE_KV, K5_TILE_DQ = 64, 128, 128
+
+
+def _live_kv_tiles(sq, sk, causal, tq, tk):
+    """(first, last) live kv tile (of tk keys) per q tile of tq rows, None
+    where the tile's rows see no key. Causal alignment is bottom-right (q
+    row r sees keys k <= r + Sk - Sq); key 0 is visible to every row that
+    sees any key, so ``first`` is 0. Mirrored by ``Schedule::kv_last`` in
+    csrc/flash_bwd_sm90.cuh."""
     nkv = -(-sk // tk)
     tiles = []
     for i in range(-(-sq // tq)):
@@ -140,6 +186,41 @@ def hm_bwd_schedule(sq, sk, causal):
         top = min(i * tq + tq, sq) - 1 + sk - sq
         tiles.append(None if top < 0 else (0, min(nkv - 1, top // tk)))
     return tiles
+
+
+def hm_bwd_schedule(sq, sk, causal):
+    """The live kv tiles of each q tile of the bf16 one-pass backward K7,
+    as (first, last) per q tile of HM_BWD_TILE_Q rows over kv tiles of
+    HM_BWD_TILE_KV (:func:`_live_kv_tiles`): a q tile's dq partials are
+    summed over kv tiles 0..last in that order, the CTA of kv tile j
+    adding once its (head, q tile) counter reads j. A kv tile's first
+    live q tile (``Schedule::q_first``) is the first q tile whose
+    ``last`` reaches it."""
+    return _live_kv_tiles(sq, sk, causal, HM_BWD_TILE_Q, HM_BWD_TILE_KV)
+
+
+def fwd_schedule(sq, sk, causal, d):
+    """The live kv tiles of each q tile of the bf16 forward (K4 / K6) at
+    head dim ``d``: a CTA of FWD_TILE_Q rows walks kv tiles of
+    ``fwd_tile_kv(d)`` keys from 0 to ``last`` in order (both warpgroups
+    alike), None: no tile."""
+    return _live_kv_tiles(sq, sk, causal, FWD_TILE_Q, fwd_tile_kv(d))
+
+
+def k5_kv_schedule(sq, sk, causal):
+    """The q tiles (of K5_TILE_Q rows) that bf16 K5's kv kernel walks for
+    each kv tile of K5_TILE_KV keys, in its order: the last first, down
+    to the kv tile's first live q tile (``Schedule::q_first``: the first q
+    tile with a row that sees one of its keys). The same list serves each
+    q head of a kv head's group, heads in ascending order."""
+    tq, tk = K5_TILE_Q, K5_TILE_KV
+    nq = -(-sq // tq)
+    out = []
+    for j in range(-(-sk // tk)):
+        first = j * tk - (sk - sq)
+        lo = first // tq if causal and first > 0 else 0
+        out.append(list(range(nq - 1, lo - 1, -1)))
+    return out
 
 
 def grouped_qk_logits(qh, kh):
@@ -340,23 +421,38 @@ def _check_kernel_args(q, k, v, heads):
     return b, sq, k.shape[1], d, k.shape[-1] // d
 
 
+def _bf16_or_fp32(dtype, bf16_kernel, fp32_kernel):
+    """The entry point of a call: the warpgroup kernel in bf16, the
+    earlier exact-FMA kernel in fp32 (``wgmma`` has no fp32 product), and
+    the trailing dtype code the bf16 entry takes (the fp32 one takes
+    none)."""
+    if dtype == torch.bfloat16:
+        return bf16_kernel, (DTYPE_CODES[dtype],)
+    return fp32_kernel, ()
+
+
 def flash_fwd_cuda(q, k, v, heads, causal):
-    """Launch the forward kernel. q [B,Sq,H*D], k, v [B,Sk,KVH*D] (KVH
-    dividing H) on a card: views with contiguous 16-byte aligned rows,
-    e.g. column slices of a packed [B,S,3E]; D in HEAD_DIMS. Returns new
-    (out [B,Sq,H*D], lse fp32 [B,H,Sq])."""
+    """Launch the forward kernel (K4; bf16 on ``wgmma``, csrc/
+    flash_fwd_sm90.cu, fp32 csrc/flash_fwd.cu). q [B,Sq,H*D], k, v
+    [B,Sk,KVH*D] (KVH dividing H) on a card: views with contiguous 16-byte
+    aligned rows, e.g. column slices of a packed [B,S,3E]; D in
+    HEAD_DIMS. Returns new (out [B,Sq,H*D], lse fp32 [B,H,Sq])."""
     b, sq, sk, d, kvh = _check_kernel_args(q, k, v, heads)
     out = torch.empty(b, sq, heads * d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, heads, sq, dtype=torch.float32, device=q.device)
-    FLASH_FWD_KERNEL.launch(
+    kernel, code = _bf16_or_fp32(q.dtype, FLASH_FWD_KERNEL,
+                                 FLASH_FWD_FP32_KERNEL)
+    kernel.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
         k.stride(1), out.data_ptr(), lse.data_ptr(), b, sq, sk, heads, kvh,
-        d, int(bool(causal)), DTYPE_CODES[q.dtype])
+        d, int(bool(causal)), *code)
     return out, lse
 
 
 def flash_bwd_cuda(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
-    """Launch the backward kernels: writes dq [B,Sq,H*D] and dk, dv
+    """Launch the backward kernels (K5; bf16 the delta, kv and dq
+    kernels of csrc/flash_bwd_sm90.cu, fp32 those of csrc/flash_bwd.cu):
+    writes dq [B,Sq,H*D] and dk, dv
     [B,Sk,KVH*D] (views with contiguous 16-byte aligned rows, dk and dv
     sharing strides, e.g. column slices of a packed [B,S,3E] gradient).
     q, k, v as :func:`flash_fwd_cuda`; out, dout [B,Sq,H*D] contiguous;
@@ -383,12 +479,14 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
             or dv.shape[:2] != (b, sk):
         raise ValueError("flash attention: gradient shapes do not match")
     delta = torch.empty(b, heads, sq, dtype=torch.float32, device=q.device)
-    FLASH_BWD_KERNEL.launch(
+    kernel, code = _bf16_or_fp32(q.dtype, FLASH_BWD_KERNEL,
+                                 FLASH_BWD_FP32_KERNEL)
+    kernel.launch(
         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
         k.stride(1), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         dq.stride(1), dk.stride(1), b, sq, sk, heads, kvh, d,
-        int(bool(causal)), DTYPE_CODES[q.dtype])
+        int(bool(causal)), *code)
 
 
 def _check_hm_args(qh, kh, vh):
@@ -426,17 +524,20 @@ def _check_hm_args(qh, kh, vh):
 
 
 def flash_fwd_hm_cuda(qh, kh, vh, causal):
-    """Launch K6. qh [G,Sq,D], kh, vh [G,Sk,D] (G = B*H, one head each) on
+    """Launch K6 (bf16 csrc/flash_fwd_sm90.cu, fp32 csrc/flash_fwd.cu).
+    qh [G,Sq,D], kh, vh [G,Sk,D] (G = B*H, one head each) on
     a card, with contiguous 16-byte aligned rows at any group and row
     strides; D in HEAD_DIMS. Returns new (out [G,Sq,D], lse fp32
     [G,Sq])."""
     g, sq, sk, d = _check_hm_args(qh, kh, vh)
     out = torch.empty(g, sq, d, dtype=qh.dtype, device=qh.device)
     lse = torch.empty(g, sq, dtype=torch.float32, device=qh.device)
-    FLASH_FWD_HM_KERNEL.launch(
+    kernel, code = _bf16_or_fp32(qh.dtype, FLASH_FWD_HM_KERNEL,
+                                 FLASH_FWD_HM_FP32_KERNEL)
+    kernel.launch(
         qh.device, qh.data_ptr(), kh.data_ptr(), vh.data_ptr(), qh.stride(0),
         qh.stride(1), kh.stride(0), kh.stride(1), out.data_ptr(),
-        lse.data_ptr(), g, sq, sk, d, int(bool(causal)), DTYPE_CODES[qh.dtype])
+        lse.data_ptr(), g, sq, sk, d, int(bool(causal)), *code)
     return out, lse
 
 
@@ -788,10 +889,14 @@ def fused_self_attention(x, qkv_weight, qkv_bias, out_weight, out_bias,
                            num_heads, causal)
 
 
-__all__ = ["FLASH_BWD_HM_FP32_KERNEL", "FLASH_BWD_HM_KERNEL",
-           "FLASH_BWD_HM_SPLIT_FP32_KERNEL", "FLASH_BWD_HM_SPLIT_KERNEL",
-           "FLASH_BWD_KERNEL", "FLASH_FWD_HM_KERNEL", "FLASH_FWD_KERNEL",
+__all__ = ["FLASH_BWD_FP32_KERNEL", "FLASH_BWD_HM_FP32_KERNEL",
+           "FLASH_BWD_HM_KERNEL", "FLASH_BWD_HM_SPLIT_FP32_KERNEL",
+           "FLASH_BWD_HM_SPLIT_KERNEL", "FLASH_BWD_KERNEL",
+           "FLASH_FWD_FP32_KERNEL", "FLASH_FWD_HM_FP32_KERNEL",
+           "FLASH_FWD_HM_KERNEL", "FLASH_FWD_KERNEL",
            "HEAD_DIMS", "flash_attention_fused", "flash_attention_packed",
            "flash_bwd_cuda", "flash_bwd_hm_cuda", "flash_bwd_hm_split_cuda",
            "flash_fwd_cuda", "flash_fwd_hm_cuda", "fused_self_attention",
-           "grouped_pv_out", "grouped_qk_logits", "hm_bwd_schedule"]
+           "fwd_schedule", "fwd_tile_kv", "grouped_pv_out",
+           "grouped_qk_logits",
+           "hm_bwd_schedule", "k5_kv_schedule"]

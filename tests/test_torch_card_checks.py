@@ -1,21 +1,28 @@
-"""Card only: chip_smoke.py's per-element checks of the flash-attention
-backwards and of K9 (``csrc/scale.cu``) against their plain versions
-reject broken kernels, and the kernels give the same bytes on every
-call: K5 (native layout, ``csrc/flash_bwd.cu``), and in bf16 K7
-(head-major one-pass, entry ``ptt_flash_bwd_hm``) and K8 (head-major
-two-kernel, entry ``ptt_flash_bwd_hm_split``), both on the warpgroup
-kernels of ``csrc/flash_bwd_sm90.cu``.
+"""Card only: chip_smoke.py's per-element checks of the bf16 attention
+kernels and of K9 (``csrc/scale.cu``) against their plain versions reject
+broken kernels, and the kernels give the same bytes on every call: the
+forward K4 (entry ``ptt_flash_fwd``, the warpgroup kernel of
+``csrc/flash_fwd_sm90.cu``, which K6 shares), and the backwards K5
+(native layout, entry ``ptt_flash_bwd``), K7 (head-major one-pass, entry
+``ptt_flash_bwd_hm``) and K8 (head-major two-kernel, entry
+``ptt_flash_bwd_hm_split``), all three on the warpgroup kernels of
+``csrc/flash_bwd_sm90.cu``.
 
 Copies of ``paddle_tpu_torch``, each with one edit to one of those
 sources, are built in a temporary directory and run causal, bf16, at
-the GPT-3 1.3B training step's shape (B=4, S=2048, H=16, D=128; K5 reads
-a packed qkv, K7 head-major [B*H,S,D]) or at TinyLlama-1.1B's (B=8,
-S=2048, 32 heads of D=64: K5 over 4 kv heads, K7 on the ramp's k, v
-repeated to the 32 heads). The K5 edits: a kv-tile CTA of the dk/dv
-kernel that returns at once, every dk/dv CTA skipping its last q tile,
-dV skipping the q tile at row 1024, the dq kernel skipping the kv tile
-at 1024, and, grouped, dk/dv skipping the last q head of each kv head's
-group and the CTAs of kv head 1 returning at once. The K7 edits: the
+the GPT-3 1.3B training step's shape (B=4, S=2048, H=16, D=128; K4 and K5
+read a packed qkv, K7 head-major [B*H,S,D]) or at TinyLlama-1.1B's (B=8,
+S=2048, 32 heads of D=64: K4 and K5 over 4 kv heads, K7 on the ramp's k,
+v repeated to the 32 heads). The K4 edits, held on out and lse: the last
+live kv tile of each q tile skipped (out, lse), the causal mask one key
+late on the diagonal (out, lse), lse written without log(l) (lse only),
+and, grouped, q head h reading kv head h % KVH in place of h / (H / KVH)
+(out, lse: lse depends on k too). The K5 edits, on the kv and dq kernels
+at native strides: a kv-tile CTA of the kv kernel that returns at once,
+every kv CTA dropping the terms of the last q tile, dV skipping the q
+tile at row 1024, the dq kernel skipping the kv tile at 1024, and,
+grouped, the kv kernel dropping the last q head of each kv head's group
+and the CTAs of kv head 1 returning at once. The K7 edits: the
 ordered dq add of the middle kv tile dropped (it adds 0 in place of its
 partial), the last q tile's terms dropped, dk left unscaled, the causal
 start of each kv tile's q tiles one tile late, and the last live kv tile
@@ -26,11 +33,12 @@ S=2048) or at the long step's (2 heads of D=128 at S=16384): the dq
 kernel skipping the kv tile at 1024, the kv (dk/dv) kernel starting each
 kv tile's q tiles one tile late, and the dq kernel's kv loop stopping at
 key 8192 (only the long shape has keys past it). Each copy must fail
-the check in exactly the gradients it breaks, and the committed kernels
+the check in exactly the outputs it breaks, and the committed kernels
 must pass it at their shapes; an edit whose text is not in its source
 exactly once fails its test. Each test prints its worst |kernel -
-plain| / tolerance per gradient. Two backward calls of a committed
-kernel on the same inputs must give equal dq, dk and dv bytes. K9 is
+plain| / tolerance per output. Two forward calls of the committed K4 on
+the same inputs must give equal out and lse bytes, and two backward calls
+of a committed backward equal dq, dk and dv bytes. K9 is
 held bit for bit at chip_smoke's [custom_op] cases; a copy without its
 scalar tail must fail exactly the cases that have one (n = 1, n = 4097
 and a view offset by one element). The tests skip without a card; on a machine with one (the tests'
@@ -50,8 +58,12 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 CSRC = Path("paddle_tpu_torch") / "csrc"
 # kernel -> its source
-SOURCES = {"k5": CSRC / "flash_bwd.cu", "k7": CSRC / "flash_bwd_sm90.cu",
-           "k8": CSRC / "flash_bwd_sm90.cu", "k9": CSRC / "scale.cu"}
+SOURCES = {"k4": CSRC / "flash_fwd_sm90.cu", "k5": CSRC / "flash_bwd_sm90.cu",
+           "k7": CSRC / "flash_bwd_sm90.cu", "k8": CSRC / "flash_bwd_sm90.cu",
+           "k9": CSRC / "scale.cu"}
+# the committed libraries an edited copy keeps (the forward serves every
+# backward check), unless its edit is to one of them
+KEPT = ("flash_fwd_sm90.cu",)
 COMMITTED = "committed"
 # name -> (B, S, H, KVH, D); H == KVH runs K5 on the packed [B,S,3E]
 # layout; K7 and K8 take KVH == H ([B*H,S,D] q, k, v)
@@ -59,36 +71,60 @@ SHAPES = {"gpt": (4, 2048, 16, 16, 128), "tinyllama": (8, 2048, 32, 4, 64),
           "tinyllama_ramp": (8, 2048, 32, 32, 64),
           "long": (1, 16384, 2, 2, 128)}
 
-_DKDV_PREFETCH = "    if (it + 1 < n_it) load_q_tile(it + 1, buf ^ 1);\n"
+_KV_LIVE = ("        const bool live = kv < sk && qr < sq && "
+            "(!causal || kv <= qr + off);\n")
 # name -> (source text, its replacement, the gradients that must fail,
 # the shape it runs at, the kernel it edits)
 MUTANTS = {
+    # K4 (bf16 forward): csrc/flash_fwd_sm90.cu; the outputs are out, lse
+    "k4_last_kv_tile_skipped": (
+        "  const int n_kv = sched.kv_last(q0, kTQ, kTK) + 1;  // live kv tiles\n",
+        "  const int n_kv = sched.kv_last(q0, kTQ, kTK);\n",
+        {"out", "lse"}, "gpt", "k4"),
+    "k4_causal_mask_off_by_one": (
+        "        if (col >= sk || (causal && col > row + off)) "
+        "s_acc[e] = -INFINITY;\n",
+        "        if (col >= sk || (causal && col > row + off + 1)) "
+        "s_acc[e] = -INFINITY;\n",
+        {"out", "lse"}, "gpt", "k4"),
+    "k4_lse_without_log_l": (
+        "          m_safe * kLn2 + logf(lsafe);\n",
+        "          m_safe * kLn2;\n",
+        {"lse"}, "gpt", "k4"),
+    "k4_gqa_reads_kv_head_h_mod_kvh": (
+        "  const int64_t kvoff = L.kv.at(b, h / rep);  // the shared kv head\n",
+        "  const int64_t kvoff = L.kv.at(b, h % (heads / rep));\n",
+        {"out", "lse"}, "tinyllama", "k4"),
+    # K5 (bf16): csrc/flash_bwd_sm90.cu's kv and dq kernels at native
+    # strides
     "kv_tile_dropped": (
-        "  const int k0 = static_cast<int>(blockIdx.x) * kTileKV;\n",
-        "  const int k0 = static_cast<int>(blockIdx.x) * kTileKV;\n"
-        "  if (static_cast<int>(blockIdx.x) == gridDim.x / 2) return;\n",
+        "  const int k0 = j * kTK;\n",
+        "  const int k0 = j * kTK;\n"
+        "  if (j == static_cast<int>(gridDim.x) / 2) return;\n",
         {"dk", "dv"}, "gpt", "k5"),
     "last_q_tile_skipped": (
-        _DKDV_PREFETCH,
-        _DKDV_PREFETCH + "    if (q0 + kTileQ >= sq) continue;\n",
+        _KV_LIVE,
+        _KV_LIVE.replace(");\n", ") && i != nq - 1;\n"),
         {"dk", "dv"}, "gpt", "k5"),
     "dv_skips_q_tile_1024": (
-        "        mma(dv_acc[n], af, b0);\n"
-        "        mma(dv_acc[n + 1], af, b1);\n",
-        "        if (q0 != 1024) {\n          mma(dv_acc[n], af, b0);\n"
-        "          mma(dv_acc[n + 1], af, b1);\n        }\n",
+        "      wgmma_rs<1>(dv_acc, pa[s], desc_mn<D, kTQ>(sdO, 16 * s, 0), 1);\n",
+        "      if (q0 != 1024) {\n"
+        "        wgmma_rs<1>(dv_acc, pa[s], desc_mn<D, kTQ>(sdO, 16 * s, 0), "
+        "1);\n      }\n",
         {"dv"}, "gpt", "k5"),
     "dq_skips_kv_tile_1024": (
-        "    // S = Q K^T and dP = dO V^T\n",
-        "    if (k0 == 1024) continue;\n    // S = Q K^T and dP = dO V^T\n",
+        "        const bool keep = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off);\n",
+        "        const bool keep = kv < sk && qr < sq && "
+        "(!causal || kv <= qr + off) && k0 != 1024;\n",
         {"dq"}, "gpt", "k5"),
     "gqa_last_q_head_skipped": (
-        _DKDV_PREFETCH,
-        _DKDV_PREFETCH + "    if (it / nq == rep - 1) continue;\n",
+        _KV_LIVE,
+        _KV_LIVE.replace(");\n", ") && hr != rep - 1;\n"),
         {"dk", "dv"}, "tinyllama", "k5"),
     "gqa_kv_head_cta_returns": (
-        "  const int kh = blockIdx.y;  // this CTA's kv head\n",
-        "  const int kh = blockIdx.y;  // this CTA's kv head\n"
+        "  const int k0 = j * kTK;\n",
+        "  const int k0 = j * kTK;\n"
         "  if (kh == 1) return;\n",
         {"dk", "dv"}, "tinyllama", "k5"),
     # K7 and K8 (bf16): csrc/flash_bwd_sm90.cu
@@ -144,7 +180,9 @@ MUTANTS = {
         set(), None, "k9"),
 }
 # test id -> (copy, kernel, shape)
-RUNS = {COMMITTED: (COMMITTED, "k5", "gpt"),
+RUNS = {COMMITTED + "_k4": (COMMITTED, "k4", "gpt"),
+        COMMITTED + "_k4_gqa": (COMMITTED, "k4", "tinyllama"),
+        COMMITTED: (COMMITTED, "k5", "gpt"),
         COMMITTED + "_gqa": (COMMITTED, "k5", "tinyllama"),
         COMMITTED + "_k7": (COMMITTED, "k7", "gpt"),
         COMMITTED + "_k7_ramp": (COMMITTED, "k7", "tinyllama_ramp"),
@@ -153,11 +191,13 @@ RUNS = {COMMITTED: (COMMITTED, "k5", "gpt"),
         **{n: (n, m[4], m[3]) for n, m in MUTANTS.items()}}
 
 # Run with the package's copy as the working directory and the repository
-# root as argv[1] (for chip_smoke), then the kernel (k5, k7 or k8) and B S
-# H KVH D: the forward then the backward twice, chip_smoke's check of dq,
-# dk and dv (K5 batch element by batch element, K7 and K8 sixteen heads at
-# a time, one at a time past S=8192: the plain version holds S^2 fp32 a
-# head), and whether the two backward calls gave the same bytes.
+# root as argv[1] (for chip_smoke), then the kernel (k4, k5, k7 or k8) and
+# B S H KVH D. k4: the forward twice, chip_smoke's check of out and lse
+# batch element by batch element, and whether the two calls gave the same
+# bytes. Else: the forward then the backward twice, chip_smoke's check of
+# dq, dk and dv (K5 batch element by batch element, K7 and K8 sixteen
+# heads at a time, one at a time past S=8192: the plain version holds S^2
+# fp32 a head), and whether the two backward calls gave the same bytes.
 _CHECK = r"""
 import json, os, sys
 import torch
@@ -186,6 +226,38 @@ def rand(*shape):
     return torch.randn(*shape, generator=g, device="cuda").bfloat16()
 
 
+if kernel == "k4":
+    if kvh == h:
+        q, k, v = cs._packed(rand(b, s, 3 * h * d))
+    else:
+        q = rand(b, s, h * d)
+        k, v = (rand(b, s, kvh * d) for _ in range(2))
+    dout = rand(b, s, h * d)
+    out, lse = fa.flash_fwd_cuda(q, k, v, h, True)
+    again = fa.flash_fwd_cuda(q, k, v, h, True)
+    torch.cuda.synchronize()
+    res = {n: {"pass": True, "worst_err_over_tol": 0.0} for n in ("out", "lse")}
+    res["same_bytes"] = all(torch.equal(x.view(torch.int8), y.view(torch.int8))
+                            for x, y in zip((out, lse), again))
+    for i in range(b):
+        sl = slice(i, i + 1)
+        rout, rlse = fa._nl_forward_ref(q[sl], k[sl], v[sl], h, True)
+        t = cs._attention_terms(q[sl], k[sl], v[sl], rout, rlse, dout[sl], h,
+                                True)[0]
+        try:
+            cs._check_close(out[sl], rout, "out", t)
+        except Failed:
+            res["out"]["pass"] = False
+        ratio = (out[sl].float() - rout.float()).abs() / cs._close_tol(rout, t)
+        res["out"]["worst_err_over_tol"] = max(
+            res["out"]["worst_err_over_tol"], float(ratio.max()))
+        tol = 1e-5 * max(1.0, float(rlse.abs().max()))
+        err = float((lse[sl] - rlse).abs().max())
+        res["lse"]["pass"] &= err <= tol
+        res["lse"]["worst_err_over_tol"] = max(
+            res["lse"]["worst_err_over_tol"], err / tol)
+    print(json.dumps(res))
+    sys.exit(0)
 if kernel in ("k7", "k8"):
     bwd, bwd_ref = ((fa.flash_bwd_hm_cuda, fa._hm_backward_ref)
                     if kernel == "k7" else
@@ -278,7 +350,6 @@ def copies(tmp_path_factory):
     run = subprocess.run([sys.executable, "-c", build], cwd=REPO,
                          capture_output=True, text=True, timeout=900)
     assert run.returncode == 0, f"build failed:\n{run.stdout[-3000:]}"
-    fwd_lib = csrc.library_path(REPO / CSRC / "flash_fwd.cu")
     root = tmp_path_factory.mktemp("bwd_copies")
     dirs = {COMMITTED: REPO}
     missing = []
@@ -287,8 +358,9 @@ def copies(tmp_path_factory):
         src = d / SOURCES[kernel]
         shutil.copytree(REPO / "paddle_tpu_torch", d / "paddle_tpu_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
+        kept = [cu for cu in KEPT if cu != src.name]
         for cu in src.parent.glob("*.cu"):
-            if cu.name not in ("flash_fwd.cu", src.name):
+            if cu.name not in kept + [src.name]:
                 cu.unlink()
         text = src.read_text()
         if text.count(old) != 1:
@@ -297,7 +369,9 @@ def copies(tmp_path_factory):
         src.write_text(text.replace(old, new))
         lib_dir = d / "build" / "paddle_tpu_torch"
         lib_dir.mkdir(parents=True)
-        shutil.copy2(fwd_lib, lib_dir / fwd_lib.name)
+        for cu in kept:
+            lib = csrc.library_path(REPO / CSRC / cu)
+            shutil.copy2(lib, lib_dir / lib.name)
         dirs[name] = d
     procs = {n: subprocess.Popen([sys.executable, "-c", build], cwd=d,
                                  stdout=subprocess.PIPE,
@@ -325,9 +399,25 @@ def _check_run(copies, run_id):
     copy, kernel, shape = RUNS[run_id]
     res = _run(copies, copy, kernel, shape)
     print(f"{run_id} ({kernel}, {shape}): " + json.dumps(res))
-    failed = {n for n in ("dq", "dk", "dv") if not res[n]["pass"]}
+    failed = {n for n in ("out", "lse", "dq", "dk", "dv")
+              if n in res and not res[n]["pass"]}
     want = set() if copy == COMMITTED else MUTANTS[copy][2]
     assert failed == want, res
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("run_id", [r for r in RUNS if RUNS[r][1] == "k4"])
+def test_k4_check_rejects_broken_kernels(copies, run_id):
+    _check_run(copies, run_id)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("shape", ["gpt", "tinyllama"])
+def test_k4_gives_the_same_bytes_twice(copies, shape):
+    """Two forward calls on the same inputs write equal out and lse:
+    each element has one writer (its q tile's CTA, one warpgroup)."""
+    res = _run(copies, COMMITTED, "k4", shape)
+    assert res["same_bytes"], res
 
 
 @pytest.mark.card

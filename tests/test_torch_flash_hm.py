@@ -885,9 +885,13 @@ def test_tiled_hm_backward_matches_pallas_k7_interpret(g, sq, sk, d, causal):
 @pytest.mark.parametrize("name", ["FLASH_BWD_HM_KERNEL",
                                   "FLASH_BWD_HM_FP32_KERNEL",
                                   "FLASH_BWD_HM_SPLIT_KERNEL",
-                                  "FLASH_BWD_HM_SPLIT_FP32_KERNEL"])
+                                  "FLASH_BWD_HM_SPLIT_FP32_KERNEL",
+                                  "FLASH_FWD_KERNEL", "FLASH_FWD_FP32_KERNEL",
+                                  "FLASH_FWD_HM_KERNEL",
+                                  "FLASH_FWD_HM_FP32_KERNEL",
+                                  "FLASH_BWD_KERNEL", "FLASH_BWD_FP32_KERNEL"])
 def test_hm_backward_entry_points_match_their_bindings(name):
-    """Each head-major backward entry point (bf16 in
+    """Each attention entry point (bf16 in csrc/flash_fwd_sm90.cu and
     csrc/flash_bwd_sm90.cu, fp32 in the earlier sources) is declared in
     its source with the arguments its ctypes binding passes: pointers,
     int64 strides and ints in that order, then the stream."""
@@ -906,3 +910,102 @@ def test_hm_backward_entry_points_match_their_bindings(name):
                                                                       "*")
               for p in found[0].split(",")]
     assert params == [kinds[a] for a in kernel.argtypes]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", SCHEDULE_SHAPES)
+def test_fwd_schedule_matches_the_mask(sq, sk, causal, d):
+    """`fwd_schedule`, the live kv tiles of the bf16 forward's CTAs (q
+    tiles of 128 rows, kv tiles of `fwd_tile_kv(d)` keys: 64 at D <= 64,
+    128 at D=128; `Schedule::kv_last` in
+    csrc/flash_bwd_sm90.cuh), against a brute-force count of the
+    non-empty blocks of the mask: each q tile's live kv tiles run from 0
+    to its `last` without a gap (so the kernel never visits a fully
+    masked tile), and a q tile that sees no key is None (its out is 0)."""
+    blocks = _live_blocks(sq, sk, causal, tfa.FWD_TILE_Q,
+                          tfa.fwd_tile_kv(d))
+    tiles = tfa.fwd_schedule(sq, sk, causal, d)
+    assert len(tiles) == blocks.shape[0]
+    for i, row in enumerate(blocks):
+        live = np.flatnonzero(row)
+        if not live.size:
+            assert tiles[i] is None
+            continue
+        assert tiles[i] == (0, int(live[-1]))
+        assert (live == np.arange(live[-1] + 1)).all()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,sk", SCHEDULE_SHAPES)
+def test_k5_kv_schedule_matches_the_mask(sq, sk, causal):
+    """`k5_kv_schedule`, the q tiles (of 64 rows) that bf16 K5's kv kernel
+    walks for each kv tile of 128 keys, against the brute-force mask:
+    exactly the q tiles with a visible pair in the kv tile, the last
+    first."""
+    blocks = _live_blocks(sq, sk, causal, tfa.K5_TILE_Q, tfa.K5_TILE_KV)
+    walks = tfa.k5_kv_schedule(sq, sk, causal)
+    assert len(walks) == blocks.shape[1]
+    for j, col in enumerate(blocks.T):
+        assert walks[j] == sorted(np.flatnonzero(col).tolist(),
+                                  reverse=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,sq,sk", [(2, 256, 256), (2, 128, 256)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_tiled_forward_hm_matches_pallas_k6_interpret(g, sq, sk, d, causal):
+    """The bf16 forward's tiled order in head-major form
+    (`flash_tiled.forward_tiled_hm`: q tiles of 128 rows, kv tiles of 128
+    keys at D=128 and 64 at D <= 64, the softmax in exp2) against the JAX
+    package's `_flash_forward_pallas` (`_fwd_kernel`, interpret mode off a
+    TPU) at blocks of 128 q rows and the kernel's kv tile, and against the
+    port's plain K6
+    `_hm_forward_ref`; fp32 at 1e-5 absolute and relative (the same fp32
+    terms in another order, exp2(x log2 e) for exp(x))."""
+    from paddle_tpu_torch.testing import flash_tiled
+
+    (jq, jk, jv, _), (tq, tk, tv, _) = _split_inputs(g, sq, sk, d, 5 * d + sq,
+                                                     "float32")
+    jout, jlse = fa._flash_forward_pallas(jq, jk, jv, causal, 128,
+                                          tfa.fwd_tile_kv(d))
+    out, lse = flash_tiled.forward_tiled_hm(tq, tk, tv, causal)
+    _close(out, jout)
+    _close(lse, jlse.reshape(g, sq))
+    rout, rlse = tfa._hm_forward_ref(tq, tk, tv, causal)
+    _close(out, rout)
+    _close(lse, rlse)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hm_forward_routes_bf16_and_fp32_to_their_own_kernels(monkeypatch,
+                                                              dtype):
+    """`flash_fwd_hm_cuda` launches K6's warpgroup entry
+    (`ptt_flash_fwd_hm`, csrc/flash_fwd_sm90.cu) in bf16 and the earlier
+    kernel's (`ptt_flash_fwd_hm_fp32`, csrc/flash_fwd.cu) in fp32, each
+    through its own Kernel object, with the arguments its binding
+    declares. `launch` is recorded, not run, and the device check is
+    passed by a tensor that reports a CUDA device; CPU tensors take the
+    plain version and any other device raises (`_flash_forward_hm`)."""
+    calls = []
+
+    def record(self, device, *args):
+        calls.append((self.symbol, self.source.name, len(args)))
+
+    monkeypatch.setattr(type(tfa.FLASH_FWD_HM_KERNEL), "launch", record)
+    x = torch.zeros(2, 8, 64, dtype=dtype)
+    plain = tfa.FLASH_FWD_HM_KERNEL.plain_calls
+    tfa._flash_forward_hm(x, x, x, True)                  # CPU: plain
+    assert calls == [] and tfa.FLASH_FWD_HM_KERNEL.plain_calls == plain + 1
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa._flash_forward_hm(x.to("meta"), x.to("meta"), x.to("meta"), True)
+    monkeypatch.setattr(torch.Tensor, "device", property(
+        lambda self: torch.device("cuda", 0)))
+    orig_empty = torch.empty
+    monkeypatch.setattr(torch, "empty", lambda *a, device=None, **kw:
+                        orig_empty(*a, **kw))
+    tfa.flash_fwd_hm_cuda(x, x, x, True)
+    kernel = (tfa.FLASH_FWD_HM_KERNEL if dtype == torch.bfloat16
+              else tfa.FLASH_FWD_HM_FP32_KERNEL)
+    assert calls == [(kernel.symbol, kernel.source.name,
+                      len(kernel.argtypes) - 1)]

@@ -286,3 +286,36 @@ def test_rope_pos_offset_matches_jax(pos_offset):
         torch.tensor(q), torch.tensor(k), theta=500.0, position_ids=ids)
     torch.testing.assert_close(pq, tq, rtol=0, atol=0)
     torch.testing.assert_close(pk, tk, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("h,kvh,d", [(16, 2, 64), (8, 2, 64), (8, 4, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_grouped_tiled_orders_match_pallas_interpret(monkeypatch, h, kvh, d,
+                                                     causal):
+    """The bf16 kernels' grouped orders (paddle_tpu_torch/testing/
+    flash_tiled.py): the forward, whose CTA reads kv head h // rep in
+    place, against the JAX `_nl_forward` (out, lse); and K5, whose kv
+    kernel sums dK and dV over the group's q heads in ascending order in
+    one pass and writes them once at the kv width, against `_flash_nl`'s
+    VJP (`_bwd_nl_fused` at the expanded width, then the fold of
+    `_flash_nl_bwd`); Pallas in interpret mode, S=128, fp32 at 1e-5
+    absolute and relative (the same fp32 terms summed in other orders)."""
+    from paddle_tpu_torch.testing import flash_tiled
+
+    monkeypatch.setattr(fa, "FORCE_PALLAS_INTERPRET", True)
+    b, s = 1, 128
+    (jq, jk, jv, jg), (tq, tk, tv, tg) = _mk(b, s, s, h, kvh, d,
+                                             seed=h + kvh + d + causal)
+    jout, jlse = fa._nl_forward((jq, jk, jv), (0, 0, 0), b, s, s, h, d,
+                                causal, kvh=kvh)
+    _, pull = jax.vjp(lambda q, k, v: fa._flash_nl(q, k, v, causal, h),
+                      jq, jk, jv)
+    out, lse = flash_tiled.forward_tiled(tq, tk, tv, h, causal)
+    _close(out, jout)
+    _close(lse, jlse.reshape(b, h, s))
+    grads = flash_tiled.backward_tiled(
+        tq, tk, tv, torch.tensor(_np(jout)),
+        torch.tensor(_np(jlse)).reshape(b, h, s), tg, h, causal)
+    for got, want in zip(grads, pull(jg)):
+        assert got.shape == tuple(want.shape)
+        _close(got, want)
