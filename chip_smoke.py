@@ -35,12 +35,13 @@ Phases, in order; any failure exits non-zero before the last line:
      8192; the kernels a bf16 and an fp32 K4, K5, K6, K7 and K8 call
      launch (by name and grid, from a CUDA graph of the call: in bf16 the
      warpgroup kernels, in fp32 the earlier ones); two forward and two
-     backward calls on the same inputs must give the same bytes; over one
-     32:4
-     forward and backward the allocated memory must not rise by a repeat
-     of k and v; gradients through the K1 / K2 autograd Functions; card
-     times beside the bound, the plain version and the library call, at
-     the steps' shapes.
+     backward calls on the same inputs must give the same bytes (K3's
+     dx, dw and db too, at [8192, 2048] bf16); over one 32:4 forward and
+     backward the allocated memory must not rise by a repeat of k and v;
+     gradients through the K1 / K2 autograd Functions; card times beside
+     the bound, the plain version and the library call, at the steps'
+     shapes (K2 at GPT's [8192, 2048] and K1 at TinyLlama's [16384,
+     2048] among them).
   8. GPT-3 1.3B training at full width and depth (B=4, S=2048, bf16 amp
      O2, AdamW with fp32 masters, random weights and tokens from a seed):
      2 warm-up and 3 timed steps on one batch; the loss must be finite
@@ -670,19 +671,96 @@ def _attention_terms(q, k, v, out, lse, dout, heads, causal):
             (back(f_dk, sk), back(s_dk, sk)), (back(t_dv, sk),) * 2)
 
 
-def _colsum_err(got, ref, terms, name):
-    """dw / db: sums over rows taken in other orders. Tolerance per
+def _colsum_within_tol(got, ref, terms):
+    """(max |got - ref|, within tolerance, worst |got - ref| / tolerance)
+    for dw / db, sums over rows taken in other orders. Tolerance per
     column: 1e-5 of the sum of the terms' magnitudes (fp32 summation
     error) plus one ulp of the output in bf16 or 1e-5 of it in fp32."""
     r = ref.float()
     diff = (got.float() - r).abs()
     own = bf16_ulp(ref) if ref.dtype == torch.bfloat16 else 1e-5 * r.abs()
-    tol = 1e-5 * terms + own
-    i = int(torch.argmax(diff / tol))
-    check(bool((diff <= tol).all()),
-          f"{name}: column {i}: |kernel - plain| {float(diff[i])} > "
-          f"{float(tol[i])}")
-    return float(diff.max())
+    ratio = diff / (1e-5 * terms + own)
+    ratio = torch.where(torch.isnan(diff), torch.inf, ratio)
+    worst = float(ratio.max())
+    return float(diff.max()), worst <= 1, worst
+
+
+def _colsum_err(got, ref, terms, name):
+    """_colsum_within_tol, failing the run outside the tolerance."""
+    err, ok, worst = _colsum_within_tol(got, ref, terms)
+    check(ok, f"{name}: |kernel - plain| / tolerance {worst} (max |kernel "
+              f"- plain| {err})")
+    return err
+
+
+# K3's cases (rows, d, weight): the training steps' shape; a ragged row
+# count with and without weight on the cp.async-ring kernel (rows of at
+# most 512 16-byte vectors); the shared-memory-partials kernel with
+# vectors (d = 6144) and without (d = 1001)
+LN_BWD_CASES = ((TRAIN_B * TRAIN_S, 2048, True), (77, 2048, True),
+                (77, 6144, True), (3, 1001, True), (77, 2048, False))
+
+
+def ln_bwd_inputs(rows, d, with_w, dt, g):
+    """x, w (or None), g for a K3 case, from generator ``g``."""
+    x = (torch.randn(rows, d, generator=g, device="cuda") * 2 + 0.5).to(dt)
+    w = (torch.randn(d, generator=g, device="cuda").to(dt) if with_w
+         else None)
+    return x, w, torch.randn(rows, d, generator=g, device="cuda").to(dt)
+
+
+class _NanAlloc:
+    """Stands in for the torch module inside nn/functional/norm.py while
+    a check runs K3: its outputs start as NaN, so an element the kernel
+    leaves unwritten differs from the plain version."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    @staticmethod
+    def empty(*args, **kwargs):
+        return torch.empty(*args, **kwargs).fill_(float("nan"))
+
+    @staticmethod
+    def empty_like(*args, **kwargs):
+        return torch.empty_like(*args, **kwargs).fill_(float("nan"))
+
+
+def ln_bwd_check(x, w, gy, eps=1e-5):
+    """K3 against its plain version on one input, each output held per
+    element (dx by max_err_within_tol, dw / db by _colsum_within_tol):
+    {"dx" | "dw" | "db": (max |kernel - plain|, within tolerance, worst)};
+    worst is dx's worst element or dw / db's worst |kernel - plain| /
+    tolerance. Without a weight K3 computes dw all the same (the autograd
+    Function drops it), and it is held too."""
+    from paddle_tpu_torch.nn.functional import norm
+
+    norm.torch = _NanAlloc()
+    try:
+        dx, dw, db = norm.layer_norm_bwd_cuda(x, w, gy, eps)
+    finally:
+        norm.torch = torch
+    rdx, rdw, rdb = norm._ln_bwd_ref(x, w, gy, eps)
+    res = {"dx": max_err_within_tol(dx, rdx)}
+    xf, gf = x.float(), gy.float()
+    mean = xf.mean(-1, keepdim=True)
+    xhat = (xf - mean) * torch.rsqrt(
+        (xf - mean).square().mean(-1, keepdim=True) + eps)
+    res["dw"] = _colsum_within_tol(dw, rdw, (gf * xhat).abs().sum(0))
+    res["db"] = _colsum_within_tol(db, rdb, gf.abs().sum(0))
+    return res
+
+
+def ln_bwd_same_bytes(x, w, gy, eps=1e-5):
+    """Whether two K3 calls on the same inputs give equal dx, dw and db
+    bytes (no float atomics: each output has one writer that sums in a
+    fixed order)."""
+    from paddle_tpu_torch.nn.functional import norm
+
+    first = norm.layer_norm_bwd_cuda(x, w, gy, eps)
+    second = norm.layer_norm_bwd_cuda(x, w, gy, eps)
+    return all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(first, second))
 
 
 def _attn_work(b, sq, sk, h, d, causal, kvh=None):
@@ -1277,35 +1355,24 @@ def phase_train_kernels():
            "k8_vs_k7": {"max_abs_err": 0.0}, "autograd": {}}
     rows = TRAIN_B * TRAIN_S
 
-    # K3: the step's shape, a ragged row count, the scalar path, fp32
+    # K3: every case of LN_BWD_CASES in bf16 and fp32, each output held
+    # per element; two calls at the step's shape give the same bytes
     for dt in (torch.bfloat16, torch.float32):
-        # registers (d fits one vector a thread), shared-memory partials
-        # with vectors (d = 6144) and without (d = 1001)
-        for r, d, with_w in ((rows, 2048, True), (77, 2048, True),
-                             (77, 6144, True), (3, 1001, True),
-                             (77, 2048, False)):
-            x = (torch.randn(r, d, generator=g, device="cuda") * 2 + 0.5
-                 ).to(dt)
-            w = torch.randn(d, generator=g, device="cuda").to(dt) \
-                if with_w else None
-            gy = torch.randn(r, d, generator=g, device="cuda").to(dt)
-            dx, dw, db = norm.layer_norm_bwd_cuda(x, w, gy, 1e-5)
-            rdx, rdw, rdb = norm._ln_bwd_ref(x, w, gy, 1e-5)
-            err, ok, worst = max_err_within_tol(dx, rdx)
-            check(ok, f"layer_norm_bwd dx {r}x{d} {dt}: max err {err}, "
-                      f"worst element {worst}")
-            xf, gf = x.float(), gy.float()
-            mean = xf.mean(-1, keepdim=True)
-            xhat = (xf - mean) * torch.rsqrt(
-                (xf - mean).square().mean(-1, keepdim=True) + 1e-5)
-            ew = _colsum_err(dw, rdw, (gf * xhat).abs().sum(0),
-                             f"layer_norm_bwd dw {r}x{d} {dt}")
-            eb = _colsum_err(db, rdb, gf.abs().sum(0),
-                             f"layer_norm_bwd db {r}x{d} {dt}")
-            rec["layer_norm_bwd"]["max_abs_err"] = max(
-                rec["layer_norm_bwd"]["max_abs_err"], err, ew, eb)
+        for r, d, with_w in LN_BWD_CASES:
+            res = ln_bwd_check(*ln_bwd_inputs(r, d, with_w, dt, g))
+            for name, (err, ok, worst) in res.items():
+                check(ok, f"layer_norm_bwd {name} {r}x{d} {dt} weight="
+                          f"{with_w}: max err {err}, worst |kernel - plain|"
+                          f" / tolerance {worst}")
+                rec["layer_norm_bwd"]["max_abs_err"] = max(
+                    rec["layer_norm_bwd"]["max_abs_err"], err)
+    check(ln_bwd_same_bytes(*ln_bwd_inputs(rows, 2048, True, torch.bfloat16,
+                                           g)),
+          "layer_norm_bwd: two calls gave different dx, dw or db bytes")
     print(f"[train_kernels] layer_norm_bwd: max |kernel - plain| = "
-          f"{rec['layer_norm_bwd']['max_abs_err']:.3g} (within tolerance)")
+          f"{rec['layer_norm_bwd']['max_abs_err']:.3g} (within tolerance) "
+          f"at {len(LN_BWD_CASES)} cases in bf16 and fp32; two calls at "
+          f"[{rows}, 2048] bf16 give the same dx, dw and db bytes")
 
     # the K1 / K2 autograd Functions on the card, at the step's shape:
     # forward output and gradients
@@ -1497,6 +1564,35 @@ def phase_train_kernels():
     rec["layer_norm_bwd"].update(t)
     del x, gy, mean, rstd
 
+    # K2 at the GPT steps' shape and K1 at TinyLlama's (B=8, S=2048, E
+    # 2048): card ms beside the bound and F.layer_norm / F.rms_norm
+    lib_rms = getattr(TF, "rms_norm", None)
+    for key, r_, fwd, plain, lib, params, flops in (
+            ("layer_norm_train", rows,
+             lambda x_, w_, b_: norm.layer_norm_cuda(x_, w_, b_, 1e-5),
+             lambda x_, w_, b_: norm._ln_ref(x_, w_, b_, 1e-5),
+             lambda x_, w_, b_: TF.layer_norm(x_, (2048,), w_, b_, 1e-5),
+             2, 8),
+            ("rms_norm_train", TRAIN_LLAMA_B * TRAIN_S,
+             lambda x_, w_, b_: fused_ops.rms_norm_cuda(x_, w_, 1e-6),
+             lambda x_, w_, b_: fused_ops._rms_norm_ref(x_, w_, 1e-6),
+             None if lib_rms is None else (
+                 lambda x_, w_, b_: lib_rms(x_, (2048,), w_, 1e-6)),
+             1, 4)):
+        x = (torch.randn(r_, 2048, generator=g, device="cuda") * 2 + 0.5
+             ).to(torch.bfloat16)
+        err, ok, worst = max_err_within_tol(fwd(x, w, bb), plain(x, w, bb))
+        check(ok, f"{key} [{r_}, 2048] bf16: max err {err}, worst element "
+                  f"{worst}")
+        t = dict(shape=f"[{r_}, 2048] bf16", max_abs_err=err)
+        t["bound_ms"], t["bound_by"] = _bound(r_, 2048, 2, params, flops)
+        for name, fn in (("ms", fwd), ("plain_ms", plain),
+                         ("library_ms", lib)):
+            t[name] = None if fn is None else device_ms(
+                partial(fn, x, w, bb), iters=20, reps=11)
+        rec[key] = t
+        del x
+
     for suffix, b_, h_, kvh, d_ in (("", TRAIN_B, h1, h1, d1),
                                     ("_gqa", TRAIN_LLAMA_B, 32, 4, 64)):
         rec["flash_fwd" + suffix].update(
@@ -1523,6 +1619,13 @@ def phase_train_kernels():
           f"kernel {k8_2k['ms']:.5f} (K7 {rec['flash_bwd_hm']['ms']:.5f}), "
           f"plain {k8_2k['plain_ms']:.5f}, library "
           f"{k8_2k['library_ms']:.5f}, bound {k8_2k['bound_ms']:.6f}")
+    for key in ("layer_norm_train", "rms_norm_train"):
+        r = rec[key]
+        print(f"[train_kernels] {key} {r['shape']}: card ms: kernel "
+              f"{r['ms']:.5f}, plain {r['plain_ms']:.5f}, library "
+              f"{r['library_ms']}, bound {r['bound_ms']:.6f} "
+              f"({r['bound_by']}); kernel at "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of its bound")
     for key in ("layer_norm_bwd", "flash_fwd", "flash_bwd", "flash_fwd_gqa",
                 "flash_bwd_gqa", "flash_fwd_hm", "flash_bwd_hm",
                 "flash_fwd_hm_ramp", "flash_bwd_hm_ramp",
@@ -2278,18 +2381,24 @@ def main():
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
-         {"llama2_7b serving": rec["llama"]["launches"],
-          "tinyllama train": ll["ptt_rms_norm_fwd"],
-          "tinyllama-width hm train": hm_llama["ptt_rms_norm_fwd"]},
+         {"llama2_7b serving": rec["llama"]["launches"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
+        ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
+         "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
+         {"tinyllama train": ll["ptt_rms_norm_fwd"],
+          "tinyllama-width hm train": hm_llama["ptt_rms_norm_fwd"]},
+         tk["rms_norm_train"], tk["rms_norm_train"]),
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
-         {"gpt3_1p3b serving": rec["gpt"]["launches"],
-          "gpt3_1p3b train": launches["ptt_layer_norm_fwd"],
+         {"gpt3_1p3b serving": rec["gpt"]["launches"]},
+         kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
+        ("layer_norm_train", "paddle_tpu_torch/csrc/layer_norm.cu",
+         "paddle_tpu/nn/functional/norm.py:42",
+         {"gpt3_1p3b train": launches["ptt_layer_norm_fwd"],
           "gpt3_1p3b fused train": fused["ptt_layer_norm_fwd"],
           "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_fwd"],
           "gpt3_1p3b 16K fused train": long["ptt_layer_norm_fwd"]},
-         kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
+         tk["layer_norm_train"], tk["layer_norm_train"]),
         ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
          "paddle_tpu/nn/functional/norm.py:106",
          {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"],

@@ -15,17 +15,22 @@
 // Design: the TPU kernel carries dw/db in one fp32 scratch across its
 // sequential grid; Hopper's CTAs run in parallel, so the reduction across
 // rows takes two passes and no float atomics, which keeps dw/db
-// deterministic. Pass 1: each CTA owns a contiguous run of rows, and a
+// deterministic. Pass 1: CTA c of n_parts owns the balanced, contiguous
+// run of rows [c * rows / n_parts, (c + 1) * rows / n_parts), and a
 // thread owns the same columns in every row, so it accumulates its g * x^
-// and g without a race; dx is finished per row with three block
-// reductions (sum, sum of squared deviations, then sum(a) and sum(a * x^)
-// together). When a row fits one 16-byte vector per thread
-// (`ln_bwd_rows_reg_kernel`: d <= 4096 in bf16, 2048 in fp32), the row,
-// w and the partials live in registers and x, g are read once; otherwise
-// (`ln_bwd_rows_kernel`) the partials live in shared memory and later
-// passes re-read the row from L1/L2. The CTA writes its partials to
-// [n_parts, 2, d]. Pass 2 (`ln_bwd_reduce_kernel`) sums each column's
-// partials in a fixed order, 8 threads to a column, and casts.
+// and g in row order without a race. When a row fits one 16-byte vector
+// per thread (`ln_bwd_rows_pipe_kernel`: d <= 4096 in bf16, 2048 in
+// fp32), the wrapper launches a few CTAs an SM, each keeping kStages - 1
+// rows of x and g in flight through a cp.async ring while it reduces the
+// row before them (two block reductions a row, one barrier each), with w
+// and the partials in registers; one CTA's reductions overlap another's
+// copies. Otherwise (`ln_bwd_rows_kernel`) the
+// partials live in shared memory, dx takes three block reductions a row
+// and later passes re-read the row from L1/L2. The CTA writes its
+// partials to [n_parts, 2, d]. Pass 2 (`ln_bwd_reduce_kernel`) sums each
+// column's partials in a fixed order: thread y of a column sums parts y,
+// y + 16, ... in order, then the 16 sums are added in order of y.
+// testing/ln_bwd_tiled.py mirrors this partition and order on the CPU.
 
 #include "common.cuh"
 
@@ -77,7 +82,7 @@ __global__ void __launch_bounds__(512)
     ln_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
                        const T* __restrict__ g, T* __restrict__ dx,
                        float* __restrict__ part, int64_t rows, int64_t d,
-                       int64_t rows_per_cta, float eps) {
+                       int64_t n_parts, float eps) {
   extern __shared__ float acc[];  // [2 * d]: sum g*x^, then sum g
   __shared__ float smem[64];
   constexpr int V = kVec ? ptt::VecWidth<T>::value : 1;
@@ -86,8 +91,10 @@ __global__ void __launch_bounds__(512)
   for (int64_t i = threadIdx.x; i < 2 * d; i += blockDim.x) acc[i] = 0.f;
   __syncthreads();
 
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_cta;
-  const int64_t r1 = r0 + rows_per_cta < rows ? r0 + rows_per_cta : rows;
+  // part c of n_parts balanced, contiguous runs of rows
+  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows / n_parts;
+  const int64_t r1 =
+      (static_cast<int64_t>(blockIdx.x) + 1) * rows / n_parts;
   const float inv_d = 1.f / static_cast<float>(d);
   for (int64_t r = r0; r < r1; ++r) {
     const T* xr = x + r * d;
@@ -168,94 +175,189 @@ __global__ void __launch_bounds__(512)
   for (int64_t i = threadIdx.x; i < 2 * d; i += blockDim.x) out[i] = acc[i];
 }
 
-// The same pass with the row in registers, for rows of at most one
-// 16-byte vector per thread: x, g and w are read from device memory once
-// per row (w once per CTA) and the dw/db partials stay in registers.
-template <typename T>
+// cp.async of 16 bytes from device to shared memory (L2 only: each byte
+// is read once), its commit and its wait for all but N of this thread's
+// groups.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kStages = 4;       // rows of x and g a CTA has in flight
+constexpr int kVecsPerThread = 2;  // 16-byte vectors of a row per thread
+constexpr int kMaxWarps = 16;      // 512 threads
+constexpr int kMaxPipeVecs = 512;  // vectors of a row the ring kernel takes
+// bytes of the ring at the largest row
+constexpr int kMaxRing = kStages * 2 * kMaxPipeVecs * 16;
+
+// The pass for rows of at most kMaxPipeVecs 16-byte vectors (d <= 4096
+// in bf16, 2048 in fp32). Thread t of nt owns vectors t, t + nt, ... (VPT
+// of them) of every row of the CTA's run, so w, dw and db stay in its
+// registers. x and g rows come through a ring of kStages stages in
+// shared memory filled by cp.async, kStages - 1 rows ahead of the row
+// being reduced; a thread copies and later reads only its own 16-byte
+// pieces of each stage, so the ring needs no barrier. A row takes two
+// block reductions, one barrier each: the sum of x, then the sums of
+// (x - mean)^2, a = g * w and a * (x - mean) together (sum a * x^ =
+// inv * sum a * (x - mean)).
+template <typename T, int VPT>
 __global__ void __launch_bounds__(512)
-    ln_bwd_rows_reg_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           const T* __restrict__ g, T* __restrict__ dx,
-                           float* __restrict__ part, int64_t rows, int64_t d,
-                           int64_t rows_per_cta, float eps) {
-  __shared__ float smem[64];
+    ln_bwd_rows_pipe_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const T* __restrict__ g, T* __restrict__ dx,
+                            float* __restrict__ part, int64_t rows,
+                            int64_t d, int64_t n_parts, float eps) {
+  extern __shared__ uint4 ring[];  // [kStages][x, g][VPT][blockDim.x]
+  __shared__ float red1[kMaxWarps];
+  __shared__ float4 red2[kMaxWarps];
   constexpr int V = ptt::VecWidth<T>::value;
-  const int64_t col = static_cast<int64_t>(threadIdx.x) * V;
-  const bool live = col < d;
-  float wf[V], adw[V], adb[V];
+  constexpr int E = V * VPT;  // elements of a row per thread
+  const int nt = static_cast<int>(blockDim.x);
+  const int nw = nt >> 5;
+  const int t = static_cast<int>(threadIdx.x);
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int64_t col[VPT];
+  bool live[VPT];
+  float wf[E], adw[E], adb[E];
 #pragma unroll
-  for (int e = 0; e < V; ++e) wf[e] = adw[e] = adb[e] = 0.f;
-  if (live) {
-    if (w != nullptr) {
-      ptt::load_vec(w + col, wf);
-    } else {
+  for (int e = 0; e < E; ++e) wf[e] = adw[e] = adb[e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < V; ++e) wf[e] = 1.f;
+  for (int k = 0; k < VPT; ++k) {
+    col[k] = (static_cast<int64_t>(k) * nt + t) * V;
+    live[k] = col[k] < d;
+    if (live[k]) {
+      if (w != nullptr) {
+        ptt::load_vec(w + col[k], wf + k * V);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) wf[k * V + e] = 1.f;
+      }
     }
   }
-  const int64_t r0 = static_cast<int64_t>(blockIdx.x) * rows_per_cta;
-  const int64_t r1 = r0 + rows_per_cta < rows ? r0 + rows_per_cta : rows;
+  // this CTA's run of rows: part c of n_parts balanced, contiguous parts
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows / n_parts;
+  const int64_t end =
+      (static_cast<int64_t>(blockIdx.x) + 1) * rows / n_parts;
+  // row r (one commit group; an empty one past the run) into its stage
+  auto fetch = [&](int64_t r) {
+    if (r < end) {
+      uint4* st = ring + ((r - first) % kStages) * 2 * VPT * nt;
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        if (live[k]) {
+          cp_async16(st + k * nt + t, x + r * d + col[k]);
+          cp_async16(st + (VPT + k) * nt + t, g + r * d + col[k]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(first + s);
   const float inv_d = 1.f / static_cast<float>(d);
-  for (int64_t r = r0; r < r1; ++r) {
-    float xf[V], gf[V];
+  for (int64_t r = first; r < end; ++r) {
+    cp_async_wait<kStages - 2>();  // row r's copies have landed
+    float xf[E], gf[E];
 #pragma unroll
-    for (int e = 0; e < V; ++e) xf[e] = gf[e] = 0.f;
+    for (int e = 0; e < E; ++e) xf[e] = gf[e] = 0.f;
     float s = 0.f;
-    if (live) {
-      ptt::load_vec(x + r * d + col, xf);
-      ptt::load_vec(g + r * d + col, gf);
+    const uint4* st = ring + ((r - first) % kStages) * 2 * VPT * nt;
 #pragma unroll
-      for (int e = 0; e < V; ++e) s += xf[e];
-    }
-    const float mean = ptt::block_sum(s, smem) * inv_d;
-    float sq = 0.f;
-    if (live) {
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        xf[e] -= mean;
-        sq += xf[e] * xf[e];
+    for (int k = 0; k < VPT; ++k) {
+      if (live[k]) {
+        ptt::load_vec(reinterpret_cast<const T*>(st + k * nt + t),
+                      xf + k * V);
+        ptt::load_vec(reinterpret_cast<const T*>(st + (VPT + k) * nt + t),
+                      gf + k * V);
       }
     }
-    const float inv = rsqrtf(ptt::block_sum(sq, smem) * inv_d + eps);
-    float s1 = 0.f, s2 = 0.f;
-    if (live) {
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        xf[e] *= inv;  // x^
-        const float a = gf[e] * wf[e];
-        s1 += a;
-        s2 += a * xf[e];
-        adw[e] += gf[e] * xf[e];
-        adb[e] += gf[e];
-      }
+    for (int e = 0; e < E; ++e) s += xf[e];
+    // row r + kStages - 1 into the stage of row r - 1, whose values this
+    // thread has used
+    fetch(r + kStages - 1);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) red1[warp] = s;
+    __syncthreads();
+    s = 0.f;
+    for (int i = 0; i < nw; ++i) s += red1[i];
+    const float mean = s * inv_d;
+    float af[E];
+    float sq = 0.f, sa = 0.f, sax = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      xf[e] = live[e / V] ? xf[e] - mean : 0.f;
+      af[e] = gf[e] * wf[e];
+      sq += xf[e] * xf[e];
+      sa += af[e];
+      sax += af[e] * xf[e];
     }
-    const float2 m = block_sum2(s1, s2, smem);
-    const float m1 = m.x * inv_d;
-    const float m2 = m.y * inv_d;
-    if (live) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sq += __shfl_xor_sync(0xffffffffu, sq, o);
+      sa += __shfl_xor_sync(0xffffffffu, sa, o);
+      sax += __shfl_xor_sync(0xffffffffu, sax, o);
+    }
+    if (lane == 0) red2[warp] = make_float4(sq, sa, sax, 0.f);
+    __syncthreads();
+    sq = sa = sax = 0.f;
+    for (int i = 0; i < nw; ++i) {
+      const float4 v = red2[i];
+      sq += v.x;
+      sa += v.y;
+      sax += v.z;
+    }
+    const float inv = rsqrtf(sq * inv_d + eps);
+    const float m1 = sa * inv_d;
+    const float m2 = sax * inv * inv_d;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      if (!live[k]) continue;
       float o[V];
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        o[e] = inv * (gf[e] * wf[e] - m1 - xf[e] * m2);
+      for (int j = 0; j < V; ++j) {
+        const int e = k * V + j;
+        const float xh = xf[e] * inv;  // x^
+        o[j] = inv * (af[e] - m1 - xh * m2);
+        adw[e] += gf[e] * xh;
+        adb[e] += gf[e];
       }
-      ptt::store_vec(dx + r * d + col, o);
+      ptt::store_vec(dx + r * d + col[k], o);
     }
   }
-  if (live) {
-    float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * d;
+  cp_async_wait<0>();  // no copy outlives the CTA
+  float* out = part + static_cast<int64_t>(blockIdx.x) * 2 * d;
 #pragma unroll
-    for (int e = 0; e < V; ++e) {
-      out[col + e] = adw[e];
-      out[d + col + e] = adb[e];
+  for (int k = 0; k < VPT; ++k) {
+    if (!live[k]) continue;
+#pragma unroll
+    for (int e = k * V; e < (k + 1) * V; e += 4) {
+      const int64_t c = col[k] + e - k * V;
+      *reinterpret_cast<float4*>(out + c) =
+          make_float4(adw[e], adw[e + 1], adw[e + 2], adw[e + 3]);
+      *reinterpret_cast<float4*>(out + d + c) =
+          make_float4(adb[e], adb[e + 1], adb[e + 2], adb[e + 3]);
     }
   }
 }
 
 constexpr int kRedCols = 32;   // columns per reduce CTA
-constexpr int kRedSplit = 8;   // threads splitting a column's partials
+constexpr int kRedSplit = 16;  // threads splitting a column's partials
 
 // dw[i] / db[i] = sum over the n_parts partials: thread (c, y) of a CTA
-// sums parts y, y + 8, ... of column c in order, then the 8 sums are added
-// in order, so the result does not depend on scheduling.
+// sums parts y, y + kRedSplit, ... of column c in order, then the
+// kRedSplit sums are added in order, so the result does not depend on
+// scheduling.
 template <typename T>
 __global__ void __launch_bounds__(kRedCols * kRedSplit)
     ln_bwd_reduce_kernel(const float* __restrict__ part, int64_t n_parts,
@@ -264,6 +366,7 @@ __global__ void __launch_bounds__(kRedCols * kRedSplit)
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kRedCols + threadIdx.x;
   float s = 0.f;
   if (i < 2 * d) {
+#pragma unroll 8
     for (int64_t p = threadIdx.y; p < n_parts; p += kRedSplit) {
       s += part[p * 2 * d + i];
     }
@@ -289,8 +392,8 @@ int launch(const void* x, const void* w, const void* g, void* dx,
   const bool vec = d % V == 0 && ptt::aligned16(x) && ptt::aligned16(g) &&
                    ptt::aligned16(dx) && (w == nullptr || ptt::aligned16(w));
   const int threads = ptt::threads_for(vec ? d / V : d);
-  const int64_t per = (rows + n_parts - 1) / n_parts;
   const size_t smem = static_cast<size_t>(2 * d) * sizeof(float);
+
   const dim3 grid(static_cast<unsigned>(n_parts));
   // allow the largest d once per kernel (outside any CUDA-graph capture:
   // the first call is an eager one)
@@ -304,27 +407,36 @@ int launch(const void* x, const void* w, const void* g, void* dx,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     }
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(ln_bwd_rows_pipe_kernel<T, kVecsPerThread>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxRing);
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
   const int64_t nvec = vec ? d / V : 0;
-  if (vec && nvec <= threads) {
-    ln_bwd_rows_reg_kernel<T><<<grid, threads, 0, stream>>>(
+  if (vec && nvec <= kMaxPipeVecs) {
+    const int nt = ptt::threads_for(
+        (nvec + kVecsPerThread - 1) / kVecsPerThread);
+    const size_t ring = static_cast<size_t>(kStages) * 2 * kVecsPerThread *
+                        nt * sizeof(uint4);
+    ln_bwd_rows_pipe_kernel<T, kVecsPerThread><<<grid, nt, ring, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const T*>(g), static_cast<T*>(dx),
-        static_cast<float*>(part), rows, d, per, eps);
+        static_cast<float*>(part), rows, d, n_parts, eps);
   } else if (vec) {
     auto* k = ln_bwd_rows_kernel<T, true>;
     k<<<grid, threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const T*>(g), static_cast<T*>(dx),
-        static_cast<float*>(part), rows, d, per, eps);
+        static_cast<float*>(part), rows, d, n_parts, eps);
   } else {
     auto* k = ln_bwd_rows_kernel<T, false>;
     k<<<grid, threads, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         static_cast<const T*>(g), static_cast<T*>(dx),
-        static_cast<float*>(part), rows, d, per, eps);
+        static_cast<float*>(part), rows, d, n_parts, eps);
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

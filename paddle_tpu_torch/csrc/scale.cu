@@ -11,39 +11,71 @@
 //
 // Bound: bytes. One multiply per element against 2 * itemsize bytes
 // moved, so the least time is 2 * n * itemsize / 3.35 TB/s.
-// Design: a grid-stride loop of 16-byte vector loads and stores (4 fp32
-// or 8 bf16 values per thread per iteration), with a scalar head for the
-// elements before x's first 16-byte boundary and a scalar tail for the
-// last (n - head) % V. The wrapper allocates y at x's offset modulo 16
-// bytes, so one head lines up both. The grid fills every SM once (eight
-// 256-thread CTAs each) and no more.
+// Design: x splits into a scalar head (the elements before x's first
+// 16-byte boundary), 16-byte vectors (4 fp32 or 8 bf16 values) and a
+// scalar tail (the last (n - head) % V). The wrapper allocates y at x's
+// offset modulo 16 bytes, so one head lines up both. Each CTA takes
+// chunks of kVecsInFlight * kThreads vectors; a thread issues all of its
+// kVecsInFlight streaming loads (`__ldcs`: each byte is touched once)
+// before its first multiply, then stores with `__stcs`. Vector u of a
+// chunk is base + u * kThreads + threadIdx.x, so a warp's loads and
+// stores are contiguous. The grid is sized to the work (one chunk a CTA)
+// and loops over chunks only past the largest grid. On an H100 the
+// work-sized grid, not the loads in flight, took the kernel from 1.07x
+// torch.mul to parity: 1, 2, 4 and 8 vectors in flight time within 1%
+// of each other, 2 closest to torch.mul at the FFN's [8192, 8192] bf16
+// (tools/norm_scale_ab.py).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kVecsInFlight = 2;  // 16-byte loads a thread issues at once
+constexpr int64_t kMaxCtas = 2147483647LL;
+
+template <typename T>
+__device__ __forceinline__ uint4 scaled(uint4 raw, float f) {
+  constexpr int V = ptt::VecWidth<T>::value;
+  float v[V];
+  ptt::load_vec(reinterpret_cast<const T*>(&raw), v);
+  uint4 out;
+  T* e = reinterpret_cast<T*>(&out);
+#pragma unroll
+  for (int j = 0; j < V; ++j) e[j] = ptt::from_float<T>(v[j] * f);
+  return out;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     scale_kernel(const T* __restrict__ x, T* __restrict__ y, int64_t n,
                  int64_t head, float factor) {
   constexpr int V = ptt::VecWidth<T>::value;
+  constexpr int64_t kChunk = static_cast<int64_t>(kVecsInFlight) * kThreads;
   const float f = ptt::to_float(ptt::from_float<T>(factor));
   const int64_t tid =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   // head: x[0, head), fewer than V elements
   if (tid < head) y[tid] = ptt::from_float<T>(ptt::to_float(x[tid]) * f);
   const int64_t nvec = (n - head) / V;
-  const T* xv = x + head;
-  T* yv = y + head;
-  for (int64_t i = tid; i < nvec; i += stride) {
-    float v[V];
-    ptt::load_vec(xv + i * V, v);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
+  uint4* yv = reinterpret_cast<uint4*>(y + head);
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
+       base < nvec; base += static_cast<int64_t>(gridDim.x) * kChunk) {
+    const bool full = base + kChunk <= nvec;
+    uint4 raw[kVecsInFlight];
 #pragma unroll
-    for (int j = 0; j < V; ++j) v[j] *= f;
-    ptt::store_vec(yv + i * V, v);
+    for (int u = 0; u < kVecsInFlight; ++u) {
+      const int64_t i = base + u * kThreads + threadIdx.x;
+      raw[u] = full || i < nvec ? __ldcs(xv + i) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecsInFlight; ++u) raw[u] = scaled<T>(raw[u], f);
+#pragma unroll
+    for (int u = 0; u < kVecsInFlight; ++u) {
+      const int64_t i = base + u * kThreads + threadIdx.x;
+      if (full || i < nvec) __stcs(yv + i, raw[u]);
+    }
   }
   // tail: x[t0, n), fewer than V elements
   const int64_t t0 = head + nvec * V;
@@ -62,13 +94,12 @@ int launch(const void* x, void* y, int64_t n, float factor,
   }
   int64_t head = mis ? static_cast<int64_t>((16u - mis) / sizeof(T)) : 0;
   if (head > n) head = n;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int64_t work = (n - head) / V > 0 ? (n - head) / V : 1;
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sms > 0 ? sms : 1) * 8;
-  if (blocks > cap) blocks = cap;
+  // one chunk a CTA; at least one CTA, whose first threads take the head
+  // and the tail
+  const int64_t chunk = static_cast<int64_t>(kVecsInFlight) * kThreads;
+  int64_t blocks = ((n - head) / V + chunk - 1) / chunk;
+  if (blocks < 1) blocks = 1;
+  if (blocks > kMaxCtas) blocks = kMaxCtas;
   scale_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<T*>(y), n, head, factor);
   return static_cast<int>(cudaGetLastError());

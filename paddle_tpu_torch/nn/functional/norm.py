@@ -48,15 +48,19 @@ def _ln_ref(x, weight, bias, epsilon):
 # Replaces `_ln_bwd_kernel` (paddle_tpu/nn/functional/norm.py:106) driven
 # by `_ln_bwd_pallas` (:141). Bound: bytes, 3*rows*d*itemsize (x, g read,
 # dx written) + param bytes over the card's memory rate. Each call (one
-# counted launch) runs two kernels: per-CTA fp32 dw/db partials, then
-# their fixed-order reduction.
+# counted launch) runs two kernels: fp32 dw/db partials of n_parts
+# balanced runs of rows, then their fixed-order reduction
+# (testing/ln_bwd_tiled.py mirrors both on the CPU).
 LAYER_NORM_BWD_KERNEL = Kernel(
     "layer_norm_bwd.cu", "ptt_layer_norm_bwd",
     [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                              ctypes.c_float, ctypes.c_int])
-# CTAs of the backward's first pass per SM: enough rows in flight to hide
-# each row's reduction latency, few enough that the partials stay small
-LN_BWD_CTAS_PER_SM = 4
+# CTAs of the backward's first pass per SM: enough that one CTA's row
+# reductions overlap another's loads, few enough that the partials (n_parts
+# = this many per SM) stay small; 2 was the fastest of 1, 2, 3, 4, 6 and
+# 8 at GPT-3 1.3B's [8192, 2048] bf16 with the kernel's 4 stages and 2
+# vectors a thread (tools/norm_scale_ab.py)
+LN_BWD_CTAS_PER_SM = 2
 LN_BWD_MAX_D = 28672
 
 

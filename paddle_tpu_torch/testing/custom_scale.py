@@ -37,6 +37,24 @@ SCALE_KERNEL = Kernel(
      ctypes.c_int])
 
 
+# csrc/scale.cu's geometry (kThreads, kVecsInFlight): a CTA of
+# SCALE_THREADS threads takes a chunk of SCALE_VECS_IN_FLIGHT *
+# SCALE_THREADS 16-byte vectors, each thread loading its
+# SCALE_VECS_IN_FLIGHT vectors before it stores any
+SCALE_THREADS = 256
+SCALE_VECS_IN_FLIGHT = 2
+
+
+def scale_split(n, offset_bytes, itemsize):
+    """How the kernel splits n elements whose first lies ``offset_bytes``
+    past a 16-byte boundary: (scalar head, 16-byte vectors, scalar
+    tail)."""
+    mis = offset_bytes % 16
+    head = min(n, (16 - mis) // itemsize if mis else 0)
+    nvec = (n - head) * itemsize // 16
+    return head, nvec, n - head - nvec * 16 // itemsize
+
+
 def scale_plain(x, factor=2.0):
     """Plain version of the kernel: one ``torch.mul`` by the factor
     rounded to x's dtype. PyTorch multiplies a bf16 tensor by a Python
@@ -105,5 +123,5 @@ def _scale_bwd(factor, g):
 # the custom VJP pair for ops.register_op: the residual is the factor
 scale_vjp = (_scale_fwd, _scale_bwd)
 
-__all__ = ["SCALE_KERNEL", "scale", "scale_cuda", "scale_plain",
-           "scale_vjp"]
+__all__ = ["SCALE_KERNEL", "SCALE_THREADS", "SCALE_VECS_IN_FLIGHT", "scale",
+           "scale_cuda", "scale_plain", "scale_split", "scale_vjp"]

@@ -1,6 +1,7 @@
 """Card only: chip_smoke.py's per-element checks of the bf16 attention
-kernels and of K9 (``csrc/scale.cu``) against their plain versions reject
-broken kernels, and the kernels give the same bytes on every call: the
+kernels, of the LayerNorm backward K3 (``csrc/layer_norm_bwd.cu``) and of
+K9 (``csrc/scale.cu``) against their plain versions reject broken
+kernels, and the kernels give the same bytes on every call: the
 forward K4 (entry ``ptt_flash_fwd``, the warpgroup kernel of
 ``csrc/flash_fwd_sm90.cu``, which K6 shares), and the backwards K5
 (native layout, entry ``ptt_flash_bwd``), K7 (head-major one-pass, entry
@@ -38,11 +39,19 @@ must pass it at their shapes; an edit whose text is not in its source
 exactly once fails its test. Each test prints its worst |kernel -
 plain| / tolerance per output. Two forward calls of the committed K4 on
 the same inputs must give equal out and lse bytes, and two backward calls
-of a committed backward equal dq, dk and dv bytes. K9 is
-held bit for bit at chip_smoke's [custom_op] cases; a copy without its
-scalar tail must fail exactly the cases that have one (n = 1, n = 4097
-and a view offset by one element). The tests skip without a card; on a machine with one (the tests'
-conftest.py sets up JAX, which these tests do not use):
+of a committed backward equal dq, dk and dv bytes. K3 is held on dx, dw
+and db at chip_smoke's LN_BWD_CASES (bf16 and fp32; outputs NaN-filled
+first, so an unwritten element fails): copies whose cp.async-ring kernel
+skips the last row of each CTA's run (dx, dw, db), whose pass 2 drops the
+last part's partials (dw, db) or whose ring kernel sums g into dw in
+place of g * x^ (dw) must fail exactly those outputs, and two calls at
+[8192, 2048] bf16 must give equal dx, dw and db bytes. K9 is held bit for
+bit at chip_smoke's [custom_op] cases; a copy without its scalar tail must
+fail exactly the cases that have one (n = 1, n = 4097 and a view offset
+by one element), and a copy that never stores a thread's last vector in
+flight exactly the cases with more than (kVecsInFlight - 1) * kThreads
+vectors. The tests skip without a card; on a machine with one (the
+tests' conftest.py sets up JAX, which these tests do not use):
 
     python -m pytest --noconftest -m card tests/test_torch_card_checks.py -q -s
 """
@@ -60,7 +69,7 @@ CSRC = Path("paddle_tpu_torch") / "csrc"
 # kernel -> its source
 SOURCES = {"k4": CSRC / "flash_fwd_sm90.cu", "k5": CSRC / "flash_bwd_sm90.cu",
            "k7": CSRC / "flash_bwd_sm90.cu", "k8": CSRC / "flash_bwd_sm90.cu",
-           "k9": CSRC / "scale.cu"}
+           "k9": CSRC / "scale.cu", "k3": CSRC / "layer_norm_bwd.cu"}
 # the committed libraries an edited copy keeps (the forward serves every
 # backward check), unless its edit is to one of them
 KEPT = ("flash_fwd_sm90.cu",)
@@ -178,6 +187,31 @@ MUTANTS = {
         "  if (tid < n - t0) {\n",
         "  if (false && tid < n - t0) {\n",
         set(), None, "k9"),
+    # K9 never storing its last vector in flight: the cases with more
+    # than (kVecsInFlight - 1) * kThreads vectors must fail, and no other
+    "k9_last_vector_in_flight_not_stored": (
+        "      if (full || i < nvec) __stcs(yv + i, raw[u]);\n",
+        "      if ((full || i < nvec) && u != kVecsInFlight - 1) "
+        "__stcs(yv + i, raw[u]);\n",
+        set(), None, "k9"),
+    # K3 (csrc/layer_norm_bwd.cu), held on dx, dw and db at chip_smoke's
+    # LN_BWD_CASES: the cp.async-ring kernel skipping the last row of each
+    # CTA's run (dx, and dw / db lose its terms), pass 2 dropping the last
+    # part's partials (dw, db), and the ring kernel adding g in place of
+    # g * x^ into dw (dw alone)
+    "k3_last_row_of_each_run_skipped": (
+        "  for (int64_t r = first; r < end; ++r) {\n",
+        "  for (int64_t r = first; r < end - 1; ++r) {\n",
+        {"dx", "dw", "db"}, None, "k3"),
+    "k3_last_partial_dropped": (
+        "    for (int64_t p = threadIdx.y; p < n_parts; p += kRedSplit) {\n",
+        "    for (int64_t p = threadIdx.y; p < n_parts - 1; p += kRedSplit) "
+        "{\n",
+        {"dw", "db"}, None, "k3"),
+    "k3_dw_sums_g": (
+        "        adw[e] += gf[e] * xh;\n",
+        "        adw[e] += gf[e];\n",
+        {"dw"}, None, "k3"),
 }
 # test id -> (copy, kernel, shape)
 RUNS = {COMMITTED + "_k4": (COMMITTED, "k4", "gpt"),
@@ -188,6 +222,7 @@ RUNS = {COMMITTED + "_k4": (COMMITTED, "k4", "gpt"),
         COMMITTED + "_k7_ramp": (COMMITTED, "k7", "tinyllama_ramp"),
         COMMITTED + "_k8": (COMMITTED, "k8", "gpt"),
         COMMITTED + "_k8_long": (COMMITTED, "k8", "long"),
+        COMMITTED + "_k3": (COMMITTED, "k3", None),
         **{n: (n, m[4], m[3]) for n, m in MUTANTS.items()}}
 
 # Run with the package's copy as the working directory and the repository
@@ -318,7 +353,9 @@ print(json.dumps(res))
 
 # Run as _CHECK is, with the repository root as argv[1]: chip_smoke's
 # [custom_op] cases of K9 against its plain version (each output filled
-# with NaN before K9 writes it), and whether two calls give equal bytes.
+# with NaN before K9 writes it), how the kernel splits each case (scalar
+# head, 16-byte vectors, scalar tail: a non-contiguous x is copied to a
+# fresh, aligned tensor first), and whether two calls give equal bytes.
 _SCALE_CHECK = r"""
 import json, os, sys
 import torch
@@ -327,21 +364,56 @@ import chip_smoke as cs
 from paddle_tpu_torch.testing import custom_scale
 assert custom_scale.__file__.startswith(os.getcwd()), custom_scale.__file__
 g = torch.Generator(device="cuda").manual_seed(5)
-res = {"mismatches": {name: cs.scale_mismatches(x, f)[0]
-                      for name, x, f in cs.scale_cases(g)}}
+res = {"mismatches": {}, "split": {}}
+for name, x, f in cs.scale_cases(g):
+    res["mismatches"][name] = cs.scale_mismatches(x, f)[0]
+    off = x.data_ptr() % 16 if x.is_contiguous() else 0
+    res["split"][name] = custom_scale.scale_split(x.numel(), off,
+                                                  x.element_size())
 x = torch.randn(*cs.SCALE_SHAPE, generator=g, device="cuda").bfloat16()
 a, b = (custom_scale.scale_cuda(x, 0.1) for _ in range(2))
 res["same_bytes"] = torch.equal(cs._bits(a), cs._bits(b))
 print(json.dumps(res))
 """
 
+# Run as _CHECK is: chip_smoke's K3 check (ln_bwd_check: dx, dw and db per
+# element, outputs NaN-filled first) at every case of LN_BWD_CASES in bf16
+# and fp32, each output failing if any case fails it, the worst |kernel -
+# plain| / tolerance of each, and whether two calls at the GPT step's
+# shape give equal bytes.
+_LN_CHECK = r"""
+import json, os, sys
+import torch
+sys.path.insert(1, sys.argv[1])
+import chip_smoke as cs
+from paddle_tpu_torch.nn.functional import norm
+assert norm.__file__.startswith(os.getcwd()), norm.__file__
+g = torch.Generator(device="cuda").manual_seed(3)
+res = {n: {"pass": True, "worst_err_over_tol": 0.0}
+       for n in ("dx", "dw", "db")}
+for dt in (torch.bfloat16, torch.float32):
+    for r, d, with_w in cs.LN_BWD_CASES:
+        x, w, gy = cs.ln_bwd_inputs(r, d, with_w, dt, g)
+        for name, (err, ok, worst) in cs.ln_bwd_check(x, w, gy).items():
+            if name == "dx":
+                worst = abs(worst["got"] - worst["ref"]) / worst["tol"]
+                worst = worst if worst == worst else float("inf")  # NaN
+            res[name]["pass"] &= ok
+            res[name]["worst_err_over_tol"] = max(
+                res[name]["worst_err_over_tol"], worst)
+res["same_bytes"] = cs.ln_bwd_same_bytes(*cs.ln_bwd_inputs(
+    cs.TRAIN_B * cs.TRAIN_S, 2048, True, torch.bfloat16, g))
+print(json.dumps(res))
+"""
+
 
 @pytest.fixture(scope="module")
-def copies(tmp_path_factory):
+def copies(tmp_path_factory, request):
     """{copy name: directory holding its paddle_tpu_torch}, every copy's
-    kernels built: the committed tree first, then each edited copy, which
-    keeps the committed K4/K6 library and builds only its edited source
-    (one process per copy, all started together)."""
+    kernels built: the committed tree first, then each edited copy that a
+    selected test runs, which keeps the committed K4/K6 library and
+    builds only its edited source (one process per copy, all started
+    together)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a CUDA kernel has no CPU mode")
     from paddle_tpu_torch import csrc
@@ -353,7 +425,15 @@ def copies(tmp_path_factory):
     root = tmp_path_factory.mktemp("bwd_copies")
     dirs = {COMMITTED: REPO}
     missing = []
+    selected = set()
+    for item in request.session.items:
+        params = getattr(getattr(item, "callspec", None), "params", {})
+        if "run_id" in params:
+            selected.add(RUNS[params["run_id"]][0])
+        selected.add(params.get("copy"))
     for name, (old, new, _, _, kernel) in MUTANTS.items():
+        if name not in selected:
+            continue
         d = root / name
         src = d / SOURCES[kernel]
         shutil.copytree(REPO / "paddle_tpu_torch", d / "paddle_tpu_torch",
@@ -468,6 +548,19 @@ def test_k8_gives_the_same_bytes_twice(copies, shape):
     assert res["same_bytes"], res
 
 
+def _run_script(copies, copy, kernel, script):
+    dirs, missing = copies
+    assert copy not in missing, \
+        f"{copy}: the edited text is not in {SOURCES[kernel]} exactly once"
+    run = subprocess.run([sys.executable, "-c", script, str(REPO)],
+                         cwd=dirs[copy], capture_output=True, text=True,
+                         timeout=600)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"{copy} ({kernel}): " + json.dumps(res))
+    return res
+
+
 @pytest.mark.card
 @pytest.mark.parametrize("copy", [COMMITTED, "k9_tail_dropped"])
 def test_k9_check_rejects_a_kernel_without_its_tail(copies, copy):
@@ -475,23 +568,55 @@ def test_k9_check_rejects_a_kernel_without_its_tail(copies, copy):
     case of chip_smoke's [custom_op] phase (fp32 and bf16, factors 2,
     0.1, 1/3; [4, 2048, 2048], [2, 4], n = 1, n = 4097, a view offset by
     one element, a transposed view, empty; the FFN's [8192, 8192] bf16 at
-    0.5) and gives equal bytes twice;
-    a copy that drops the scalar tail fails exactly the cases whose
-    length leaves a tail, n = 4097 among them."""
-    dirs, missing = copies
-    assert copy not in missing, \
-        f"{copy}: the edited text is not in {SOURCES['k9']} exactly once"
-    run = subprocess.run([sys.executable, "-c", _SCALE_CHECK, str(REPO)],
-                         cwd=dirs[copy], capture_output=True, text=True,
-                         timeout=600)
-    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
-    res = json.loads(run.stdout.strip().splitlines()[-1])
-    print(f"{copy} (k9): " + json.dumps(res))
+    0.5) and gives equal bytes twice; a copy that drops the scalar tail
+    fails exactly the cases whose length leaves a tail, n = 4097 among
+    them."""
+    res = _run_script(copies, copy, "k9", _SCALE_CHECK)
     failed = {n for n, bad in res["mismatches"].items() if bad}
     if copy == COMMITTED:
         assert not failed and res["same_bytes"], res
         return
-    tails = {n for n in res["mismatches"]
-             if n.startswith(("n=1 ", "n=4097", "offset view"))}
-    assert failed == tails, res
-    assert {n for n in tails if n.startswith("n=4097")}, res
+    want = {n for n, (_, _, tail) in res["split"].items() if tail}
+    assert {n for n in want if n.startswith("n=4097")}, res
+    assert failed == want, res
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("copy", ["k9_last_vector_in_flight_not_stored"])
+def test_k9_check_rejects_a_kernel_that_drops_its_last_vector_in_flight(
+        copies, copy):
+    """A copy of K9 that never stores a thread's last vector in flight
+    fails exactly the [custom_op] cases with more than (kVecsInFlight -
+    1) * kThreads vectors, which are some of the cases and not all."""
+    from paddle_tpu_torch.testing import custom_scale as sc
+
+    res = _run_script(copies, copy, "k9", _SCALE_CHECK)
+    failed = {n for n, bad in res["mismatches"].items() if bad}
+    last = (sc.SCALE_VECS_IN_FLIGHT - 1) * sc.SCALE_THREADS
+    want = {n for n, (_, nvec, _) in res["split"].items() if nvec > last}
+    assert want and want != set(res["split"]), res
+    assert failed == want, res
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("copy", [COMMITTED] + [
+    n for n in MUTANTS if MUTANTS[n][4] == "k3"])
+def test_k3_check_rejects_broken_kernels(copies, copy):
+    """The committed K3 passes chip_smoke's per-element check of dx, dw
+    and db at every case of LN_BWD_CASES in bf16 and fp32 ([8192, 2048],
+    ragged rows with and without a weight on the cp.async-ring kernel,
+    d = 6144 and d = 1001 on the shared-memory one); each edited copy
+    fails it in exactly the outputs its edit breaks."""
+    res = _run_script(copies, copy, "k3", _LN_CHECK)
+    failed = {n for n in ("dx", "dw", "db") if not res[n]["pass"]}
+    want = set() if copy == COMMITTED else MUTANTS[copy][2]
+    assert failed == want, res
+
+
+@pytest.mark.card
+def test_k3_gives_the_same_bytes_twice(copies):
+    """Two K3 calls on the same inputs at [8192, 2048] bf16 write equal
+    dx, dw and db: every output has one writer, the partials are summed
+    in a fixed order, and no float atomics are used."""
+    res = _run_script(copies, COMMITTED, "k3", _LN_CHECK)
+    assert res["same_bytes"], res

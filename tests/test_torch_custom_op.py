@@ -20,6 +20,7 @@ Not shadowed, and where each goes:
 """
 import functools
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -293,6 +294,55 @@ def test_scale_torch_mul_differs_where_the_factor_rounds():
     assert (_np(x * 0.1) != want).any()
     np.testing.assert_array_equal(_np(custom_scale.scale_plain(x, 0.1)),
                                   want)
+
+
+def _chunk(dtype):
+    """Elements of one CTA's chunk in csrc/scale.cu: SCALE_VECS_IN_FLIGHT
+    16-byte vectors for each of SCALE_THREADS threads."""
+    itemsize = torch.empty((), dtype=DTYPES[dtype][1]).element_size()
+    return (custom_scale.SCALE_VECS_IN_FLIGHT * custom_scale.SCALE_THREADS
+            * 16 // itemsize)
+
+
+@pytest.mark.parametrize("edge", [-1, 0, 1], ids=["chunk-1", "chunk",
+                                                  "chunk+1"])
+@pytest.mark.parametrize("factor", FACTORS, ids=["2", "0.1", "1/3"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_plain_matches_pallas_kernel_around_the_chunk(dtype, factor,
+                                                            edge):
+    """K9's plain version against the Pallas `scale_kernel` in interpret
+    mode, bit for bit, at one element either side of the kernel's chunk
+    (2048 fp32 or 4096 bf16 elements: the last vector in flight of the
+    first CTA is the chunk's last, and one more element leaves a scalar
+    tail)."""
+    jdt, tdt = DTYPES[dtype]
+    n = _chunk(dtype) + edge
+    x_np = np.random.RandomState(n).randn(n).astype(np.float32)
+    want = _jax_scale_impl(factor)(jnp.asarray(x_np, jdt))
+    got = custom_scale.scale_plain(torch.tensor(x_np).to(tdt), factor)
+    assert got.dtype == tdt and got.shape == (n,)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scale_geometry_matches_the_kernel_source(dtype):
+    """custom_scale's copy of scale.cu's geometry is the source's, and
+    `scale_split` cuts every length at every 16-byte offset into a head
+    and a tail shorter than a vector around whole vectors."""
+    src = (Path(custom_scale.__file__).parents[1] / "csrc"
+           / "scale.cu").read_text()
+    assert (f"constexpr int kThreads = {custom_scale.SCALE_THREADS};"
+            in src)
+    assert (f"constexpr int kVecsInFlight = "
+            f"{custom_scale.SCALE_VECS_IN_FLIGHT};" in src)
+    itemsize = torch.empty((), dtype=DTYPES[dtype][1]).element_size()
+    v = 16 // itemsize
+    for n in (1, 2, v - 1, v, v + 1, _chunk(dtype) - 1, _chunk(dtype) + 1):
+        for off in range(0, 16, itemsize):
+            head, nvec, tail = custom_scale.scale_split(n, off, itemsize)
+            assert head + nvec * v + tail == n
+            assert 0 <= head < v and 0 <= tail < v and nvec >= 0
+            assert (off + head * itemsize) % 16 == 0 or head == n
 
 
 def test_scale_wrapper_routes_by_device():

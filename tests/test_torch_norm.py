@@ -12,6 +12,7 @@ orders); bf16 one ulp of the output (an fp32 difference in the last bit
 can round the other way).
 """
 import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from paddle_tpu.incubate.nn.functional import fused_ops as jfused
 from paddle_tpu.nn.functional import norm as jnorm
 from paddle_tpu_torch.incubate.nn.functional import fused_ops as tfused
 from paddle_tpu_torch.nn.functional import norm as tnorm
+from paddle_tpu_torch.testing import ln_bwd_tiled
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -251,3 +253,111 @@ def test_norm_backward_runs_the_plain_version_on_cpu():
     with pytest.raises(ValueError):
         tnorm.layer_norm_bwd_cuda(x.detach().reshape(15, 32), None,
                                   x.detach().reshape(15, 32), 1e-5)
+
+
+# -- K3's partition and orders, mirrored on the CPU -------------------------
+# testing/ln_bwd_tiled.py repeats csrc/layer_norm_bwd.cu's work: rows cut
+# into n_parts balanced runs, dx from one centred pass (sum (x - mean)^2,
+# sum a and sum a (x - mean) together), dw / db summed per run in row order
+# and then over the runs in pass 2's fixed order. Row counts 3, 77 and 1025
+# with 2, 10 and 264 parts (the card's count at two CTAs an SM) give
+# uneven runs; d = 2048 is the GPT-3 1.3B width (16-byte vectors), d = 1001
+# takes single elements. Tolerances: dw / db as above (`_assert_sum_close`);
+# dx as chip_smoke.py holds the kernel (`max_err_within_tol`): 1e-5 of the
+# row's largest |dx| plus, in fp32, 1e-5 of the element or, in bf16, one
+# ulp of it. Both sides sum a row's terms in fp32 in other orders, so an
+# element whose terms cancel to near 0 keeps their absolute rounding
+# (about 1e-7 of the row's terms), which at these sizes exceeds one ulp of
+# the tiny result; one ulp covers the final cast.
+
+
+def _assert_rows_close(got, want, dtype):
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    row = 1e-5 * np.abs(want).max(axis=-1, keepdims=True)
+    if dtype == "float32":
+        own = 1e-5 * np.abs(want)
+    else:
+        mag = np.maximum(np.abs(want), np.finfo(np.float32).tiny)
+        own = 2.0 ** (np.floor(np.log2(mag)) - 7)
+    excess = np.abs(got - want) / (row + own)
+    assert np.all(excess <= 1), f"worst |got - want| / tol {excess.max()}"
+
+_TILED_PARTS = {3: 2, 77: 10, 1025: 264}
+
+
+def _tiled_inputs(rows, d, dtype, with_w, seed):
+    (jx, jw, _), (tx, tw, _) = _inputs(rows, d, dtype, seed=seed)
+    (jg, _, _), (tg, _, _) = _inputs(rows, d, dtype, seed=seed + 1)
+    if not with_w:
+        jw, tw = jnp.ones((d,), jx.dtype), None
+    return (jx, jw, jg), (tx, tw, tg)
+
+
+@pytest.mark.parametrize("with_w", [True, False], ids=["weight", "no_weight"])
+@pytest.mark.parametrize("d", [2048, 1001])
+@pytest.mark.parametrize("rows", [3, 77, 1025])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_bwd_tiled_matches_pallas_kernel_interpret(monkeypatch, dtype,
+                                                      rows, d, with_w):
+    """K3's CPU mirror against `_ln_bwd_pallas` (the `_ln_bwd_kernel`
+    body) in interpret mode: dx, dw, db. The Pallas kernel takes 8-row
+    blocks, so its input gets zero rows up to a multiple of 8: their
+    g = 0 adds nothing to dw / db, and their dx is dropped. Without a
+    weight the JAX side takes w = 1, which is the kernel's arithmetic."""
+    monkeypatch.setattr(jnorm, "FORCE_PALLAS_INTERPRET", True)
+    (jx, jw, jg), (tx, tw, tg) = _tiled_inputs(rows, d, dtype, with_w, 61)
+    pad = ((0, -rows % 8), (0, 0))
+    jdx, jdw, jdb = jnorm._ln_bwd_pallas(jnp.pad(jx, pad), jw,
+                                         jnp.pad(jg, pad), 1e-5)
+    tdx, tdw, tdb = ln_bwd_tiled.ln_bwd_tiled(tx, tw, tg, 1e-5,
+                                              _TILED_PARTS[rows])
+    assert tdx.dtype == tdw.dtype == tdb.dtype == DTYPES[dtype][1]
+    _assert_rows_close(_np(tdx), _np(jdx)[:rows], dtype)
+    _assert_sum_close(_np(tdw), _np(jdw), dtype)
+    _assert_sum_close(_np(tdb), _np(jdb), dtype)
+
+
+@pytest.mark.parametrize("with_w", [True, False], ids=["weight", "no_weight"])
+@pytest.mark.parametrize("d", [2048, 1001])
+@pytest.mark.parametrize("rows", [3, 77, 1025])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_bwd_tiled_matches_plain_version(dtype, rows, d, with_w):
+    """K3's CPU mirror against the port's plain version `_ln_bwd_ref`,
+    at 2, 10 and 264 parts (as many as there are rows, at most)."""
+    _, (tx, tw, tg) = _tiled_inputs(rows, d, dtype, with_w, 71)
+    rdx, rdw, rdb = tnorm._ln_bwd_ref(tx, tw, tg, 1e-5)
+    for n in (2, 10, 264):
+        tdx, tdw, tdb = ln_bwd_tiled.ln_bwd_tiled(tx, tw, tg, 1e-5,
+                                                  min(rows, n))
+        _assert_rows_close(_np(tdx), _np(rdx), dtype)
+        _assert_sum_close(_np(tdw), _np(rdw), dtype)
+        _assert_sum_close(_np(tdb), _np(rdb), dtype)
+
+
+@pytest.mark.parametrize("rows,n_parts", [(3, 2), (77, 10), (1025, 264),
+                                          (8192, 264), (8192, 528)])
+def test_ln_bwd_parts_are_balanced_contiguous_runs(rows, n_parts):
+    """The mirror's partition covers every row once, in order, in runs
+    whose lengths differ by at most one; the kernel source cuts its runs
+    and sums its partials the same way (the same expressions in both
+    first-pass kernels, RED_SPLIT threads a column in pass 2) and lays a
+    row over its threads as the mirror does (VECS_PER_THREAD,
+    MAX_PIPE_VECS)."""
+    runs = ln_bwd_tiled.parts(rows, n_parts)
+    assert runs[0][0] == 0 and runs[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    lengths = {r1 - r0 for r0, r1 in runs}
+    assert max(lengths) - min(lengths) <= 1 and min(lengths) >= 1
+    src = (Path(tnorm.__file__).parents[2] / "csrc"
+           / "layer_norm_bwd.cu").read_text()
+    assert src.count("static_cast<int64_t>(blockIdx.x) * rows / n_parts;") \
+        == 2
+    assert src.count("(static_cast<int64_t>(blockIdx.x) + 1) * rows / "
+                     "n_parts;") == 2
+    assert (f"constexpr int kRedSplit = {ln_bwd_tiled.RED_SPLIT};"
+            in src)
+    assert (f"constexpr int kVecsPerThread = "
+            f"{ln_bwd_tiled.VECS_PER_THREAD};" in src)
+    assert (f"constexpr int kMaxPipeVecs = {ln_bwd_tiled.MAX_PIPE_VECS};"
+            in src)
