@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Phases, in order; any failure exits non-zero before the last line:
+Phases, in order (15 and 16 run right after 4 and 5, on the models those
+build); any failure exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
@@ -22,7 +23,8 @@ Phases, in order; any failure exits non-zero before the last line:
   5. GPT-3 1.3B the same way; the LayerNorm kernel carries every norm
      (49 launches per forward, 0 plain).
   6. card vs CPU: tiny Llama-GQA and GPT in fp32 with identical weights
-     give identical greedy streams.
+     give identical greedy streams (GenerationSession, fixed and ragged,
+     and ContinuousBatchingSession, whose card decode is a CUDA graph).
   7. training kernels vs plain: LayerNorm backward (K3), flash
      attention forward / backward (K4 / K5), the head-major forward /
      one-pass backward (K6 / K7) and the head-major two-kernel backward
@@ -81,11 +83,35 @@ Phases, in order; any failure exits non-zero before the last line:
      K9 20 launches counted from 0, 0 plain; the first step's K9 calls
      equal the plain version bit for bit); cpp_extension.load's host ops
      on 1M floats on the card.
+ 15. Llama-2-7B through the continuous-batching serving core
+     ([serve_cb_llama]): ContinuousBatchingSession(model, slots=4,
+     max_prompt_len=512, kv_block_size=64, chunk=8) with the default pool
+     (every slot can hold max_seq_len), bf16, random weights from a seed;
+     12 chat requests of 32 new tokens (cb_prompts: a shared 256-token
+     system prompt, a full hit, ragged prompts of 40-480 tokens, 8
+     submitted before the first step and 4 after the third). The decode
+     chunk runs as one CUDA graph per session: the session's own graph
+     holds exactly 8 x 65 RMSNorm kernels and no other norm, and the
+     run's launches are the wrapper's outside the capture plus the
+     replays times the graph's; one chunk replayed from the graph
+     equals the same chunk run eagerly from the same state (tokens,
+     lengths, every pool byte). Every request, with the prefix cache on
+     and off, is held to an independent B=1 paged forward of its own
+     tokens: its first-token logits within 16 bf16 ulps, each of its 32
+     tokens within 32 ulps of that forward's best; prefill tokens =
+     prompt tokens - prefix-hit tokens, at least 4 hits and 1
+     copy-on-write, the pool quiescent after run(). TTFT median and p90,
+     decode ms per
+     token, tokens/s, the card's busy share of a chunk (CUDA events
+     around the replay over the chunk step's host time), peak memory.
+ 16. GPT-3 1.3B the same way ([serve_cb_gpt]; 8 x 49 LayerNorm kernels
+     a chunk).
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
 Usage: python3 chip_smoke.py    (from the repository root; one card)
 """
+import gc
 import json
 import math
 import statistics
@@ -408,8 +434,28 @@ def phase_kernels():
     return rec
 
 
-def _serve(family, build, kernel, per_forward):
-    """Full-width model through the paged-KV serving path."""
+_SERVING_MODELS = {}     # family -> model, built once for its two phases
+
+
+def serving_model(family):
+    """The family's full-width serving model (Llama-2-7B or GPT-3 1.3B,
+    bf16, random weights from seed 1234), built on first use and kept
+    for the family's continuous-batching phase, which releases it."""
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_1p3b, llama2_7b)
+
+    if family not in _SERVING_MODELS:
+        cls, cfg = ((LlamaForCausalLM, llama2_7b()) if family == "llama"
+                    else (GPTForCausalLM, gpt3_1p3b()))
+        _SERVING_MODELS[family] = cls(cfg, device="cuda", dtype="bfloat16",
+                                      generator=seed(1234, "cuda")).eval()
+    return _SERVING_MODELS[family]
+
+
+def _serve(family, kernel):
+    """Full-width model through the paged-KV serving path; every norm
+    on ``kernel``, one launch per norm (2 a layer + the final one)."""
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
     from paddle_tpu_torch.inference.serving import (
         GenerationSession, get_model_adapter, make_run_model, sample_logits)
@@ -418,15 +464,15 @@ def _serve(family, build, kernel, per_forward):
     from paddle_tpu_torch.nn.functional import norm
 
     torch.cuda.reset_peak_memory_stats()
-    model, _t = sync_time(build)
-    model.eval()
+    model = serving_model(family)
     cfg = model.cfg
+    per_forward = 2 * cfg.num_layers + 1
     backbone = model.llama if family == "llama" else model.gpt
     calls = [0]
 
     def count(_mod, _args):
         calls[0] += 1
-    backbone.register_forward_pre_hook(count)
+    hook = backbone.register_forward_pre_hook(count)
 
     rs = np.random.RandomState(17)
     ids = rs.randint(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int64)
@@ -531,36 +577,28 @@ def _serve(family, build, kernel, per_forward):
     else:
         print(f"[{family}] card time: not measured (the profiler recorded "
               f"no device events)")
+    hook.remove()
     del model, sess, pools, lv, lv2, kcs, vcs
     torch.cuda.empty_cache()
     return res
 
 
 def phase_llama():
-    from paddle_tpu_torch.core import seed
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
-    from paddle_tpu_torch.models import LlamaForCausalLM, llama2_7b
 
-    cfg = llama2_7b()
-    return _serve("llama", lambda: LlamaForCausalLM(
-        cfg, device="cuda", dtype="bfloat16", generator=seed(1234, "cuda")),
-        fused_ops.RMS_NORM_KERNEL, 2 * cfg.num_layers + 1)
+    return _serve("llama", fused_ops.RMS_NORM_KERNEL)
 
 
 def phase_gpt():
-    from paddle_tpu_torch.core import seed
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_1p3b
     from paddle_tpu_torch.nn.functional import norm
 
-    cfg = gpt3_1p3b()
-    return _serve("gpt", lambda: GPTForCausalLM(
-        cfg, device="cuda", dtype="bfloat16", generator=seed(1234, "cuda")),
-        norm.LAYER_NORM_KERNEL, 2 * cfg.num_layers + 1)
+    return _serve("gpt", norm.LAYER_NORM_KERNEL)
 
 
 def phase_card_vs_cpu():
     from paddle_tpu_torch.core import seed
-    from paddle_tpu_torch.inference.serving import GenerationSession
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, GenerationSession, Request)
     from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
                                          gpt_tiny, llama_tiny)
 
@@ -586,8 +624,21 @@ def phase_card_vs_cpu():
             a, b = run(cpu), run(gpu).cpu()
             check(torch.equal(a, b), f"{family} {name}: card and CPU "
                                      f"greedy streams differ")
+        # continuous batching: the card's decode chunks are CUDA graph
+        # replays, the CPU's run eagerly
+        streams = []
+        for m in (cpu, gpu):
+            sess = ContinuousBatchingSession(m, slots=2, max_prompt_len=16,
+                                             kv_block_size=8, chunk=4)
+            for r, n in enumerate(lens):
+                sess.submit(Request(r, ids[r, :n], 16))
+            streams.append(sess.run())
+        check(all(np.array_equal(streams[0][r], streams[1][r])
+                  for r in range(len(lens))),
+              f"{family} continuous batching: card and CPU greedy streams "
+              f"differ")
         print(f"[card-vs-cpu] {family}: greedy streams equal "
-              f"(fixed and ragged, fp32)")
+              f"(fixed, ragged and continuous batching, fp32)")
 
 # ---------------------------------------------------------------------------
 # training slices: K3-K7 and the train steps
@@ -1121,13 +1172,16 @@ def _check_k8_against_k7(groups, s, d, causal, dt, g, chunk):
 
 def graph_kernels(fn, tag):
     """The kernels one fn() launches: {mangled name: grid}, read from the
-    nodes of a CUDA graph that captures fn() (cudaGraphDebugDotPrint,
-    written under build/graphs/). Unlike the profiler, which on the card
-    at times records none or only part of a session's kernels, the graph
-    holds every launch."""
-    import re
-    import warnings
+    nodes of a CUDA graph that captures fn() (graph_kernel_nodes)."""
+    return dict(graph_kernel_nodes(fn, tag))
 
+
+def graph_kernel_nodes(fn, tag):
+    """Every kernel node of a CUDA graph that captures fn(), in order:
+    [(mangled name, grid)], from cudaGraphDebugDotPrint (written under
+    build/graphs/). Unlike the profiler, which on the card at times
+    records none or only part of a session's kernels, the graph holds
+    every launch."""
     graph = torch.cuda.CUDAGraph(keep_graph=True)   # kept for the dump
     graph.enable_debug_mode()
     side = torch.cuda.Stream()
@@ -1138,6 +1192,18 @@ def graph_kernels(fn, tag):
     with torch.cuda.graph(graph):
         fn()
     torch.cuda.synchronize()
+    nodes = dumped_kernel_nodes(graph, tag)
+    del graph
+    return nodes
+
+
+def dumped_kernel_nodes(graph, tag):
+    """[(mangled name, grid)] of every kernel node of ``graph`` (made with
+    keep_graph=True and enable_debug_mode), from its
+    cudaGraphDebugDotPrint."""
+    import re
+    import warnings
+
     path = REPO / "build" / "graphs" / f"{tag.replace(' ', '_')}.dot"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.unlink(missing_ok=True)
@@ -1149,9 +1215,8 @@ def graph_kernels(fn, tag):
     # (or a single x)
     nodes = re.findall(r"(_Z\w+)\\<\\<\\<(?:\\\{([\d,]+)\\\}|(\d+)),",
                        path.read_text())
-    del graph
-    return {name: tuple(int(x) for x in (grid or one).split(","))
-            for name, grid, one in nodes}
+    return [(name, tuple(int(x) for x in (grid or one).split(",")))
+            for name, grid, one in nodes]
 
 
 def _grid3(grid):
@@ -2338,6 +2403,416 @@ def phase_custom_op():
     return rec
 
 
+# ---------------------------------------------------------------------------
+# continuous batching: the serving core at full width and depth
+# ---------------------------------------------------------------------------
+
+CB_SLOTS, CB_PROMPT, CB_BLOCK, CB_CHUNK, CB_NEW = 4, 512, 64, 8, 32
+CB_SYSTEM = 256                # the shared system prompt (4 full blocks)
+# how far a served request's logits may lie from those of an independent
+# B=1 paged forward of the same tokens (cb_teacher_forced), in bf16 ulps
+# of the row's largest |logit|. The logits leave a bf16 matmul at the end
+# of a bf16 residual stream: another batch or another token count a
+# forward (another cuBLAS kernel, another summation order) moves each of
+# them by a few ulps: at most 7.5 (Llama-2-7B) and 3.6 (GPT-3 1.3B) on an
+# H100, and the bound is about twice that. A served token then scores
+# within twice the bound of the independent forward's best (cb_hold)
+CB_ROW_ULPS = 16
+GS_MS_PER_TOKEN = {"llama": 66.68, "gpt": 50.42}   # PERF.md §5, PR 1
+
+
+def cb_prompts(vocab):
+    """The chat traffic of the [serve_cb_*] phases: 12 prompts from a
+    seed; 4 share a 256-token system prompt (tails of 16-96 tokens), 1 is
+    the system prompt alone (a full hit with copy-on-write), 7 stand
+    alone with 40-480 tokens. The first sharer comes first; the other
+    sharers and the full hit come after index 3, once its blocks are
+    registered. The first 8 are submitted before the first step, the
+    last 4 after the third."""
+    rs = np.random.RandomState(29)
+
+    def toks(n):
+        return rs.randint(1, vocab, int(n)).astype(np.int64)
+    system = toks(CB_SYSTEM)
+    share = [np.concatenate([system, toks(rs.randint(16, 97))])
+             for _ in range(4)]
+    alone = [toks(rs.randint(40, 481)) for _ in range(7)]
+    return ([share[0]] + alone[:3] + share[1:] + [system.copy()]
+            + alone[3:])
+
+
+class _TimedGraph:
+    """A CUDA graph whose replays each record a pair of CUDA events."""
+
+    def __init__(self, graph):
+        self.graph, self.events = graph, []
+
+    def replay(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.events.append((start, end))
+
+
+def cb_drive(model, prompts, prefix_cache, tag, before_step=None):
+    """Serve ``prompts`` through a ContinuousBatchingSession (4 slots,
+    prompts up to 512, blocks of 64, chunks of 8, 32 new tokens each),
+    waves as cb_prompts says. before_step(session, step) runs before
+    each step. The kernel nodes of the session's decode graph are read
+    after the run (``graph_nodes``); ``first``
+    holds each request's first-token logits row, as its admit selected
+    from it. Returns a record of the run and the session."""
+    from paddle_tpu_torch.inference import serving
+
+    sess = serving.ContinuousBatchingSession(
+        model, slots=CB_SLOTS, max_prompt_len=CB_PROMPT,
+        kv_block_size=CB_BLOCK, chunk=CB_CHUNK, prefix_cache=prefix_cache)
+    reqs = [serving.Request(i, p, CB_NEW) for i, p in enumerate(prompts)]
+    prog = sess._chunk_prog
+    check(prog.graph is not None, "the decode chunk was not captured")
+    timed = prog.graph = _TimedGraph(prog.graph)
+    first, select = {}, sess._select
+
+    def recording(lv, live):
+        # the admit's rows of the slots it prefills (no host read)
+        for i, s in enumerate(sess._slots):
+            if s.req is not None and s.first_chunk:
+                first[s.req.req_id] = lv[i].clone()
+        return select(lv, live)
+    sess._select = recording
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for r in reqs[:8]:
+        sess.submit(r)
+    steps, chunk_steps = [], []
+    while True:
+        if len(steps) == 3:
+            for r in reqs[8:]:
+                sess.submit(r)
+        if before_step is not None:
+            n_events = len(timed.events)
+            before_step(sess, len(steps))
+            del timed.events[n_events:]      # not serving replays
+        n_chunks, live = sess.stats["chunk_steps"], sum(
+            s.req is not None for s in sess._slots)
+        t0 = time.perf_counter()
+        more = sess.step()
+        dt = time.perf_counter() - t0
+        if not more:
+            break
+        steps.append(dt)
+        if sess.stats["chunk_steps"] > n_chunks:
+            chunk_steps.append((dt, live))
+    out = sess.run()
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    sess._select = select
+    sess._pool.assert_quiescent()
+    check(sess._chunk_prog is prog and sess._captures == 1,
+          f"{tag}: the decode chunk was captured {sess._captures} times")
+    card_ms = [a.elapsed_time(b) for a, b in timed.events]
+    check(len(card_ms) == len(chunk_steps) == sess.stats["chunk_steps"],
+          f"{len(card_ms)} graph replays for {len(chunk_steps)} chunk "
+          f"steps")
+    prog.graph = timed.graph
+    nodes = dumped_kernel_nodes(prog.graph, f"{tag} chunk "
+                                f"{'on' if prefix_cache else 'off'}")
+    check(set(first) == set(range(len(prompts))),
+          f"{tag}: first-token rows of {sorted(first)}")
+    ttft = sorted(r.first_tok_t - r.submit_t for r in reqs)
+    return dict(out=out, stats=sess.stats, wall_s=wall, steps=len(steps),
+                chunk_host_ms=[1e3 * dt for dt, _ in chunk_steps],
+                chunk_live=[n for _, n in chunk_steps],
+                chunk_card_ms=card_ms, ttft_s=ttft, graph_nodes=nodes,
+                first={k: v.float().cpu() for k, v in first.items()},
+                tokens=sum(len(t) for t in out.values())), sess
+
+
+def cb_teacher_forced(model, prompt, stream):
+    """Logits [len(stream), V] (fp32, on the host) of one B=1 paged
+    forward over prompt + stream[:-1] from empty pools: row t scores the
+    stream's token t given the prompt and the t tokens before it
+    (teacher forcing). No batch, no shared block, no graph."""
+    from paddle_tpu_torch.incubate.nn.functional.paged_kv import (
+        PagedCache, alloc_block_tables, init_block_cache)
+    from paddle_tpu_torch.inference.serving import get_model_adapter
+
+    ad = get_model_adapter(model)
+    ids = np.concatenate([prompt, stream[:-1]])
+    bt, nb = alloc_block_tables(1, len(ids), CB_BLOCK, device="cuda")
+    with torch.inference_mode():
+        caches = [PagedCache(*init_block_cache(
+            nb, ad.kv_heads, CB_BLOCK, ad.head_dim, ad.dtype,
+            device="cuda"), bt, torch.zeros(1, dtype=torch.int32,
+                                            device="cuda"), None)
+            for _ in range(ad.num_layers)]
+        hidden, _ = ad.backbone(torch.as_tensor(ids[None], device="cuda"),
+                                caches=caches, pos_offset=0)
+        return ad.logits(hidden[0, len(prompt) - 1:]).float().cpu()
+
+
+def cb_hold(model, prompts, runs, tag):
+    """Hold every request of every run in ``runs`` {name: record} to an
+    independent B=1 forward of its own tokens (cb_teacher_forced): its
+    first-token row within CB_ROW_ULPS bf16 ulps of the forward's row 0,
+    and each of its 32 tokens scoring within 2 x CB_ROW_ULPS ulps of the
+    forward's best at that step (a token the session chose from logits
+    within CB_ROW_ULPS of the forward's can score no lower). Every step
+    of every request is held, whatever the ties. Returns the readings."""
+    forced = {}
+    row_ulps, margin_ulps, not_argmax, spread = [], [], 0, []
+    for name, run in runs.items():
+        for rid, p in enumerate(prompts):
+            toks = np.asarray(run["out"][rid])
+            key = (rid, toks.tobytes())
+            if key not in forced:
+                forced[key] = cb_teacher_forced(model, p, toks)
+            tf = forced[key]
+            ulp0 = bf16_ulp(tf[0].abs().max()).item()
+            err = (run["first"][rid] - tf[0]).abs().max().item()
+            row_ulps.append(err / ulp0)
+            check(err <= CB_ROW_ULPS * ulp0,
+                  f"{tag}: request {rid} ({name}) first-token logits lie "
+                  f"{err:.5f} ({err / ulp0:.1f} ulps) from an independent "
+                  f"B=1 forward's, bound {CB_ROW_ULPS} ulps")
+            best = tf.max(-1).values
+            got = tf.gather(1, torch.as_tensor(toks)[:, None])[:, 0]
+            ulps = bf16_ulp(tf.abs().max(-1).values)
+            margin = (best - got) / ulps
+            margin_ulps.append(margin.max().item())
+            not_argmax += int((best > got).sum())
+            spread.append(tf.std(-1).median().item())
+            bad = torch.nonzero(margin > 2 * CB_ROW_ULPS)[:, 0]
+            check(len(bad) == 0,
+                  f"{tag}: request {rid} ({name}) token at step "
+                  f"{bad[:1].tolist()} scores {margin[bad[:1]].tolist()} "
+                  f"ulps under an independent B=1 forward's best, bound "
+                  f"{2 * CB_ROW_ULPS}; tokens {toks.tolist()}")
+    return dict(row_ulps_max=max(row_ulps), margin_ulps_max=max(margin_ulps),
+                tokens_not_argmax=not_argmax,
+                tokens_held=sum(len(r["out"]) * CB_NEW for r in runs.values()),
+                forwards=len(forced), logit_sd=float(np.median(spread)))
+
+
+def cb_graph_vs_eager(sess, tag):
+    """One decode chunk from the session's current state run eagerly and
+    replayed from its CUDA graph: equal tokens, lengths and pool bytes.
+    The state is put back afterwards."""
+    live = [s.req is not None for s in sess._slots]
+    check(any(live), f"{tag}: no live slot to compare a chunk on")
+    sess._live_dev.copy_(torch.tensor(live))
+    sess._bt_dev.copy_(torch.from_numpy(sess._bt))
+    pools = sess._kcs + sess._vcs
+    start = [p.clone() for p in pools]
+    small = (sess._seq_lens, sess._tok_dev)
+    start_small = [t.clone() for t in small]
+
+    def restore():
+        for p, c in zip(pools, start):
+            p.copy_(c)
+        for t, c in zip(small, start_small):
+            t.copy_(c)
+    sess._chunk_body()
+    eager_toks = sess._toks_dev.clone()
+    eager_small = [t.clone() for t in small]
+    changed, written = [], []
+    for p, c in zip(pools, start):
+        m = (p != c).flatten(1).any(1)
+        changed.append(m)
+        written.append(p[m].clone())
+    restore()
+    sess._chunk_prog()
+    torch.cuda.synchronize()
+    check(torch.equal(sess._toks_dev, eager_toks),
+          f"{tag}: graph and eager chunk tokens differ")
+    check(all(torch.equal(t, e) for t, e in zip(small, eager_small)),
+          f"{tag}: graph and eager chunk lengths or last tokens differ")
+    n_changed = 0
+    for p, c, m, w in zip(pools, start, changed, written):
+        check(torch.equal(p[m], w) and torch.equal(p[~m], c[~m]),
+              f"{tag}: graph and eager chunk pool bytes differ")
+        n_changed += int(m.sum())
+    check(n_changed > 0, f"{tag}: the chunk wrote no pool block")
+    restore()
+    torch.cuda.synchronize()
+    del start, written
+    return dict(tokens=int(eager_toks.numel()), blocks_written=n_changed)
+
+
+def _serve_cb(family, kernel):
+    """The continuous-batching serving core at full width and depth;
+    every norm on ``kernel``."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    tag = f"serve_cb_{family}"
+    # sessions are reference cycles: collect the dead ones (an earlier
+    # phase's pools and model) before the peak is read from 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = serving_model(family)
+    per_forward = 2 * model.cfg.num_layers + 1
+    vocab = model.cfg.vocab_size
+    prompts = cb_prompts(vocab)
+    other = (norm.LAYER_NORM_KERNEL if kernel is fused_ops.RMS_NORM_KERNEL
+             else fused_ops.RMS_NORM_KERNEL)
+
+    # the main path: prefix cache on, kernel counts from 0
+    for k in (kernel, other):
+        k.reset_counts()
+    on, sess = cb_drive(model, prompts, True, tag)
+    eager, recorded, plain = (kernel.launches, kernel.recorded,
+                              kernel.plain_calls)
+    check(plain == 0, f"{tag}: plain norm ran {plain} times on the card")
+    check(other.launches == other.recorded == other.plain_calls == 0,
+          f"{tag}: the other norm ran")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    st = on["stats"]
+    check(set(on["out"]) == set(range(len(prompts))),
+          f"{tag}: requests missing from run()")
+    for rid, toks in on["out"].items():
+        check(len(toks) == CB_NEW and ((toks >= 0) & (toks < vocab)).all(),
+              f"{tag}: request {rid} tokens {toks}")
+    plen = sum(len(p) for p in prompts)
+    check(st["prefill_tokens"] == plen - st["prefix_hit_tokens"],
+          f"{tag}: prefill_tokens {st['prefill_tokens']} != {plen} - "
+          f"{st['prefix_hit_tokens']}")
+    check(st["prefix_hits"] >= 4 and st["prefix_cow"] >= 1,
+          f"{tag}: prefix stats {st}")
+
+    # what the session's own decode graph holds, and the launches of the
+    # run: the wrapper's launches outside the capture (the admits and the
+    # capture's warm-up chunk) and each replay's kernel nodes
+    fragment = kernel.symbol.replace("ptt_", "") + "_kernel"
+    nodes = on["graph_nodes"]
+    in_graph = sum(fragment in n for n, _ in nodes)
+    want = CB_CHUNK * per_forward
+    check(in_graph == want, f"{tag}: the chunk graph holds {in_graph} "
+                            f"{fragment} launches, want {want}")
+    check(recorded == want, f"{tag}: {recorded} wrapper calls recorded in "
+                            f"the capture for {in_graph} graph nodes")
+    check(eager == st["admit_steps"] * per_forward + want,
+          f"{tag}: {eager} launches outside the graph for "
+          f"{st['admit_steps']} admits and one warm-up chunk")
+    replays = len(on["chunk_card_ms"])
+    launches = eager + replays * in_graph
+    # where a chunk's card time goes: the same chunk run eagerly under
+    # the profiler (the graph's kernels, one by one)
+    with sess._null_chunk_inputs():
+        chunk_ms, top = device_breakdown(sess._chunk_body, top=8)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # prefix cache off, and one chunk of it graph against eager
+    ge = {}
+
+    def compare(sess, step):
+        if step == 1:                # after the first admit
+            ge.update(cb_graph_vs_eager(sess, tag))
+    off, sess = cb_drive(model, prompts, False, tag, before_step=compare)
+    check(ge, f"{tag}: graph-vs-eager check did not run")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # every request of both runs against an independent B=1 forward of
+    # its own tokens
+    held = cb_hold(model, prompts, {"cache on": on, "cache off": off}, tag)
+    same = sum(np.array_equal(on["out"][r], off["out"][r])
+               for r in range(len(prompts)))
+    torch.cuda.empty_cache()
+
+    host = np.array(on["chunk_host_ms"])
+    card = np.array(on["chunk_card_ms"])
+    live = np.array(on["chunk_live"])
+    ttft = np.array(on["ttft_s"]) * 1e3
+    res = dict(
+        launches=launches, launches_outside_graph=eager,
+        wrapper_calls=eager + recorded, plain_calls=plain,
+        graph_launches_per_chunk=in_graph, graph_kernel_nodes=len(nodes),
+        graph_replays=replays, stats=st, stats_off=off["stats"],
+        steps=on["steps"], wall_s=on["wall_s"],
+        ttft_ms_median=float(np.median(ttft)),
+        ttft_ms_p90=float(np.percentile(ttft, 90)),
+        decode_ms_per_token=float(np.median(host)) / CB_CHUNK,
+        ms_per_generated_token=float(np.median(host / (CB_CHUNK * live))),
+        tokens_per_s=on["tokens"] / on["wall_s"],
+        chunk_card_ms=float(np.median(card)),
+        chunk_host_ms=float(np.median(host)),
+        card_busy=float(np.median(card / host)),
+        peak_gb=peak_gb, held=held, row_ulps_bound=CB_ROW_ULPS,
+        streams_equal_cache_on_off=int(same),
+        eager_chunk_card_ms=chunk_ms, eager_chunk_top_kernels=top,
+        graph_vs_eager=ge, wall_s_off=off["wall_s"])
+    print(f"[{tag}] {len(prompts)} requests x {CB_NEW} tokens over "
+          f"{CB_SLOTS} slots in {on['steps']} steps "
+          f"({st['admit_steps']} admits, {st['chunk_steps']} chunks of "
+          f"{CB_CHUNK} as CUDA graph replays); prefix hits "
+          f"{st['prefix_hits']}, hit tokens {st['prefix_hit_tokens']}, CoW "
+          f"{st['prefix_cow']}, prefill tokens {st['prefill_tokens']} = "
+          f"{plen} - {st['prefix_hit_tokens']}; pool quiescent")
+    print(f"[{tag}] {kernel.symbol}: {launches} launches on the card = "
+          f"{eager} outside the graph ({st['admit_steps']} eager admits and "
+          f"the capture's warm-up chunk, x {per_forward}) + {replays} "
+          f"replays x {in_graph}; the session's own graph holds {in_graph} "
+          f"= {CB_CHUNK} x {per_forward} of its {len(nodes)} kernel nodes "
+          f"(the wrapper recorded {recorded} calls in its capture), 0 "
+          f"plain, none of the other norm")
+    print(f"[{tag}] graph vs eager: one chunk from the same state gives "
+          f"equal tokens, lengths and pool bytes ({ge['blocks_written']} "
+          f"blocks written)")
+    print(f"[{tag}] streams: all {held['tokens_held']} tokens of the "
+          f"{2 * len(prompts)} requests (cache on and off) held to an "
+          f"independent B=1 paged forward of their own tokens "
+          f"({held['forwards']} forwards): first-token rows within "
+          f"{held['row_ulps_max']:.1f} bf16 ulps (bound {CB_ROW_ULPS}), "
+          f"every token within {held['margin_ulps_max']:.1f} ulps of the "
+          f"forward's best (bound {2 * CB_ROW_ULPS}), "
+          f"{held['tokens_not_argmax']} not its argmax; median logit sd "
+          f"{held['logit_sd']:.3f}; {same} of {len(prompts)} streams equal "
+          f"cache on and off")
+    print(f"[{tag}] TTFT median {res['ttft_ms_median']:.1f} ms, p90 "
+          f"{res['ttft_ms_p90']:.1f} ms; decode "
+          f"{res['decode_ms_per_token']:.3f} ms/token per live slot (chunk step / {CB_CHUNK}), "
+          f"{res['ms_per_generated_token']:.3f} ms per generated token; "
+          f"{res['tokens_per_s']:.1f} tokens/s over the run "
+          f"({on['wall_s']:.2f} s; cache off {off['wall_s']:.2f} s); chunk "
+          f"card {res['chunk_card_ms']:.2f} ms of host "
+          f"{res['chunk_host_ms']:.2f} ms = {100 * res['card_busy']:.1f}% "
+          f"busy; peak {peak_gb:.2f} GiB; GenerationSession (PR 1, for "
+          f"reference): {GS_MS_PER_TOKEN[family]} ms/token")
+    if chunk_ms is None:
+        print(f"[{tag}] a chunk's kernels: not measured (the profiler "
+              f"recorded no device events)")
+    else:
+        print(f"[{tag}] a chunk run eagerly under the profiler: card "
+              f"{chunk_ms:.2f} ms; top kernels:")
+        for t in top:
+            print(f"[{tag}]   {t['ms']:9.2f} ms {t['calls']:6d}x "
+                  f"{t['kernel']}")
+    del model
+    _SERVING_MODELS.pop(family)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_cb_llama():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+
+    return _serve_cb("llama", fused_ops.RMS_NORM_KERNEL)
+
+
+def phase_serve_cb_gpt():
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_cb("gpt", norm.LAYER_NORM_KERNEL)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a card")
@@ -2349,7 +2824,10 @@ def main():
     build = phase_build()
     rec = {}
     for name, run in (("kernels", phase_kernels), ("llama", phase_llama),
-                      ("gpt", phase_gpt), ("card_vs_cpu", phase_card_vs_cpu),
+                      ("serve_cb_llama", phase_serve_cb_llama),
+                      ("gpt", phase_gpt),
+                      ("serve_cb_gpt", phase_serve_cb_gpt),
+                      ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
                       ("train", phase_train),
                       ("train_fused", phase_train_fused),
@@ -2381,7 +2859,8 @@ def main():
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
-         {"llama2_7b serving": rec["llama"]["launches"]},
+         {"llama2_7b serving": rec["llama"]["launches"],
+          "llama2_7b cb serving": rec["serve_cb_llama"]["launches"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -2390,7 +2869,8 @@ def main():
          tk["rms_norm_train"], tk["rms_norm_train"]),
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
-         {"gpt3_1p3b serving": rec["gpt"]["launches"]},
+         {"gpt3_1p3b serving": rec["gpt"]["launches"],
+          "gpt3_1p3b cb serving": rec["serve_cb_gpt"]["launches"]},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_train", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",

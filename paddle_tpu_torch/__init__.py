@@ -6,7 +6,9 @@ on the card unless the caller passes ``device="cpu"``. Every TPU kernel
 on a ported path is a hand-written Hopper kernel under ``csrc/``.
 
 Ported so far: paged-KV serving of the Llama and GPT models
-(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``),
+(``model.generate(ids, use_paged_kv=True)``, ``GenerationSession``, and
+continuous batching with prefix caching, ``ContinuousBatchingSession``,
+with its metrics, events and traces in ``observability``),
 GPT and Llama (grouped-query) training (``model(ids, labels=...)``,
 ``loss.backward()``, ``optimizer.AdamW`` / ``optimizer.SGD``,
 ``amp.decorate`` / ``amp.auto_cast``), and the custom-op extension API
@@ -14,11 +16,12 @@ GPT and Llama (grouped-query) training (``model(ids, labels=...)``,
 ``PyLayer``, ``to_tensor``). There is no Tensor wrapper class:
 ``torch.Tensor`` is the tensor.
 """
-from . import amp, autograd, core, inference, models, nn, ops, optimizer, utils
+from . import (amp, analysis, autograd, core, inference, models, nn,
+               observability, ops, optimizer, utils)
 from .autograd import PyLayer
 from .core import CPUPlace, CUDAPlace, seed, set_flags
 from .tensor import to_tensor
 
-__all__ = ["CPUPlace", "CUDAPlace", "PyLayer", "amp", "autograd", "core",
-           "inference", "models", "nn", "ops", "optimizer", "seed",
-           "set_flags", "to_tensor", "utils"]
+__all__ = ["CPUPlace", "CUDAPlace", "PyLayer", "amp", "analysis",
+           "autograd", "core", "inference", "models", "nn", "observability",
+           "ops", "optimizer", "seed", "set_flags", "to_tensor", "utils"]

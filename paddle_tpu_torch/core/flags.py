@@ -1,7 +1,7 @@
 """Flags and environment knobs the port reads. Counterpart of
 paddle_tpu/core/flags.py, cut to what the ported slices read: the FLAGS
-the training slice and the op dispatch consult (``get_flag`` /
-``set_flags``) and the PADDLE_* knob registry."""
+the training slice, the op dispatch and the serving observability
+consult (``get_flag`` / ``set_flags``) and the PADDLE_* knob registry."""
 from __future__ import annotations
 
 import os
@@ -10,6 +10,17 @@ from typing import Any, Dict
 PADDLE_ENV_KNOBS = frozenset({
     # live GenerationSessions kept per model by aot_generate (default 8)
     "PADDLE_SERVING_SESSION_CACHE",
+    # serving: the bounded waiting queue, the replica label of metrics
+    # and events (inference/scheduler.py, inference/serving.py)
+    "PADDLE_SERVING_MAX_WAITING", "PADDLE_REPLICA_NAME",
+    # crash forensics (observability/flight_recorder.py)
+    "PADDLE_CRASH_DIR", "PADDLE_CRASH_DUMP_INTERVAL",
+    # SLO monitor policy (observability/slo.py)
+    "PADDLE_SLO_WINDOW_S", "PADDLE_SLO_FAST_WINDOW_S",
+    "PADDLE_SLO_TTFT_MS", "PADDLE_SLO_TPOT_MS", "PADDLE_SLO_MIN_EVENTS",
+    "PADDLE_SLO_EVAL_INTERVAL_S", "PADDLE_SLO_BURN_THRESHOLD",
+    # device-memory budget of the HBM ledger (observability/memz.py)
+    "PADDLE_MEMZ_HBM_BYTES",
 })
 
 _flags: Dict[str, Any] = {
@@ -25,6 +36,15 @@ _flags: Dict[str, Any] = {
     # level 0 raises FloatingPointError, any other level warns
     "check_nan_inf": False,
     "check_nan_inf_level": 0,
+    # metrics registry + structured events of the serving session; off
+    # turns every instrumented site into one bool check
+    "observability": True,
+    # fraction of requests that record a full span tree while
+    # observability is on (decided once per trace at its start)
+    "trace_sample_rate": 1.0,
+    # per-step host/dispatch/harvest/bubble attribution of the serving
+    # session (observability/stepprof.py); needs observability
+    "step_profile": True,
 }
 
 

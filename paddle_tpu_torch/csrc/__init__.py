@@ -98,9 +98,12 @@ def build_all() -> dict:
 class Kernel:
     """One C entry point of one kernel library, with its counters.
 
-    ``launches`` counts the kernel's launches; ``plain_calls`` counts
-    calls of its plain PyTorch version (the CPU path). Both are plain
-    integers, so a run can show which path it took."""
+    ``launches`` counts the kernel's launches; ``recorded`` counts calls
+    made while the stream captures a CUDA graph, which launch nothing
+    (each replay of the graph launches its kernel nodes);
+    ``plain_calls`` counts calls of its plain PyTorch version (the CPU
+    path). All are plain integers, so a run can show which path it
+    took."""
 
     def __init__(self, source: str, symbol: str, argtypes):
         self.source = _SRC_DIR / source
@@ -108,10 +111,12 @@ class Kernel:
         self.argtypes = list(argtypes) + [ctypes.c_void_p]   # + stream
         self._fn = None
         self.launches = 0
+        self.recorded = 0
         self.plain_calls = 0
 
     def reset_counts(self) -> None:
         self.launches = 0
+        self.recorded = 0
         self.plain_calls = 0
 
     def _load(self):
@@ -127,16 +132,21 @@ class Kernel:
 
     def launch(self, device: torch.device, *args) -> None:
         """Call the entry point on ``device``'s current stream and raise
-        if it reports a CUDA error. Counts one launch."""
+        if it reports a CUDA error. Counts one launch, or one recorded
+        call under a graph capture."""
         fn = self._load()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = fn(*args, stream)
+            capturing = torch.cuda.is_current_stream_capturing()
         if rc != 0:
             raise RuntimeError(
                 f"{self.symbol} failed with CUDA error {rc} "
                 f"({self.source.name})")
-        self.launches += 1
+        if capturing:
+            self.recorded += 1
+        else:
+            self.launches += 1
 
 
 __all__ = ["BUILD_DIR", "DTYPE_CODES", "Kernel", "build_all", "library_path",

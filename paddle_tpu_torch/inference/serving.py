@@ -1,46 +1,85 @@
-"""Paged-KV serving for causal LMs: one prefill, then a greedy (or
-sampled) decode over the block-table KV pool. Counterpart of the
-GenerationSession path of paddle_tpu/inference/serving.py.
+"""Paged-KV serving for causal LMs. Counterpart of
+paddle_tpu/inference/serving.py: the GenerationSession path (one
+prefill, then a greedy or sampled decode of one fixed batch) and the
+continuous-batching core (ContinuousBatchingSession: a slot grid fed by
+the scheduler, over a prefix-caching block pool).
 
-Where the JAX package compiles a prefill executable and ONE scanned
-decode executable, the port runs the same model code eagerly: the decode
-``lax.scan`` is a Python loop, and the pools the JAX package donates
-into its decode executable are updated in place. Token selection stays
-on the card, so the loop never waits for the host until the tokens are
-returned.
+Where the JAX package compiles a prefill executable and one scanned
+decode executable, GenerationSession runs the same model code eagerly:
+the decode ``lax.scan`` is a Python loop, and the pools the JAX package
+donates into its decode executable are updated in place. Token selection
+stays on the card, so the loop never waits for the host until the tokens
+are returned.
 
-Speculative decoding, LoRA, quantized weights and quantized pools are
-not ported: asking for them raises NotImplementedError.
+ContinuousBatchingSession keeps the reference's two programs. The mixed
+admit (prefill chunks beside one-token riders) runs eagerly, one width a
+dispatch. The pure-decode chunk, ``chunk`` steps for every slot with
+token selection on the card, is on a card ONE CUDA graph, captured once
+per session geometry (slots, chunk, blocks per slot, dtype) over static
+buffers that the host refills with ``copy_`` before each replay: the
+last tokens, the live mask, the block table and the cached lengths; the
+pools are written in place and the host reads one ``[chunk, slots]``
+token buffer back per chunk. The graph reads the weights by address: a
+weight replaced since the capture is seen before the next replay, which
+re-captures. On the CPU the same function runs eagerly. A capture that
+fails raises; nothing falls back to eager decode on a card.
+
+Not ported (NotImplementedError, ROADMAP queue A item 6): speculative
+decoding, chunked prefill, LoRA, quantized weights and pools, the
+hierarchical KV tier, host-side logprobs, the overlapped engine,
+preemption and request priorities / deadlines.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
+import gc
+import itertools
+import os
+import time
+import weakref
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..analysis.sanitizers import race_handoff, race_track
 from ..core.flags import env_int
 from ..incubate.nn.functional.paged_kv import PagedCache, alloc_block_tables
+from .scheduler import AdmissionRejected, InvalidRequest  # noqa: F401
+# (re-exported: submit() raises them; the Scheduler itself lives in
+# scheduler.py and is reached via session.scheduler)
 
-__all__ = ["GenerationSession", "ModelAdapter", "aot_generate",
-           "get_model_adapter", "make_run_model", "mask_logits",
-           "sample_logits"]
+__all__ = ["AdmissionRejected", "ContinuousBatchingSession",
+           "GenerationSession", "InvalidRequest", "ModelAdapter",
+           "Request", "aot_generate", "get_model_adapter",
+           "make_run_model", "mask_logits", "sample_logits"]
+
+UNPORTED = "is not ported to paddle_tpu_torch (ROADMAP queue A item 6)"
 
 
 def _reject_unported(speculative=None, lora=None, quantize_weights=None,
-                     kv_dtype=None):
-    """Raise NotImplementedError for a serving feature the port lacks.
-    ``False``/"none" for the quantization knobs mean off, as in the JAX
-    package."""
+                     kv_dtype=None, prefill_chunk=None, kv_pool_bytes=None,
+                     kv_tier=None, logprobs=False, overlap=None):
+    """Raise NotImplementedError naming every serving feature asked for
+    that the port lacks. ``False``/"none" for the quantization knobs and
+    ``kv_tier``, ``overlap=None``/``False`` (the sequential engine) and
+    ``logprobs=False`` mean off, as in the JAX package."""
     asked = [name for name, v in (("speculative", speculative),
-                                  ("lora", lora)) if v is not None]
+                                  ("lora", lora),
+                                  ("prefill_chunk", prefill_chunk),
+                                  ("kv_pool_bytes", kv_pool_bytes))
+             if v is not None]
     asked += [name for name, v in (("quantize_weights", quantize_weights),
-                                   ("kv_dtype", kv_dtype))
+                                   ("kv_dtype", kv_dtype),
+                                   ("kv_tier", kv_tier))
               if v not in (None, False, "", "none")]
+    if logprobs:
+        asked.append("logprobs=True")
+    if overlap:
+        asked.append("overlap=True")
     if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} serving is not ported to paddle_tpu_torch")
+        raise NotImplementedError(f"{', '.join(asked)} {UNPORTED}")
 
 
 class ModelAdapter:
@@ -392,3 +431,1241 @@ def aot_generate(model, input_ids, max_new_tokens: int,
         if col_done.any():
             return out[:, :prompt_len + int(np.argmax(col_done)) + 1]
     return out
+
+
+# ---------------------------------------------------------------------------
+# continuous batching
+# ---------------------------------------------------------------------------
+
+_SM = None   # serving metric handles, created once on first use
+
+
+def _serving_metrics():
+    """Registry handles for the serving tier (latency histograms and
+    occupancy gauges, the names and help strings of the JAX package's).
+    Instrumentation is host-side only: it never reads device values, so
+    token outputs are byte-identical with the flag off or on."""
+    global _SM
+    from ..observability import get_registry
+    from ..observability.slo import SLO_LATENCY_BUCKETS
+
+    reg = get_registry()
+    # rebuild after a registry reset/swap (tests): the cached handles
+    # must be the ones the live registry renders
+    if _SM is None or reg.get("serving_ttft_seconds") is not _SM["ttft"]:
+        _SM = {
+            "admit_steps": reg.counter(
+                "serving_admit_steps_total",
+                "mixed prefill+decode admit executions"),
+            "chunk_steps": reg.counter(
+                "serving_chunk_steps_total",
+                "pure-decode chunk executions"),
+            "tokens": reg.counter(
+                "serving_tokens_total", "output tokens emitted"),
+            "requests_submitted": reg.counter(
+                "serving_requests_submitted_total",
+                "requests entering the queue"),
+            "requests_completed": reg.counter(
+                "serving_requests_completed_total",
+                "requests finished (eos or max_new_tokens)"),
+            "live_slots": reg.gauge(
+                "serving_live_slots", "slots holding an active request"),
+            "queue_depth": reg.gauge(
+                "serving_queue_depth", "requests waiting for a slot"),
+            "kv_blocks_used": reg.gauge(
+                "serving_kv_blocks_used",
+                "paged-KV pool blocks held by live sequences"),
+            "kv_occupancy": reg.gauge(
+                "serving_kv_pool_occupancy",
+                "fraction of the paged-KV pool in use (0..1)"),
+            "prefix_hits": reg.counter(
+                "serving_prefix_cache_hits_total",
+                "admissions that reused >= 1 cached prefix block"),
+            "prefix_misses": reg.counter(
+                "serving_prefix_cache_misses_total",
+                "admissions that ran a full prefill"),
+            "prefix_evictions": reg.counter(
+                "serving_prefix_cache_evictions_total",
+                "cached free blocks evicted to supply allocations"),
+            "prefix_cow": reg.counter(
+                "serving_prefix_cache_cow_total",
+                "copy-on-write block copies (full-prompt hits)"),
+            "prefix_hit_tokens": reg.counter(
+                "serving_prefix_hit_tokens_total",
+                "prompt tokens whose prefill was skipped via the "
+                "prefix cache"),
+            "prefill_tokens": reg.counter(
+                "serving_prefill_tokens_total",
+                "prompt tokens actually fed to the admit executable "
+                "(the admit-FLOP proxy)"),
+            "prefix_cache_blocks": reg.gauge(
+                "paged_kv_prefix_cache_blocks",
+                "free blocks whose prefix hashes are retained "
+                "(matchable cache-on-free inventory)"),
+            "kv_blocks_state": reg.gauge(
+                "paged_kv_blocks",
+                "paged-KV pool block breakdown; a shared block counts "
+                "once, in exactly one state"),
+            # declared for the families' sake (the reference's set);
+            # nothing in the port feeds them until speculative decoding,
+            # preemption and a timed generate are ported
+            "spec_proposed": reg.counter(
+                "serving_spec_proposed_tokens_total",
+                "draft tokens submitted to speculative verification"),
+            "spec_accepted": reg.counter(
+                "serving_spec_accepted_tokens_total",
+                "draft tokens accepted by the verifier"),
+            "spec_rate": reg.gauge(
+                "serving_spec_acceptance_rate",
+                "running accepted/proposed draft-token ratio (0..1)"),
+            "spec_draft_lat": reg.histogram(
+                "serving_spec_draft_seconds",
+                "per-step draft proposal wall seconds (host n-gram "
+                "lookup or draft-model decode)"),
+            "spec_verify_lat": reg.histogram(
+                "serving_spec_verify_seconds",
+                "per-step verify dispatch + host accept wall seconds"),
+            "preempted": reg.counter(
+                "serving_preemptions_total",
+                "running requests evicted back to the waiting queue "
+                "(blocks freed; regenerated via prefix cache + "
+                "re-prefill)"),
+            "expired": reg.counter(
+                "serving_deadline_expired_total",
+                "requests terminated by their deadline_s budget"),
+            "cancelled": reg.counter(
+                "serving_cancelled_total",
+                "requests terminated by session.cancel()"),
+            "rejected": reg.counter(
+                "serving_rejected_total",
+                "submissions refused by the bounded waiting queue "
+                "(max_waiting)"),
+            "preempt_lat": reg.histogram(
+                "serving_preempt_seconds",
+                "host wall seconds to evict one slot (release blocks "
+                "+ neutralize its table row + requeue)"),
+            # SLO-aligned boundaries: windowed compliance counts
+            # (obs <= threshold) are exact only when the policy
+            # thresholds sit on bucket bounds (observability.slo)
+            "queue_wait": reg.histogram(
+                "serving_queue_wait_seconds",
+                "submit -> slot admission wait",
+                buckets=SLO_LATENCY_BUCKETS),
+            "ttft": reg.histogram(
+                "serving_ttft_seconds",
+                "submit -> first output token (time to first token)",
+                buckets=SLO_LATENCY_BUCKETS),
+            "tpot": reg.histogram(
+                "serving_tpot_seconds",
+                "per-output-token latency after the first token",
+                buckets=SLO_LATENCY_BUCKETS),
+            "request_latency": reg.histogram(
+                "serving_request_seconds",
+                "submit -> request completion"),
+            "generate": reg.histogram(
+                "serving_generate_seconds",
+                "AOT GenerationSession.generate wall seconds (host "
+                "dispatch; device completion overlaps)"),
+        }
+    return _SM
+
+
+def _obs_enabled() -> bool:
+    from ..observability import enabled
+
+    return enabled()
+
+
+def _tracer():
+    from ..observability.tracing import get_tracer
+
+    return get_tracer()
+
+
+def _slo():
+    from ..observability.slo import get_slo_monitor
+
+    return get_slo_monitor()
+
+
+def _harvest_sync(value) -> np.ndarray:
+    """THE device->host read of the serving loop: every dispatch's
+    tokens come back through here, and the engine waits for the card
+    here and nowhere else. Returns a host copy (the device buffer is
+    reused by the next dispatch)."""
+    return value.cpu().numpy().copy()
+
+
+def pow2_width(need: int, cap: int = 0) -> int:
+    """Narrowest power-of-two >= need, capped at cap (0 = uncapped)."""
+    w = 1
+    while w < need:
+        w *= 2
+    return min(w, cap) if cap else w
+
+
+class _ChunkProgram:
+    """The decode chunk of one session: ``body()`` runs ``chunk`` decode
+    steps over the session's static buffers. On a card it is captured
+    once into a CUDA graph (``graph``) and every call replays it; on the
+    CPU every call runs ``body()``. ``weights`` is the record of weight
+    addresses it was built against (the graph reads every weight by
+    address). The graph keeps its nodes for ``debug_dump``: they are
+    each replay's launches."""
+
+    def __init__(self, body, device, null_inputs, weights, generator=None):
+        self.body = body
+        self.weights = weights
+        self.graph = None
+        self.device_bytes = 0
+        if device.type != "cuda":
+            return
+        # capture over null inputs (every row dead, every table row
+        # the sentinel): the warm-up and the capture write nothing the
+        # session keeps, whatever state it is in. The garbage collector
+        # stays off meanwhile. That is a guess, not a known fix: a
+        # sampled capture once failed on the card with
+        # cudaErrorStreamCaptureInvalidated, for a cause not found
+        # (ROADMAP queue C item 11)
+        before = torch.cuda.memory_allocated(device)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.enable_debug_mode()
+        if generator is not None:
+            graph.register_generator_state(generator)
+        failed = []
+
+        def recorded():
+            try:
+                body()
+            except Exception as e:      # torch reports only the capture's
+                failed.append(e)        # end; keep the cause
+                raise
+
+        gc_on = gc.isenabled()
+        gc.collect()
+        gc.disable()
+        try:
+            with null_inputs():
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    body()
+                torch.cuda.current_stream(device).wait_stream(side)
+                with torch.cuda.graph(graph):
+                    recorded()
+        except Exception as e:
+            if failed and failed[0] is not e:
+                raise RuntimeError(
+                    f"capturing the decode chunk failed: {failed[0]!r}"
+                ) from failed[0]
+            raise
+        finally:
+            if gc_on:
+                gc.enable()
+        graph.instantiate()             # else the first replay would
+        torch.cuda.synchronize(device)
+        self.graph = graph
+        self.device_bytes = torch.cuda.memory_allocated(device) - before
+
+    def __call__(self):
+        if self.graph is None:
+            self.body()
+        else:
+            self.graph.replay()
+
+
+class Request:
+    """One generation request in the continuous-batching queue (the JAX
+    package's Request, same slots and status walk).
+
+    submit_t/admit_t/first_tok_t/finish_t are monotonic timestamps
+    (submit_t is always set at submit; the others may stay None with
+    FLAGS_observability=0): queue wait, TTFT and total latency derive
+    from them. ``trace`` is the request's span tree (None when tracing is
+    off or the sampler skipped it): queue_wait -> admit -> decode.
+    ``status`` walks waiting -> running -> one of done/cancelled;
+    "rejected" is terminal at submit.
+
+    ``seed`` folds into the session's sampling generator at the
+    request's first admission (a no-op for greedy sessions). The draws
+    are the port's own: a seed gives one stream within the port, not
+    the JAX package's. ``block_hashes`` carries the prompt's chained
+    full-block prefix hashes (truncated hex), stamped at admission.
+
+    ``priority`` other than 0 and ``deadline_s`` raise
+    NotImplementedError (ROADMAP queue A item 6)."""
+
+    __slots__ = ("req_id", "prompt", "max_new_tokens", "tokens",
+                 "submit_t", "admit_t", "first_tok_t", "finish_t",
+                 "queued_t", "prefix_hit_tokens", "spec_accepted_tokens",
+                 "trace", "trace_ctx", "priority", "deadline_s", "status",
+                 "submit_seq", "preemptions", "seed", "block_hashes",
+                 "token_logprobs", "adapter")
+
+    def __init__(self, req_id, prompt, max_new_tokens: int,
+                 priority: int = 0, deadline_s: Optional[float] = None,
+                 seed: Optional[int] = None,
+                 adapter: Optional[str] = None):
+        if int(priority) != 0:
+            raise NotImplementedError(f"Request priority {UNPORTED}")
+        if deadline_s is not None:
+            raise NotImplementedError(f"Request deadline_s {UNPORTED}")
+        self.req_id = req_id
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.max_new_tokens = int(max_new_tokens)
+        self.priority = 0
+        self.deadline_s = None
+        self.seed = None if seed is None else int(seed)
+        self.adapter = None if adapter is None else str(adapter)
+        self.block_hashes = []
+        self.tokens = []
+        self.submit_t = None
+        self.admit_t = None
+        self.first_tok_t = None
+        self.finish_t = None
+        self.queued_t = None    # last time the request (re)entered the
+        # waiting queue: the base of the current queue_wait span
+        self.trace = None
+        self.trace_ctx = None   # remote traceparent (W3C wire form)
+        self.status = "new"
+        self.submit_seq = -1
+        self.preemptions = 0
+        # prompt tokens whose prefill was skipped (cached-prefix reuse)
+        self.prefix_hit_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.token_logprobs = []
+
+
+class _Slot:
+    __slots__ = ("req", "last_tok", "block_ids", "pending", "first_chunk",
+                 "hit", "cow", "hashes", "draft_prompt", "admit_seq",
+                 "seq_len")
+
+    def __init__(self):
+        self.req = None
+        self.last_tok = 0
+        self.block_ids = []     # pool block ids this slot holds (table
+        # order: shared prefix blocks first, then private blocks)
+        self._clear_prefill()
+        self.admit_seq = -1
+        self.seq_len = 0        # host mirror of the device seq_lens row
+        # (flight-recorder snapshots must never sync device state)
+
+    def _clear_prefill(self):
+        self.pending = None     # remaining prefill tokens (np array)
+        # while mid-prefill; None once the slot is decode-ready
+        self.first_chunk = False
+        self.hit = 0            # prefix-cache hit boundary (tokens)
+        self.cow = None         # (src, dst) block copy for the first chunk
+        self.hashes = []        # prompt full-block hashes, registered
+        # with the pool only once the LAST chunk has written them
+        self.draft_prompt = None
+
+
+@race_track
+class ContinuousBatchingSession:
+    """Mixed prefill+decode serving over persistent slots (the JAX
+    package's ContinuousBatchingSession, sequential engine).
+
+    Finished sequences' slots accept new prompts while the others keep
+    decoding, over a static slot grid and two programs:
+
+    - ``admit``: an [S, C] token buffer with per-slot new-token counts (a
+      freshly admitted slot feeds its right-padded prompt with its cache
+      length reset to its prefix-hit boundary; a decoding slot feeds its
+      last token; an idle slot feeds count 0) -> one next token per live
+      slot. Eager; C is the narrowest power of two over the longest
+      uncached tail (max_prompt_len with the prefix cache off).
+    - ``decode_chunk``: ``chunk`` pure-decode steps for every slot, token
+      selection on the card, one host read of the [chunk, S] tokens per
+      chunk. One CUDA graph on a card (module docstring).
+
+    The KV pools are written in place; the host keeps the request queue
+    (the Scheduler), the slot table, the block table mirror and the
+    prefix-caching block pool (PrefixBlockPool). The session lives on the
+    model's device.
+    """
+
+    def __init__(self, model, slots: int, max_prompt_len: int,
+                 kv_block_size: int = 64, chunk: int = 8,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 eos_token_id: Optional[int] = None,
+                 prefix_cache: bool = True, min_match_blocks: int = 1,
+                 cache_on_free: bool = True,
+                 num_blocks: Optional[int] = None,
+                 speculative=None, prefill_chunk: Optional[int] = None,
+                 max_waiting: Optional[int] = None,
+                 preemption: bool = True,
+                 overlap: Optional[bool] = None,
+                 logprobs: bool = False, lora=None,
+                 quantize_weights=None, kv_dtype=None,
+                 kv_pool_bytes: Optional[int] = None,
+                 kv_tier=None):
+        from ..incubate.nn.functional.paged_kv import (PrefixBlockPool,
+                                                       kv_block_bytes)
+        from ..observability.stepprof import StepProfiler
+        from .scheduler import Scheduler
+
+        _reject_unported(speculative, lora, quantize_weights, kv_dtype,
+                         prefill_chunk, kv_pool_bytes, kv_tier, logprobs,
+                         overlap)
+        adapter = get_model_adapter(model)
+        self.model = model
+        self.slots = slots
+        self.max_prompt_len = max_prompt_len
+        self.chunk = int(chunk)
+        self.eos_token_id = eos_token_id
+        self._do_sample = bool(do_sample)
+        self._temperature = float(temperature)
+        self._top_k = int(top_k)
+        self._top_p = float(top_p)
+        if max_prompt_len > adapter.max_seq_len:
+            raise ValueError("max_prompt_len exceeds the model's "
+                             f"max_seq_len {adapter.max_seq_len}")
+        heads, hdim = adapter.kv_heads, adapter.head_dim
+        n_layers = adapter.num_layers
+        # dynamic allocation: per-slot tables stay static [S, MB] shapes
+        # but their entries are pool block ids assigned at admission;
+        # prefix hits point several slots at the same physical blocks.
+        # Default sizing: every slot can hold a full max_seq_len
+        # sequence; an explicit smaller num_blocks turns on allocation
+        # pressure and LRU eviction.
+        mbs = -(-adapter.max_seq_len // kv_block_size)
+        nblocks = int(num_blocks) if num_blocks is not None else slots * mbs
+        self._kv_pool_bytes = nblocks * kv_block_bytes(
+            n_layers, heads, kv_block_size, hdim, dtype=adapter.dtype)
+        self._blocks_per_slot = mbs
+        self._cache_shape = (nblocks, heads, kv_block_size, hdim)
+        self._cache_dtype = adapter.dtype
+        self.max_cached = adapter.max_seq_len
+        self._device = dev = adapter.device
+        self._run_model = make_run_model(model, adapter)
+        self._kv_block_size = kv_block_size
+        self._num_blocks = nblocks
+
+        # device-resident state. Every tensor the decode graph reads or
+        # writes keeps its address for the session's life: admissions
+        # and frees refill these buffers with copy_, never rebind them
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._kcs = tuple(zeros(*self._cache_shape, dtype=adapter.dtype)
+                          for _ in range(n_layers))
+        self._vcs = tuple(zeros(*self._cache_shape, dtype=adapter.dtype)
+                          for _ in range(n_layers))
+        self._seq_lens = zeros(slots)
+        self._tok_dev = zeros(slots)        # last token per slot
+        self._live_dev = zeros(slots, dtype=torch.bool)
+        self._toks_dev = zeros(self.chunk, slots)    # the chunk's output
+        # host mirror of the tables; entries past a slot's owned blocks
+        # hold the out-of-pool sentinel so padded prefill writes DROP
+        # instead of landing in another slot's blocks
+        self._bt = np.full((slots, mbs), nblocks, np.int32)
+        self._bt_dev = torch.from_numpy(self._bt.copy()).to(dev)
+        self._bt_dirty = False
+        # sampling: one generator for the session (the JAX package's
+        # session key), seeded 0; Request.seed folds into it
+        self._gen = torch.Generator(device=dev)
+        self._gen_seed = 0
+        self._gen.manual_seed(self._gen_seed)
+        self._slots = [_Slot() for _ in range(slots)]
+        # requests finished since the last run(); bounded so a server
+        # driving step() directly cannot leak host memory
+        self._completed = []
+        self._completed_cap = 65536
+        # bumped whenever a slot binds or frees
+        self._slot_version = 0
+        self._steps = 0
+        self.replica_name = os.environ.get("PADDLE_REPLICA_NAME") or None
+        self.serving_role = None
+        # host-side block registry: ref counts, chained prefix hashes,
+        # LRU cache-on-free: the automatic prefix cache
+        self._pool = PrefixBlockPool(
+            nblocks, kv_block_size, prefix_cache=prefix_cache,
+            min_match_blocks=min_match_blocks,
+            cache_on_free=cache_on_free)
+        # cached KV is a function of the weights: admissions compare
+        # this fingerprint and flush the prefix cache when any weight
+        # was replaced or written in place
+        self._param_fingerprint = self._weights_fingerprint()
+        # plain host counters back the stats view unconditionally (the
+        # registry mirrors them only when FLAGS_observability is on)
+        self._admit_steps = 0
+        self._chunk_steps = 0
+        self._tokens_out = 0
+        self._prefix_hits = 0
+        self._prefix_misses = 0
+        self._prefix_hit_tokens = 0
+        self._prefill_tokens = 0
+        self._sched = Scheduler(self, prefill_chunk=None,
+                                max_waiting=max_waiting,
+                                preemption=preemption)
+        # the decode chunk, captured here on a card (admits run eagerly)
+        self._weight_dicts = [(m._parameters, m._buffers)
+                              for m in model.modules()]
+        self._captures = 0
+        self._chunk_prog = None
+        self._build_chunk_program()
+        self._stepprof = StepProfiler(replica=self.replica_name)
+        self._register_overlap_provider()
+        self._register_memz_provider()
+
+    @property
+    def _queue(self):
+        """The scheduler's waiting list."""
+        return self._sched.waiting
+
+    @property
+    def scheduler(self):
+        return self._sched
+
+    # -- programs ----------------------------------------------------------
+    def _weight_addresses(self):
+        """(address, shape, strides, dtype) of every parameter and buffer,
+        read from the modules' own dicts, so a replaced Parameter shows
+        as well as a replaced ``.data``: what the captured decode chunk
+        reads by address. A third of a millisecond for 300 tensors."""
+        return [(t.data_ptr(), t.shape, t.stride(), t.dtype)
+                for params, bufs in self._weight_dicts
+                for t in itertools.chain(params.values(), bufs.values())
+                if t is not None]
+
+    def _build_chunk_program(self):
+        """(Re)build the decode chunk: a CUDA graph on a card, eager on
+        the CPU. A card capture is a ``compile.chunk`` trace span, and
+        the ProgramCache gauges of the JAX package count the captures."""
+        t0 = time.monotonic()
+        self._chunk_prog = None         # a retired graph goes first
+        prog = _ChunkProgram(self._chunk_body, self._device,
+                             self._null_chunk_inputs,
+                             self._weight_addresses(),
+                             self._gen if self._do_sample else None)
+        self._chunk_prog = prog
+        if prog.graph is not None:
+            self._captures += 1
+            _tracer().record_span("compile.chunk", t0)
+        if _obs_enabled():
+            from ..observability import get_registry
+
+            reg = get_registry()
+            reg.gauge("engine_program_cache_programs",
+                      "compiled serving executables resident in the "
+                      "unified ProgramCache").set(int(prog.graph is not None))
+            reg.gauge("engine_program_cache_compiles",
+                      "lifetime ProgramCache compiles (pinned + lazy)"
+                      ).set(self._captures)
+            reg.gauge("engine_program_cache_evictions",
+                      "ProgramCache LRU evictions").set(0)
+
+    def _select(self, lv, live):
+        """Token selection on the card; dead rows emit eos (when set)."""
+        nxt = sample_logits(lv, self._gen, self._do_sample,
+                            self._temperature, self._top_k,
+                            self._top_p).to(torch.int32)
+        if self.eos_token_id is not None:
+            nxt = torch.where(live, nxt, self.eos_token_id)
+        return nxt
+
+    def _admit(self, toks, lens, cow):
+        """One mixed admit dispatch (eager). ``toks`` [S, w] int32 token
+        buffer, ``lens`` [3, S] int32 (new-token counts, reset flags,
+        prefix-hit boundaries), ``cow`` [(src, dst)] block copies to run
+        first. Returns the selected tokens [S] on the device."""
+        dev = self._device
+        with torch.inference_mode():
+            # copy-on-write first: a slot whose whole prompt was cached
+            # gets a private copy of the final shared block before its
+            # 1-token re-prefill writes into it
+            for src, dst in cow:
+                for c in self._kcs + self._vcs:
+                    c[dst].copy_(c[src])
+            toks = torch.from_numpy(toks).to(dev)
+            lens = torch.from_numpy(lens).to(dev)
+            new_lens, reset, hit_lens = lens[0], lens[1] > 0, lens[2]
+            # freshly admitted slots restart their cache at the prefix
+            # hit boundary (0 on a miss); frozen slots (new_lens == 0)
+            # write nothing the session keeps and stay put
+            seq_lens = torch.where(reset, hit_lens, self._seq_lens)
+            lv, _, _, seq_lens = self._run_model(
+                toks, self._kcs, self._vcs, self._bt_dev, seq_lens,
+                seq_lens, new_lens, torch.clamp(new_lens - 1, min=0))
+            self._seq_lens.copy_(seq_lens)
+            nxt = self._select(lv, new_lens > 0)
+            # the selected row doubles as the next chunk's starting
+            # token (mid-prefill and dead rows carry junk there)
+            self._tok_dev.copy_(nxt)
+        return nxt
+
+    def _chunk_body(self):
+        """``chunk`` decode steps over the static buffers: reads the last
+        tokens, the live mask, the table and the cached lengths; writes
+        the pools in place, the [chunk, S] tokens, the last tokens and
+        the advanced lengths. No host read anywhere (capturable)."""
+        with torch.inference_mode():
+            tok, live = self._tok_dev, self._live_dev
+            new_lens = live.to(torch.int32)
+            first = torch.zeros_like(tok)
+            seq_lens = self._seq_lens
+            for t in range(self.chunk):
+                lv, _, _, seq_lens = self._run_model(
+                    tok[:, None], self._kcs, self._vcs, self._bt_dev,
+                    seq_lens, seq_lens, new_lens, first)
+                tok = self._select(lv, live)
+                self._toks_dev[t].copy_(tok)
+            self._seq_lens.copy_(seq_lens)
+            self._tok_dev.copy_(tok)
+
+    def _null_chunk_inputs(self):
+        """Context: every row dead and every table row the sentinel, so
+        a chunk run inside writes no pool byte and advances no length
+        (a capture's warm-up and the capture itself); the last tokens,
+        the table and the sampling generator are put back on exit (the
+        live mask is refilled before every dispatch)."""
+        @contextlib.contextmanager
+        def ctx():
+            tok = self._tok_dev.clone()
+            gen_state = self._gen.get_state()
+            self._live_dev.fill_(False)
+            self._bt_dev.fill_(self._num_blocks)
+            try:
+                yield
+            finally:
+                self._tok_dev.copy_(tok)
+                self._gen.set_state(gen_state)
+                self._bt_dev.copy_(torch.from_numpy(self._bt))
+        return ctx()
+
+    # -- telemetry providers -----------------------------------------------
+    def _register_overlap_provider(self):
+        """Engine state for flight-recorder dumps (weakref'd). The port
+        runs the sequential engine only: nothing is ever staged or in
+        flight between steps."""
+        from ..observability.flight_recorder import register_state_provider
+
+        ref = weakref.ref(self)
+
+        def _provide():
+            sess = ref()
+            if sess is None:
+                return None
+            return {"overlap": False, "inflight_kind": None,
+                    "staged_plan": None,
+                    "slot_version": int(sess._slot_version),
+                    "steps_total": int(sess._steps),
+                    "steps_overlapped": 0, "mispredicts": 0}
+
+        register_state_provider(f"engine_staged_plan_{id(self):x}",
+                                _provide)
+
+    def _weights_bytes(self) -> tuple:
+        """(total_bytes, detail) of the model's weights on the device."""
+        raw = sum(t.numel() * t.element_size()
+                  for t in self.model.state_dict().values())
+        return raw, {"raw_bytes": raw, "quant_bytes": 0,
+                     "quant_mode": None}
+
+    def _register_memz_provider(self):
+        """This session's device memory for the HBM ledger (weakref'd):
+        weights, the paged-KV pool and the captured graphs."""
+        from ..observability.memz import register_memz_provider
+
+        ref = weakref.ref(self)
+
+        def _provide():
+            sess = ref()
+            if sess is None:
+                return None
+            weights, wdetail = sess._weights_bytes()
+            comps = {"weights": weights,
+                     "kv_pool": int(sess._kv_pool_bytes),
+                     "executables": sess._chunk_prog.device_bytes}
+            detail = {"weights": wdetail,
+                      "kv_pool": {"num_blocks": int(sess._num_blocks),
+                                  "kv_dtype": str(sess._cache_dtype)
+                                  .replace("torch.", "")},
+                      "executables": {"decode_chunk_graph":
+                                      sess._chunk_prog.graph is not None},
+                      "replica": sess.replica_name,
+                      "role": sess.serving_role}
+            return {"components": comps, "detail": detail}
+
+        register_memz_provider(f"serving_session_{id(self):x}", _provide)
+
+    @property
+    def stats(self):
+        """Step/token/prefix-cache counters, with the JAX package's keys
+        (the features the port lacks count 0)."""
+        return {"admit_steps": self._admit_steps,
+                "chunk_steps": self._chunk_steps,
+                "tokens_out": self._tokens_out,
+                "prefix_hits": self._prefix_hits,
+                "prefix_misses": self._prefix_misses,
+                "prefix_hit_tokens": self._prefix_hit_tokens,
+                "prefill_tokens": self._prefill_tokens,
+                "prefix_evictions": self._pool.evictions,
+                "prefix_cow": self._pool.cow_copies,
+                "spec_steps": 0, "spec_proposed_tokens": 0,
+                "spec_accepted_tokens": 0, "kv_spills": 0,
+                "kv_restores": 0, "kv_fetches": 0, "kv_fetch_hits": 0,
+                "kv_spill_us": 0.0, "kv_restore_us": 0.0,
+                "preemptions": self._sched.preemptions,
+                "expirations": self._sched.expirations,
+                "cancellations": self._sched.cancellations,
+                "rejections": self._sched.rejections}
+
+    @stats.setter
+    def stats(self, d):
+        """Resettable for benchmarking loops; registry counters are
+        monotonic and are not rewound."""
+        self._admit_steps = int(d.get("admit_steps", 0))
+        self._chunk_steps = int(d.get("chunk_steps", 0))
+        self._tokens_out = int(d.get("tokens_out", 0))
+        self._prefix_hits = int(d.get("prefix_hits", 0))
+        self._prefix_misses = int(d.get("prefix_misses", 0))
+        self._prefix_hit_tokens = int(d.get("prefix_hit_tokens", 0))
+        self._prefill_tokens = int(d.get("prefill_tokens", 0))
+        self._pool.evictions = int(d.get("prefix_evictions", 0))
+        self._pool.cow_copies = int(d.get("prefix_cow", 0))
+        self._sched.preemptions = int(d.get("preemptions", 0))
+        self._sched.expirations = int(d.get("expirations", 0))
+        self._sched.cancellations = int(d.get("cancellations", 0))
+        self._sched.rejections = int(d.get("rejections", 0))
+
+    def flush_prefix_cache(self):
+        """Drop every cached prefix hash (live requests keep serving).
+        Called automatically when a weight update is detected; public
+        for servers that change weights in ways the fingerprint cannot
+        see (writes through ``.data``)."""
+        self._pool.flush_cache()
+
+    # -- telemetry ---------------------------------------------------------
+    def _record_state_metrics(self, sm):
+        """Occupancy + liveness gauges after a step, from the block
+        registry's breakdown: a block shared by several slots counts
+        once."""
+        live = [s.req is not None for s in self._slots]
+        occ = self._pool.occupancy()
+        sm["kv_blocks_used"].set(occ["referenced"])
+        sm["kv_occupancy"].set(occ["referenced"]
+                               / max(1, self._num_blocks))
+        sm["prefix_cache_blocks"].set(occ["cached"])
+        for state in ("referenced", "cached", "free"):
+            sm["kv_blocks_state"].set(occ[state], state=state)
+        sm["live_slots"].set(sum(live))
+        sm["queue_depth"].set(len(self._queue))
+        mon = _slo()
+        mon.observe("queue_depth", float(len(self._queue)))
+        # burn-rate evaluation rides the step loop, rate-limited to
+        # ~1 Hz inside the monitor
+        mon.maybe_evaluate()
+
+    # -- host-side queue/slot management ----------------------------------
+    def submit(self, req: Request):
+        """Validate + enqueue through the scheduler. Raises a typed
+        ``InvalidRequest`` (a ValueError) for requests that can never
+        be served, and ``AdmissionRejected`` when the bounded waiting
+        queue (max_waiting) is full."""
+        self._sched.submit(req)
+
+    def cancel(self, req_id) -> bool:
+        """Cancel a waiting or running request: its blocks free at the
+        next step boundary (immediately when no step is in flight) and
+        it terminates with status "cancelled". Returns False for
+        unknown/already-terminal ids."""
+        return self._sched.cancel(req_id)
+
+    def preempt(self, req_id=None):
+        raise NotImplementedError(f"preempt() {UNPORTED}")
+
+    def _preempt_slot(self, i):
+        raise NotImplementedError(f"preemption {UNPORTED}")
+
+    def _collect(self, i, slot, tok, obs=False):
+        """Record one emitted token; evict slot `i` on completion."""
+        req = slot.req
+        if req is None:
+            return
+        req.tokens.append(int(tok))
+        slot.last_tok = int(tok)
+        if req.first_tok_t is None:
+            req.first_tok_t = time.monotonic()
+            if obs and req.submit_t is not None:
+                ttft_s = req.first_tok_t - req.submit_t
+                _serving_metrics()["ttft"].observe(ttft_s)
+                _slo().observe("ttft", ttft_s)
+        hit_eos = (self.eos_token_id is not None
+                   and int(tok) == self.eos_token_id)
+        if hit_eos or len(req.tokens) >= req.max_new_tokens:
+            req.status = "done"
+            req.finish_t = time.monotonic()
+            # slot freed (cache junk is reset on admit); blocks return
+            # to the pool with their prompt-prefix hashes retained
+            # (cache-on-free): the next identical prefix revives them
+            self._free_slot(i)
+            self._completed.append(req)
+            if obs:
+                self._finish_request(req, hit_eos)
+            self._trim_completed()
+        self._tokens_out += 1
+
+    def _trim_completed(self):
+        if len(self._completed) > self._completed_cap:
+            import warnings
+
+            warnings.warn(
+                "ContinuousBatchingSession: completed-request buffer "
+                "exceeded its cap (run() never called?); dropping "
+                "oldest results", stacklevel=2)
+            del self._completed[:len(self._completed) // 2]
+
+    def _free_slot(self, i):
+        """Release slot `i` back to the pool and neutralize its table
+        row. Every dispatch writes ALL rows (new_lens masks reads, not
+        writes), and the released blocks may be recycled to another
+        slot: the out-of-pool sentinel makes the dead row's phantom
+        writes drop instead of corrupting the new owner's KV."""
+        slot = self._slots[i]
+        slot.req = None
+        self._slot_version += 1
+        self._pool.release(slot.block_ids)
+        slot.block_ids = []
+        slot._clear_prefill()
+        slot.seq_len = 0
+        self._bt[i, :] = self._num_blocks
+        self._bt_dirty = True
+
+    def _terminate(self, req, status, slot=None):
+        """Terminal path for cancellation/rejection: free any held slot
+        immediately, stamp the typed status, emit the typed event, and
+        surface the request (with the tokens it already produced)
+        through run()."""
+        if slot is not None:
+            self._free_slot(slot)
+        req.status = status
+        req.finish_t = time.monotonic()
+        self._completed.append(req)
+        self._trim_completed()
+        self._sched._emit_terminal_event(req, status)
+        if _obs_enabled():
+            if req.trace is not None:
+                _tracer().finish_trace(req.trace, t1=req.finish_t,
+                                       n_tokens=len(req.tokens),
+                                       status=status,
+                                       role=self.serving_role)
+                req.trace = None
+            sm = _serving_metrics()
+            sm["queue_depth"].set(len(self._sched.waiting))
+            # cancellation is a client choice, not an SLO violation
+            _slo().observe_request(ok=(status == "cancelled"))
+
+    def _finish_request(self, req, hit_eos):
+        """Completion metrics + the structured per-request event (with
+        trace_id + per-phase durations when the request was traced)."""
+        from ..observability import get_event_log
+
+        now = time.monotonic()
+        sm = _serving_metrics()
+        sm["requests_completed"].inc(
+            **({"replica": self.replica_name} if self.replica_name
+               else {}))
+        _slo().observe_request(ok=True)
+        total_s = (now - req.submit_t) if req.submit_t is not None else None
+        if total_s is not None:
+            sm["request_latency"].observe(total_s)
+        trace, phases = req.trace, None
+        if trace is not None:
+            from ..observability.tracing import phase_breakdown
+
+            _tracer().finish_trace(
+                trace, t1=now, n_tokens=len(req.tokens),
+                eos=bool(hit_eos), role=self.serving_role)
+            phases = phase_breakdown(trace)
+        rnd = lambda v: None if v is None else round(v, 6)  # noqa: E731
+        get_event_log().emit(
+            "serving.request_done", req_id=str(req.req_id),
+            replica=self.replica_name,
+            adapter=req.adapter,
+            block_hashes=req.block_hashes or None,
+            prompt_len=len(req.prompt), n_tokens=len(req.tokens),
+            prefix_hit_tokens=int(req.prefix_hit_tokens),
+            spec_accepted_tokens=int(req.spec_accepted_tokens),
+            preemptions=int(req.preemptions),
+            eos=bool(hit_eos), total_s=rnd(total_s),
+            queue_wait_s=rnd((req.admit_t - req.submit_t)
+                             if req.admit_t is not None
+                             and req.submit_t is not None else None),
+            ttft_s=rnd((req.first_tok_t - req.submit_t)
+                       if req.first_tok_t is not None
+                       and req.submit_t is not None else None),
+            trace_id=None if trace is None else trace.trace_id,
+            fleet_trace_id=None if trace is None
+            else trace.attrs.get("fleet_trace_id"),
+            role=self.serving_role,
+            phases=phases)
+
+    def _weights_fingerprint(self):
+        """(name, address, version) of every weight: a replaced tensor
+        changes the address, an in-place write (an optimizer step, a
+        ``no_grad`` assignment) the version."""
+        return [(n, t.data_ptr(), t._version)
+                for n, t in self.model.state_dict(keep_vars=True).items()]
+
+    def _check_weight_swap(self):
+        """Cached KV belongs to the weights that computed it: if any
+        weight was replaced or written since the last admission, flush
+        every cached hash (live blocks keep serving: their requests
+        started under the old weights and already hold the matching
+        KV). A replaced weight's new address reaches the decode graph
+        in ``_dispatch_decode``, at every chunk, queue or no queue."""
+        cur = self._weights_fingerprint()
+        if cur == self._param_fingerprint:
+            return
+        self.flush_prefix_cache()
+        self._param_fingerprint = cur
+
+    def _effective_prompt(self, req):
+        """The token history an admission must prefill: the prompt for a
+        fresh request; prompt + already-emitted tokens for a preempted
+        one."""
+        if not req.tokens:
+            return req.prompt
+        return np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+
+    def _plan_admission(self, req):
+        """Block plan for admitting `req`: (table, hit_tokens, cow,
+        hashes) or None when the pool cannot supply the blocks even
+        after LRU-evicting unreferenced cached blocks (the request stays
+        queued; allocation is all-or-nothing so waiting can never
+        deadlock).
+
+        table      full list of pool block ids (prompt + decode room)
+        hit_tokens prefill starts here (0 = full prefill)
+        cow        (src, dst) device block copy to run before admit, or
+                   None: the full-prompt-hit case, where every prompt
+                   block is cached but the last token must still run to
+                   produce logits, so the final shared block is first
+                   copied to a private one and exactly one token is
+                   re-prefilled into the copy
+        hashes     chained hashes of the prompt's full blocks, for
+                   registration once the admit has written them"""
+        pool, bs = self._pool, self._kv_block_size
+        ep = self._effective_prompt(req)
+        plen = len(ep)
+        total = -(-(plen + req.max_new_tokens - len(req.tokens)) // bs)
+        matched, hashes = pool.match(ep)
+        hit = len(matched) * bs
+        cow = None
+        extra = 1 if (matched and hit >= plen) else 0
+        fresh = pool.allocate(total - len(matched) + extra)
+        if fresh is None and extra:
+            # the CoW copy is the one block that didn't fit: recompute
+            # the final matched block instead of copying it
+            pool.release(matched[-1:])
+            matched = matched[:-1]
+            if len(matched) < pool.min_match_blocks:
+                pool.release(matched)
+                matched = []
+            hit = len(matched) * bs
+            extra = 0
+            fresh = pool.allocate(total - len(matched))
+        if fresh is None:
+            # full pool: release the match and retry later
+            pool.release(matched)
+            return None, 0, None, hashes
+        if extra:
+            src = matched[-1]
+            cow = (src, fresh[0])
+            matched = matched[:-1] + [fresh[0]]
+            fresh = fresh[1:]
+            pool.release([src])      # the private copy replaces the ref
+            hit = plen - 1
+            pool.cow_copies += 1
+        return matched + fresh, hit, cow, hashes
+
+    def _bind_slot(self, i, req, plan, now, admit_seq):
+        """Bind an admitted request to slot `i` per the block plan:
+        table row, pending prefill tail, bookkeeping + admission
+        telemetry. The prefill runs on the next dispatch."""
+        table, hit, cow, hashes = plan
+        nb = self._num_blocks
+        slot = self._slots[i]
+        ep = self._effective_prompt(req)
+        if req.seed is not None and req.admit_t is None:
+            # first admission only: fold the seed into the generator
+            self._gen_seed = hash((self._gen_seed,
+                                   req.seed & 0x7FFFFFFF)) & 0x7FFFFFFF
+            self._gen.manual_seed(self._gen_seed)
+        req.block_hashes = [h.hex()[:16] for h in hashes]
+        slot.req = req
+        self._slot_version += 1
+        slot.block_ids = table
+        self._bt[i, :len(table)] = table
+        self._bt[i, len(table):] = nb        # sentinel
+        self._bt_dirty = True
+        slot.pending = np.asarray(ep[hit:], np.int32)
+        slot.first_chunk = True
+        slot.hit = hit
+        slot.cow = cow
+        slot.hashes = hashes
+        slot.draft_prompt = ep
+        slot.admit_seq = admit_seq
+        slot.seq_len = hit
+        req.status = "running"
+        req.admit_t = now
+        req.prefix_hit_tokens = hit
+        if hit:
+            self._prefix_hits += 1
+            self._prefix_hit_tokens += hit
+        else:
+            self._prefix_misses += 1
+        self._prefill_tokens += len(ep) - hit
+        if _obs_enabled():
+            if req.trace is not None:
+                req.trace.add_span(
+                    "queue_wait",
+                    req.queued_t if req.queued_t is not None else now,
+                    now, requeued=bool(req.preemptions))
+            sm = _serving_metrics()
+            if req.queued_t is not None:
+                sm["queue_wait"].observe(now - req.queued_t)
+                _slo().observe("queue_wait", now - req.queued_t)
+            sm["prefix_hits" if hit else "prefix_misses"].inc()
+            if hit:
+                sm["prefix_hit_tokens"].inc(hit)
+            sm["prefill_tokens"].inc(len(ep) - hit)
+            if cow is not None:
+                sm["prefix_cow"].inc()
+            sm["queue_depth"].set(len(self._sched.waiting))
+
+    def step(self):
+        """One scheduling step. The scheduler first applies pending
+        cancellations, then plans this step's prefill work: new
+        admissions into free slots. Any prefill work runs as ONE mixed
+        admit dispatch with every decode-ready slot riding along for one
+        token; with no prefill work, the live slots run a pure-decode
+        chunk. Returns False when no work remains."""
+        sched = self._sched
+        now = time.monotonic()
+        sched.begin_step(now)
+        if not sched.waiting \
+                and not any(s.req is not None for s in self._slots):
+            return False
+        obs = _obs_enabled()
+        t0 = time.monotonic() if obs else 0.0
+        # step attribution span (None when the step_profile flag is
+        # off): plan runs until mark_dispatch, the harvest sync sits
+        # between mark_harvest/mark_harvested, end() attributes the
+        # rest to the host bubble
+        sp = self._stepprof.begin()
+        sched._in_step = True
+        self._steps += 1
+        try:
+            work = sched.plan_step(time.monotonic())
+            if work:
+                self._run_prefill(work, obs, t0, sp)
+                return True
+            if not any(s.req is not None for s in self._slots):
+                # queue non-empty but nothing admitted and no live work:
+                # impossible by construction (zero live slots frees
+                # every block, and submit() bounds each request to the
+                # pool). Guard instead of spinning.
+                raise RuntimeError(
+                    "no admissible request and no live slot")
+            return self._decode_step(obs, t0, sp)
+        finally:
+            sched._in_step = False
+
+    def _dispatch_decode(self, obs, t0, sp=None):
+        """Launch one pure-decode chunk from device-resident state and
+        return the inflight record (results not yet harvested). Dead
+        rows start from junk tokens, which is safe: rows are
+        independent, sentinel tables drop their writes, and select()
+        masks their outputs to eos. The graph reads every weight by
+        address: a weight replaced since it was captured
+        (``param.data = ...``, ``load_state_dict(assign=True)``)
+        re-captures it first, so a replay never reads a freed one."""
+        if self._weight_addresses() != self._chunk_prog.weights:
+            self._build_chunk_program()
+        live = [s.req is not None for s in self._slots]
+        self._live_dev.copy_(torch.tensor(live))
+        if self._bt_dirty:      # freed-slot rows were neutralized
+            self._bt_dev.copy_(torch.from_numpy(self._bt))
+            self._bt_dirty = False
+        if sp:
+            sp.kind = "decode"
+            sp.mark_dispatch()
+        self._chunk_prog()
+        self._chunk_steps += 1
+        return {"kind": "decode", "toks": self._toks_dev, "live": live,
+                "t0": t0 if obs else 0.0}
+
+    def _decode_bookkeeping(self, inflight, toks_np, obs) -> int:
+        """Commit one harvested decode chunk: trace spans, seq_len
+        advances, per-token collection (eos/max_new may free slots),
+        and metrics."""
+        live = inflight["live"]
+        t0 = inflight["t0"]
+        if obs:
+            t1 = time.monotonic()
+            for i, s in enumerate(self._slots):
+                if (s.req is not None and live[i]
+                        and s.req.trace is not None):
+                    s.req.trace.add_span("decode", t0, t1,
+                                         tokens=self.chunk, via="chunk")
+        for i, l in enumerate(live):
+            if l:
+                self._slots[i].seq_len += self.chunk
+        n_emitted = 0
+        for t in range(self.chunk):
+            for i, s in enumerate(self._slots):
+                if s.req is not None and live[i]:
+                    self._collect(i, s, toks_np[t, i], obs)
+                    n_emitted += 1
+        if obs:
+            sm = _serving_metrics()
+            sm["chunk_steps"].inc()
+            sm["tokens"].inc(n_emitted)
+            dt = time.monotonic() - t0
+            # every live sequence advanced `chunk` tokens in dt
+            if n_emitted:
+                sm["tpot"].observe_many(dt / max(1, self.chunk),
+                                        n_emitted)
+                _slo().observe("tpot", dt / max(1, self.chunk),
+                               count=n_emitted)
+            self._record_state_metrics(sm)
+        return n_emitted
+
+    def _run_prefill(self, work, obs, t0, sp=None):
+        """One mixed admit dispatch: every slot in `work` feeds its
+        prefill (bounded by the scheduler's chunk budget); every other
+        live, decode-ready slot rides along with its last token. Hash
+        registration happens once a slot's last chunk has written its
+        blocks."""
+        S = self.slots
+        nb = self._num_blocks
+        cap = self._sched.chunk_cap()
+        lens = np.zeros((3, S), np.int32)    # new_lens, reset, hit_lens
+        new_lens, reset, hit_lens = lens
+        cow = []
+        chunks = {}
+        for i in work:
+            s = self._slots[i]
+            n = min(len(s.pending), cap)
+            chunks[i] = n
+            new_lens[i] = n
+            if s.first_chunk:
+                reset[i] = 1
+                hit_lens[i] = s.hit
+                if s.cow is not None:
+                    cow.append(s.cow)
+        riders = [i for i, s in enumerate(self._slots)
+                  if s.req is not None and i not in chunks]
+        for i in riders:
+            new_lens[i] = 1
+        # the token buffer's width: the narrowest power of two over the
+        # longest tail, max_prompt_len with the prefix cache off (the
+        # JAX package's admit ladder)
+        w = pow2_width(int(new_lens.max()) if self._pool.prefix_cache
+                       else self.max_prompt_len, self.max_prompt_len)
+        toks = np.zeros((S, w), np.int32)
+        for i, n in chunks.items():
+            toks[i, :n] = self._slots[i].pending[:n]
+        for i in riders:
+            toks[i, 0] = self._slots[i].last_tok
+        if self._bt_dirty:
+            self._bt_dev.copy_(torch.from_numpy(self._bt))
+            self._bt_dirty = False
+        if sp:
+            sp.kind = "admit"
+            sp.mark_dispatch()
+        nxt_dev = self._admit(toks, lens, cow)
+        if sp:
+            sp.mark_harvest()
+        nxt = _harvest_sync(nxt_dev)
+        if sp:
+            sp.mark_harvested()
+        # span the dispatch BEFORE _collect: a request can complete on
+        # its very first token, and its trace closes inside _collect
+        t1 = time.monotonic() if obs else 0.0
+        n_stream = 0
+        for i, n in chunks.items():
+            s = self._slots[i]
+            s.pending = s.pending[n:]
+            s.seq_len += n
+            final = len(s.pending) == 0
+            s.first_chunk = False
+            cowed = s.cow is not None
+            s.cow = None
+            if obs and s.req.trace is not None:
+                s.req.trace.add_span(
+                    "admit", t0, t1, width=w,
+                    prefill_tokens=int(n),
+                    prefix_hit_tokens=int(hit_lens[i]),
+                    cow=cowed, final=final)
+            if final:
+                # the last chunk has WRITTEN every prompt block:
+                # register the chained hashes so the next identical
+                # prefix shares them (first writer wins)
+                for k, h in enumerate(s.hashes):
+                    self._pool.register(s.block_ids[k], h)
+                s._clear_prefill()
+                self._collect(i, s, nxt[i], obs)
+                n_stream += 1
+            # else: mid-prompt logits, the selected token is discarded
+        for i in riders:
+            s = self._slots[i]
+            s.seq_len += 1
+            if obs and s.req is not None and s.req.trace is not None:
+                s.req.trace.add_span("decode", t0, t1, tokens=1,
+                                     via="admit")
+            self._collect(i, s, nxt[i], obs)
+            n_stream += 1
+        self._admit_steps += 1
+        if obs:
+            sm = _serving_metrics()
+            sm["admit_steps"].inc()
+            sm["tokens"].inc(n_stream)
+            dt = time.monotonic() - t0
+            for _ in riders:
+                sm["tpot"].observe(dt)
+            if riders:
+                _slo().observe("tpot", dt, count=len(riders))
+            self._record_state_metrics(sm)
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n_stream,
+                live=sum(s.req is not None for s in self._slots))
+
+    def _decode_step(self, obs, t0, sp=None):
+        """One pure-decode chunk for the live slots: dispatch, the one
+        harvest read of its [chunk, S] tokens, bookkeeping."""
+        inflight = self._dispatch_decode(obs, t0, sp)
+        if sp:
+            sp.mark_harvest()
+        toks_np = _harvest_sync(inflight["toks"])   # [chunk, S]
+        if sp:
+            sp.mark_harvested()
+        n_emitted = self._decode_bookkeeping(inflight, toks_np, obs)
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n_emitted,
+                live=sum(s.req is not None for s in self._slots))
+        return True
+
+    def run(self):
+        """Drain the queue; returns {req_id: generated token array} for
+        every request completed since the previous run(), including
+        those that finished during manual step() calls."""
+        while self.step():
+            pass
+        done = {r.req_id: np.asarray(r.tokens, np.int64)
+                for r in self._completed}
+        self._completed = []
+        return done
+
+
+race_handoff("ContinuousBatchingSession.*",
+             "session-init on the caller thread, then engine-thread "
+             "single-writer (one thread drives step()/run())")

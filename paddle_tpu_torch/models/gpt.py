@@ -178,6 +178,13 @@ class GPTModel(nn.Module):
         this call)."""
         pos = _positions(0 if caches is None else pos_offset,
                          input_ids.shape[1], input_ids.device)
+        if caches is not None:
+            # the pad columns of a right-padded serving buffer (a slot
+            # riding an admit with one token, a dead row) may sit past
+            # the table; JAX's take fills them with NaN, a gather on a
+            # card would fault. Only pad rows can get here: submit()
+            # bounds every real token below max_seq_len
+            pos = torch.clamp(pos, max=self.cfg.max_seq_len - 1)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         if caches is None:
             for blk in self.blocks:
