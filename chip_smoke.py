@@ -2,7 +2,8 @@
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
 Phases, in order (15 and 16 run right after 4 and 5, on the models those
-build); any failure exits non-zero before the last line:
+build, and 17 right after 12); any failure exits non-zero before the last
+line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
@@ -106,6 +107,19 @@ build); any failure exits non-zero before the last line:
      around the replay over the chunk step's host time), peak memory.
  16. GPT-3 1.3B the same way ([serve_cb_gpt]; 8 x 49 LayerNorm kernels
      a chunk).
+ 17. The JAX package's own single-chip training recipes ([train_recipe]):
+     GPT-3 1.3B (bench.py `bench_gpt13b`) and TinyLlama-1.1B (`bench_llama`)
+     at B=8, S=2048, full width and depth, recompute on every block,
+     AdamW with bf16 moments, stochastic rounding and use_multi_tensor,
+     decorate(O2, master_weight=False) (GPT also a linear warm-up into a
+     cosine decay and a global-norm clip at 1.0), 2 warm-up and 3 timed
+     steps: losses finite; every parameter bf16, no fp32 master, bf16
+     moments above 2^18 elements and fp32 below; the recomputed forward
+     runs each block's norms and attention again (GPT 97 K2, 49 K3, 48
+     K4, 24 K5 a step; TinyLlama 89 K1, 44 K4, 22 K5; 0 plain). Step ms,
+     tokens/s, MFU (the recomputed forward not counted), peak memory, the
+     card's share of a step, the persistent bytes and the state's dtype
+     census.
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -1718,20 +1732,28 @@ def _train_counts(kernels):
 
 
 def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
-           timed=3, profile=True, seq=TRAIN_S):
+           timed=3, profile=True, seq=TRAIN_S, recipe=None, inspect=None):
     """``warmup`` and ``timed`` bf16 O2 AdamW steps of ``model`` on one
     batch of [batch, seq] tokens from a seed, through the port's entry
-    points. Every kernel of ``path`` must launch ``per_step`` times a step
-    with 0 plain calls, every kernel of ``absent`` never; the loss must
-    be finite and, over two or more timed steps, fall."""
+    points: AdamW with fp32 masters and moments, or ``recipe(model)`` ->
+    (model, optimizer, LR scheduler or None; stepped after each step).
+    Every kernel of ``path`` must launch ``per_step`` times a step with 0
+    plain calls, every kernel of ``absent`` never; the loss must be
+    finite and, over two or more timed steps, fall.
+    ``inspect(model, opt)`` runs after the timed steps; its dict joins
+    the result."""
     import paddle_tpu_torch as ptt
 
     cfg = model.cfg
-    opt = ptt.optimizer.AdamW(parameters=model.parameters(),
-                              learning_rate=1e-4, use_multi_tensor=True,
-                              multi_precision=True)
-    model, opt = ptt.amp.decorate(models=model, optimizers=opt, level="O2",
-                                  dtype="bfloat16")
+    sched = None
+    if recipe is None:
+        opt = ptt.optimizer.AdamW(parameters=model.parameters(),
+                                  learning_rate=1e-4, use_multi_tensor=True,
+                                  multi_precision=True)
+        model, opt = ptt.amp.decorate(models=model, optimizers=opt,
+                                      level="O2", dtype="bfloat16")
+    else:
+        model, opt, sched = recipe(model)
     n_params = sum(p.numel() for p in model.parameters())
     rs = np.random.RandomState(0)
     ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
@@ -1744,6 +1766,8 @@ def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
         loss.backward()
         opt.step()
         opt.clear_grad()
+        if sched is not None:
+            sched.step()
         return loss.detach()
 
     everything = path + absent
@@ -1778,6 +1802,8 @@ def _train(tag, title, model, batch, path, per_step, absent, warmup=2,
                mfu=model_flops / (step_ms / 1e3) / BF16_FLOPS,
                launches={s_: c[0] for s_, c in counts.items()},
                plain_calls={s_: c[1] for s_, c in counts.items()})
+    if inspect is not None:
+        res.update(inspect(model, opt))
     print(f"[{tag}] {title} ({n_params / 1e9:.3f} B params), B={batch}, "
           f"S={seq}, bf16 O2 AdamW: losses "
           + ", ".join(f"{v:.4f}" for v in losses)
@@ -2004,6 +2030,135 @@ def phase_train_llama():
     print(f"[train_llama] {base_gb:.1f} GiB of the peak was held before the "
           f"phase")
     return res
+
+
+def _recipe(gpt):
+    """bench.py's single-chip optimizer plan (`bench_gpt13b`, `bench_llama`):
+    AdamW with bf16 moments, stochastic rounding and use_multi_tensor, the
+    model decorated O2 without master weights. GPT adds GPT-3's
+    pretraining options (Brown et al. 2020, appendix B), JAX package
+    features both: a linear warm-up into a cosine decay and a global-norm
+    clip at 1.0. -> recipe(model) -> (model, optimizer, scheduler)."""
+    import paddle_tpu_torch as ptt
+
+    def build(model):
+        lr, extra, sched = 1e-4, {}, None
+        if gpt:
+            sched = lr = ptt.optimizer.lr.LinearWarmup(
+                ptt.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=3),
+                warmup_steps=2, start_lr=0.0, end_lr=1e-4)
+            extra["grad_clip"] = ptt.nn.ClipGradByGlobalNorm(1.0)
+        opt = ptt.optimizer.AdamW(parameters=model.parameters(),
+                                  learning_rate=lr, use_multi_tensor=True,
+                                  moment_dtype="bfloat16",
+                                  stochastic_rounding=True, **extra)
+        model, opt = ptt.amp.decorate(models=model, optimizers=opt,
+                                      level="O2", dtype="bfloat16",
+                                      master_weight=False)
+        return model, opt, sched
+    return build
+
+
+def _recipe_state(tag):
+    """inspect(model, opt) of a recipe run: the persistent bytes of the
+    parameters, their gradients (bf16, live from the backward to
+    clear_grad) and the optimizer state, its dtype census, and the checks
+    of the plan: every parameter bf16, no fp32 master, bf16 moments above
+    2^18 elements and fp32 ones (the multi-tensor path's) below."""
+    def inspect(model, opt):
+        big = opt._FUSE_MAX_NUMEL
+        params = list(model.parameters())
+        p_bytes = sum(p.numel() * p.element_size() for p in params)
+        check(all(p.dtype == torch.bfloat16 for p in params),
+              f"{tag}: a parameter is not bf16")
+        check(not opt._master_weights, f"{tag}: fp32 master weights exist")
+        census, s_bytes = {}, 0
+        for acc, store in opt._accumulators.items():
+            for name, t in store.items():
+                if not isinstance(t, torch.Tensor):
+                    continue            # the beta powers: host scalars
+                key = f"{acc} {str(t.dtype)[6:]}"
+                n, c = census.get(key, (0, 0))
+                census[key] = (n + 1, c + t.numel())
+                s_bytes += t.numel() * t.element_size()
+        for p in params:
+            name = opt._name(p)
+            for acc in ("moment1", "moment2"):
+                t = opt._accumulators[acc][name]
+                want = torch.bfloat16 if p.numel() > big else torch.float32
+                check(t.dtype == want, f"{tag}: {name} {acc} is {t.dtype}, "
+                      f"want {want} ({p.numel()} elements)")
+        print(f"[{tag}] persistent: parameters {p_bytes / 1e9:.3f} GB "
+              f"(bf16), gradients {p_bytes / 1e9:.3f} GB (bf16), optimizer "
+              f"state {s_bytes / 1e9:.3f} GB; census (tensors, elements): "
+              + ", ".join(f"{k} {v[0]} / {v[1]}" for k, v in
+                          sorted(census.items()))
+              + f"; beta powers host fp32; fp32 masters: none")
+        return dict(param_bytes=p_bytes, grad_bytes=p_bytes,
+                    state_bytes=s_bytes,
+                    census={k: list(v) for k, v in census.items()})
+    return inspect
+
+
+def phase_train_recipe():
+    """The JAX package's single-chip training recipes at full width and
+    depth: GPT-3 1.3B (bench.py:276-311, `bench_gpt13b`) and
+    TinyLlama-1.1B (bench.py:376-407, `bench_llama`), B=8, S=2048,
+    recompute, bf16 moments with stochastic rounding, no fp32 masters
+    (GPT with the warm-up-cosine schedule and the global-norm clip).
+    Each recomputed block runs its norms and attention forward twice:
+    GPT 97 K2 (49 + 48), 49 K3, 48 K4 (24 + 24), 24 K5 a step; TinyLlama
+    89 K1 (45 + 44), 44 grouped K4, 22 grouped K5."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_1p3b)
+    from paddle_tpu_torch.nn.functional import norm
+
+    out = {}
+    ln = (norm.LAYER_NORM_KERNEL, norm.LAYER_NORM_BWD_KERNEL)
+    attn = (fa.FLASH_FWD_KERNEL, fa.FLASH_BWD_KERNEL)
+    hm = (fa.FLASH_FWD_HM_KERNEL, fa.FLASH_BWD_HM_KERNEL,
+          fa.FLASH_BWD_HM_SPLIT_KERNEL)
+    for key, title, build, path, per_step, absent in (
+            ("gpt", "GPT-3 1.3B, recompute, bf16 moments + SR, no masters",
+             lambda: GPTForCausalLM(gpt3_1p3b(recompute=True), device="cuda",
+                                    generator=seed(1234, "cuda")),
+             attn + ln, lambda n: (2 * n, n, 4 * n + 1, 2 * n + 1),
+             (fused_ops.RMS_NORM_KERNEL,) + hm + _fp32_entries(fa)),
+            ("tinyllama", "TinyLlama-1.1B (GQA 32:4), recompute, bf16 "
+             "moments + SR, no masters",
+             lambda: LlamaForCausalLM(replace(tinyllama_1p1b(),
+                                              recompute=True), device="cuda",
+                                      generator=seed(1234, "cuda")),
+             attn + (fused_ops.RMS_NORM_KERNEL,),
+             lambda n: (2 * n, n, 4 * n + 1),
+             ln + hm + _fp32_entries(fa))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 2 ** 30
+        model = build()
+        n = model.cfg.num_layers
+        tag = f"train_recipe {key}"
+        res = _train(tag, title, model, TRAIN_LLAMA_B, path, per_step(n),
+                     absent, recipe=_recipe(key == "gpt"),
+                     inspect=_recipe_state(tag))
+        if key == "gpt":
+            # lr 0 at the first step: the weights must not move (stochastic
+            # rounding leaves representable values as they are)
+            check(res["losses"][0] == res["losses"][1],
+                  f"{tag}: the weights moved at lr 0: {res['losses']}")
+        res["base_gb"] = base_gb
+        print(f"[{tag}] MFU counts 6 N B S plus attention; the recomputed "
+              f"forward is not counted. {base_gb:.1f} GiB of the peak was "
+              f"held before the phase")
+        out[key] = res
+        del model
+    return out
 
 
 def phase_train_card_vs_cpu():
@@ -2834,6 +2989,7 @@ def main():
                       ("train_hm", phase_train_hm),
                       ("train_long", phase_train_long),
                       ("train_llama", phase_train_llama),
+                      ("train_recipe", phase_train_recipe),
                       ("train_card_vs_cpu", phase_train_card_vs_cpu),
                       ("custom_op", phase_custom_op)):
         t0 = time.perf_counter()
@@ -2856,6 +3012,8 @@ def main():
     hm_llama = rec["train_hm"]["tinyllama"]["launches"]
     ll = rec["train_llama"]["launches"]
     long = rec["train_long"]["launches"]
+    r_gpt = rec["train_recipe"]["gpt"]["launches"]
+    r_llama = rec["train_recipe"]["tinyllama"]["launches"]
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -2865,7 +3023,8 @@ def main():
         ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
          {"tinyllama train": ll["ptt_rms_norm_fwd"],
-          "tinyllama-width hm train": hm_llama["ptt_rms_norm_fwd"]},
+          "tinyllama-width hm train": hm_llama["ptt_rms_norm_fwd"],
+          "tinyllama recipe train": r_llama["ptt_rms_norm_fwd"]},
          tk["rms_norm_train"], tk["rms_norm_train"]),
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
@@ -2877,30 +3036,36 @@ def main():
          {"gpt3_1p3b train": launches["ptt_layer_norm_fwd"],
           "gpt3_1p3b fused train": fused["ptt_layer_norm_fwd"],
           "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_fwd"],
-          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_fwd"]},
+          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_fwd"],
+          "gpt3_1p3b recipe train": r_gpt["ptt_layer_norm_fwd"]},
          tk["layer_norm_train"], tk["layer_norm_train"]),
         ("layer_norm_bwd", "paddle_tpu_torch/csrc/layer_norm_bwd.cu",
          "paddle_tpu/nn/functional/norm.py:106",
          {"gpt3_1p3b train": launches["ptt_layer_norm_bwd"],
           "gpt3_1p3b fused train": fused["ptt_layer_norm_bwd"],
           "gpt3_1p3b-width hm train": hm_gpt["ptt_layer_norm_bwd"],
-          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_bwd"]},
+          "gpt3_1p3b 16K fused train": long["ptt_layer_norm_bwd"],
+          "gpt3_1p3b recipe train": r_gpt["ptt_layer_norm_bwd"]},
          tk["layer_norm_bwd"], tk["layer_norm_bwd"]),
         ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
          f"{fl}:769,805",
-         {"gpt3_1p3b train": launches["ptt_flash_fwd"]},
+         {"gpt3_1p3b train": launches["ptt_flash_fwd"],
+          "gpt3_1p3b recipe train": r_gpt["ptt_flash_fwd"]},
          tk["flash_fwd"], tk["flash_fwd"]),
         ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
          f"{fl}:873",
-         {"gpt3_1p3b train": launches["ptt_flash_bwd"]},
+         {"gpt3_1p3b train": launches["ptt_flash_bwd"],
+          "gpt3_1p3b recipe train": r_gpt["ptt_flash_bwd"]},
          tk["flash_bwd"], tk["flash_bwd"]),
         ("flash_fwd_gqa", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
          f"{fl}:769,805",
-         {"tinyllama train": ll["ptt_flash_fwd"]},
+         {"tinyllama train": ll["ptt_flash_fwd"],
+          "tinyllama recipe train": r_llama["ptt_flash_fwd"]},
          tk["flash_fwd_gqa"], tk["flash_fwd_gqa"]),
         ("flash_bwd_gqa", "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
          f"{fl}:873,1115",
-         {"tinyllama train": ll["ptt_flash_bwd"]},
+         {"tinyllama train": ll["ptt_flash_bwd"],
+          "tinyllama recipe train": r_llama["ptt_flash_bwd"]},
          tk["flash_bwd_gqa"], tk["flash_bwd_gqa"])]
     for key, sym, src, replaces in (
             ("flash_fwd_hm", "ptt_flash_fwd_hm",

@@ -86,8 +86,7 @@ def set_amp(enabled: bool, dtype: str = "bfloat16", level: str = "O1",
     if dtype not in _DTYPES:
         raise ValueError(f"amp dtype must be one of {sorted(_DTYPES)}, "
                          f"got {dtype!r}")
-    prev = (_state.enabled, _state.dtype, _state.level,
-            _state.custom_white, _state.custom_black)
+    prev = current_amp()
     _state.enabled = enabled
     _state.dtype = dtype
     _state.level = level
@@ -96,10 +95,17 @@ def set_amp(enabled: bool, dtype: str = "bfloat16", level: str = "O1",
     return prev
 
 
+def current_amp():
+    """The amp state, as :func:`set_amp` returns it (for
+    :func:`restore_amp`)."""
+    return (_state.enabled, _state.dtype, _state.level,
+            _state.custom_white, _state.custom_black)
+
+
 def restore_amp(prev) -> None:
     (_state.enabled, _state.dtype, _state.level,
      _state.custom_white, _state.custom_black) = prev
 
 
 __all__ = ["BLACK_LIST", "WHITE_LIST", "amp_cast_dtype", "autocast",
-           "restore_amp", "set_amp"]
+           "current_amp", "restore_amp", "set_amp"]

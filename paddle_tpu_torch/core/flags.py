@@ -59,6 +59,12 @@ def get_flag(name: str):
     return _flags[_key(name)]
 
 
+def get_flags() -> Dict[str, Any]:
+    """A copy of every flag's value (recompute replays a block under the
+    flags of its forward)."""
+    return dict(_flags)
+
+
 def set_flags(flags: Dict[str, Any]) -> None:
     """Set registered flags, each converted to its default's type (bool
     or int)."""
@@ -75,4 +81,5 @@ def env_int(name: str, default: int) -> int:
     return int(raw) if raw else int(default)
 
 
-__all__ = ["PADDLE_ENV_KNOBS", "env_int", "get_flag", "set_flags"]
+__all__ = ["PADDLE_ENV_KNOBS", "env_int", "get_flag", "get_flags",
+           "set_flags"]

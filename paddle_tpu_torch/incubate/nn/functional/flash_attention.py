@@ -58,9 +58,11 @@ The bf16 kernels' tile orders are mirrored for the CPU tests in
 ``paddle_tpu_torch/testing/flash_tiled.py`` (schedules: ``fwd_schedule``,
 ``k5_kv_schedule``, ``hm_bwd_schedule``).
 
-Not ported here (raise NotImplementedError): the dense
-``_reference_attention`` / ``_attend_hm_reference`` fallbacks for head
-dims other than 32, 64 and 128; and on the card any such head dim.
+Shapes no kernel takes (a head dim outside 32, 64 and 128, or kv heads
+that do not divide the q heads) run the dense fallbacks
+``_reference_attention`` ([B,S,H,D]) and ``_attend_hm_reference``
+([G,S,D]) in torch math with autograd, as the JAX package leaves them to
+XLA: fp32 logits, softmax and P.V, the output in the input dtype.
 """
 from __future__ import annotations
 
@@ -705,7 +707,7 @@ def _gqa_route(h: int, kvh: int, d: int) -> str:
     lane gate carries over) while FLAGS_flash_native_layout is on; on
     flag 0 "ramp" (k and v repeated to the q heads where KVH < H, then the
     head-major kernels, as the JAX package reaches them through
-    ``_pallas_ok``); else "reference" (the dense path, not ported)."""
+    ``_pallas_ok``); else "reference" (the dense path)."""
     if not _gqa_broadcastable(h, kvh) or d not in HEAD_DIMS:
         return "reference"
     return "native" if get_flag("flash_native_layout") else "ramp"
@@ -784,9 +786,23 @@ def _flash_nl_packed(qkv, causal, h):
     return _FlashNLPacked.apply(qkv, causal, h)
 
 
-def _dense_fallback(what):
-    return NotImplementedError(
-        f"flash attention: the dense fallback ({what}) is not ported")
+def _reference_attention(q, k, v, causal):
+    """Dense [B,Sq,H,D] q against [B,Sk,KVH,D] k, v (grouped against the
+    shared kv heads, none repeated) -> [B,Sq,H,D] in q's dtype: fp32
+    logits with the bottom-right causal mask, fp32 softmax and P.V (the
+    JAX package's ``_reference_attention``)."""
+    qh, kh, vh = (x.transpose(1, 2).float() for x in (q, k, v))
+    probs = torch.softmax(_masked_logits(qh, kh, causal), dim=-1)
+    return grouped_pv_out(probs, vh).transpose(1, 2).to(q.dtype)
+
+
+def _attend_hm_reference(qh, kh, vh, causal):
+    """Dense head-major [G,Sq,D] attention (the JAX package's
+    ``_attend_hm_reference``): :func:`_reference_attention` with one head
+    per group."""
+    out = _reference_attention(qh.unsqueeze(2), kh.unsqueeze(2),
+                               vh.unsqueeze(2), causal)
+    return out.squeeze(2)
 
 
 def _flash_attention(q, k, v, causal):
@@ -794,7 +810,8 @@ def _flash_attention(q, k, v, causal):
     ``_gqa_route`` names. "native": the native-layout Function through a
     free reshape on each side. "ramp": k, v repeated to the H q heads
     where KVH < H (the JAX package's ``jnp.repeat``), then the head-major
-    Function between transposes. "reference" raises."""
+    Function between transposes. "reference": the dense
+    :func:`_reference_attention`."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     route = _gqa_route(h, kvh, d)
@@ -809,8 +826,7 @@ def _flash_attention(q, k, v, causal):
         if _hm_ok(q, k):
             out = _flash_hm(_bhsd(q), _bhsd(k), _bhsd(v), causal)
             return out.reshape(b, h, sq, d).transpose(1, 2)
-    raise _dense_fallback(f"head dim {d} outside {HEAD_DIMS}, or {kvh} kv "
-                          f"heads against {h} heads")
+    return _reference_attention(q, k, v, causal)
 
 
 def flash_attention_fused(query, key, value, causal=False):
@@ -829,18 +845,20 @@ def flash_attention_packed(qkv, num_heads, causal=False):
     (columns q|k|v, the reshape([b,s,3,h,d]) order): the native-layout
     kernels read it in place; on FLAGS_flash_native_layout=0 it is
     unpacked into the [B,S,H,D] dispatch (the JAX package's
-    ``_flash_packed_impl``). Parity: the qkv-packed form of the
-    reference's flash_attn_qkvpacked. Differentiable in qkv."""
+    ``_flash_packed_impl``), as it is at a head dim no kernel takes.
+    Parity: the qkv-packed form of the reference's flash_attn_qkvpacked.
+    Differentiable in qkv."""
     (qkv,) = autocast("flash_attention_packed", "allow", qkv)
     if qkv.shape[-1] % 3:
         raise ValueError(f"flash_attention_packed: last dim "
                          f"{qkv.shape[-1]} is not 3E")
-    if get_flag("flash_native_layout"):
-        return _flash_nl_packed(qkv, causal, num_heads)
     b, s, e3 = qkv.shape
     e = e3 // 3
     _check_heads(e, num_heads)
-    q4 = qkv.reshape(b, s, 3, num_heads, e // num_heads)
+    d = e // num_heads
+    if _gqa_route(num_heads, num_heads, d) == "native":
+        return _flash_nl_packed(qkv, causal, num_heads)
+    q4 = qkv.reshape(b, s, 3, num_heads, d)
     return _flash_attention(q4[:, :, 0], q4[:, :, 1], q4[:, :, 2],
                             causal).reshape(b, s, e)
 
@@ -857,20 +875,18 @@ def _fused_mha_impl(x, wqkv, bqkv, wo, bo, num_heads=1, causal=False):
     in place), and the output projection contracts [B,H,S,D]
     with the [E,E] weight viewed [H,D,E]. The matmuls are torch's, as
     they lie outside the Pallas kernel in the JAX package. Biases may be
-    None. A head dim outside HEAD_DIMS (the JAX package's dense
-    ``_attend_hm_reference``) raises."""
+    None. At a head dim outside HEAD_DIMS the attention is the dense
+    :func:`_attend_hm_reference`."""
     b, s, e = x.shape
     h = num_heads
     _check_heads(e, h)
     d = e // h
-    if d not in HEAD_DIMS:
-        raise _dense_fallback(f"fused_self_attention at head dim {d}, "
-                              f"outside {HEAD_DIMS}")
     qkv = torch.einsum("bse,ethd->tbhsd", x, wqkv.reshape(e, 3, h, d))
     if bqkv is not None:
         qkv = qkv + bqkv.reshape(3, 1, h, 1, d)
     qh, kh, vh = (qkv[i].reshape(b * h, s, d) for i in range(3))
-    out = _flash_hm(qh, kh, vh, causal)
+    attend = _flash_hm if d in HEAD_DIMS else _attend_hm_reference
+    out = attend(qh, kh, vh, causal)
     y = torch.einsum("bhsd,hde->bse", out.reshape(b, h, s, d),
                      wo.reshape(h, d, e))
     return y if bo is None else y + bo

@@ -11,8 +11,11 @@ FLAGS_use_fused_attention, the whole block as one op
 (fused_self_attention: einsum projections around the head-major
 kernels). Parameter names and layouts are the JAX package's (the packed
 qkv weight is [E, 3E]), so its state_dict loads name for name
-(bridge.load_jax_state). Not ported (raise): recompute, the dense-cache
-decode path and the model-parallel variants.
+(bridge.load_jax_state), and each parameter carries that name as
+``.param_name`` (the key of its optimizer state). ``recompute=True`` recomputes
+each block in the backward while training (distributed.fleet.recompute).
+Not ported (raise): the dense-cache decode path and the model-parallel
+variants.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ import torch
 from torch import nn
 
 from ..core.flags import get_flag
-from ..core.generator import seed as _seed
+from ..core.generator import new_generator
 from ..core.place import resolve_device
+from ..distributed.fleet import recompute
 from ..incubate.nn.functional.flash_attention import (flash_attention_packed,
                                                       fused_self_attention)
 from ..incubate.nn.functional.paged_kv import (PagedCache,
@@ -32,6 +36,7 @@ from ..incubate.nn.functional.paged_kv import (PagedCache,
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
+from ..nn.layer.common import name_parameters
 from .llama import _positions
 
 
@@ -44,7 +49,7 @@ class GPTConfig:
     max_seq_len: int = 1024
     intermediate_size: int = 0  # 0 -> 4*hidden
     dropout: float = 0.0
-    recompute: bool = False   # not ported: training raises
+    recompute: bool = False   # recompute each block in the backward
     # model-parallel variants of the JAX package: not ported (raise)
     tensor_parallel: bool = False
     sequence_parallel: bool = False
@@ -144,15 +149,18 @@ class GPTBlock(nn.Module):
         self.mlp = GPTMLP(cfg, **factory)
         self._recompute = cfg.recompute
 
+    def _inner(self, x):
+        x = x + self.attn(self.ln1(x))
+        return x + self.mlp(self.ln2(x))
+
     def forward(self, x, cache=None):
         if cache is not None:
             a, new_cache = self.attn(self.ln1(x), cache=cache)
             x = x + a
             return x + self.mlp(self.ln2(x)), new_cache
         if self._recompute and self.training:
-            raise NotImplementedError("GPTConfig.recompute is not ported")
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+            return recompute(self._inner, x)
+        return self._inner(x)
 
 
 class GPTModel(nn.Module):
@@ -207,10 +215,11 @@ class GPTForCausalLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = _seed(0, device)
+            generator = new_generator(0, device)
         self.gpt = GPTModel(cfg, device=device, dtype=dtype,
                             generator=generator)
         self.cfg = cfg
+        name_parameters(self)
 
     def forward(self, input_ids, labels=None):
         """Logits [B, S, V] of the tied unembedding (hidden @ wte^T); with

@@ -7,8 +7,11 @@ Every norm runs the RMSNorm kernel through fused_rms_norm. Training
 attention goes through scaled_dot_product_attention to the flash kernels,
 which address the shared kv heads in place. Parameter names and layouts
 are the JAX package's, so its state_dict loads name for name
-(bridge.load_jax_state). Not ported (raise NotImplementedError): the
-dense (k, v) tuple cache of the non-paged generate, and recompute.
+(bridge.load_jax_state), and each parameter carries that name as
+``.param_name`` (the key of its optimizer state). ``recompute=True`` recomputes
+each layer in the backward while training (distributed.fleet.recompute).
+Not ported (raise NotImplementedError): the dense (k, v) tuple cache of
+the non-paged generate.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..core.generator import seed as _seed
+from ..core.generator import new_generator
 from ..core.place import resolve_device
+from ..distributed.fleet import recompute
 from ..incubate.nn.functional.fused_ops import (
     fused_rms_norm, fused_rotary_position_embedding, swiglu)
 from ..incubate.nn.functional.paged_kv import (
@@ -28,7 +32,7 @@ from ..incubate.nn.functional.paged_kv import (
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Embedding, Linear
-from ..nn.layer.common import new_parameter
+from ..nn.layer.common import name_parameters, new_parameter
 
 
 @dataclass
@@ -163,6 +167,10 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, **factory)
         self._recompute = cfg.recompute
 
+    def _inner(self, x):
+        x = x + self.self_attn(self.input_layernorm(x))
+        return x + self.mlp(self.post_attention_layernorm(x))
+
     def forward(self, x, cache=None, pos_offset=0):
         if cache is not None:
             a, new_cache = self.self_attn(self.input_layernorm(x),
@@ -170,9 +178,8 @@ class LlamaDecoderLayer(nn.Module):
             x = x + a
             return x + self.mlp(self.post_attention_layernorm(x)), new_cache
         if self._recompute and self.training:
-            raise NotImplementedError("LlamaConfig.recompute is not ported")
-        x = x + self.self_attn(self.input_layernorm(x))
-        return x + self.mlp(self.post_attention_layernorm(x))
+            return recompute(self._inner, x)
+        return self._inner(x)
 
 
 class LlamaModel(nn.Module):
@@ -212,7 +219,7 @@ class LlamaForCausalLM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if generator is None:
-            generator = _seed(0, device)
+            generator = new_generator(0, device)
         factory = dict(device=device, dtype=dtype, generator=generator)
         self.llama = LlamaModel(cfg, **factory)
         self.cfg = cfg
@@ -220,6 +227,7 @@ class LlamaForCausalLM(nn.Module):
                               bias_attr=False, **factory)
         # the untied head follows the body's N(0, 0.02) scheme
         I.Normal(mean=0.0, std=0.02)(self.lm_head.weight, generator)
+        name_parameters(self)
 
     def forward(self, input_ids, labels=None):
         """Logits [B, S, V] of the untied lm_head; with ``labels`` [B, S],

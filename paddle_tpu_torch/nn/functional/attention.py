@@ -6,8 +6,9 @@ may hold fewer heads than query (grouped query, KVH dividing H). A
 mask-free call at the default scale on a shape the kernels take goes to
 ``flash_attention_fused`` (the hand-written flash kernels on a card);
 anything else runs the dense ``_sdpa`` in plain torch, as the JAX
-package computes it in jnp outside any kernel. Training-mode dropout is
-not ported and raises.
+package computes it in jnp outside any kernel. Training-mode dropout
+takes the dense route (the kernels have no dropout), its mask drawn from
+``core.generator.rng_tracker``.
 """
 from __future__ import annotations
 
@@ -17,13 +18,17 @@ import torch
 
 from ...amp.state import autocast
 from ...incubate.nn.functional import flash_attention as fa
+from .common import keep_mask
 
 
-def _sdpa(query, key, value, attn_mask=None, is_causal=False, scale=None):
+def _sdpa(query, key, value, attn_mask=None, is_causal=False, scale=None,
+          dropout_p=0.0):
     """Dense attention: fp32 logits of q grouped against the shared kv
     heads (no repeat of k or v), the bottom-right causal mask, a boolean
     (keep) or additive mask, softmax in fp32, probabilities in the input
-    dtype before the P.V product. An amp "allow" op."""
+    dtype before the P.V product, where a ``dropout_p`` > 0 drops each
+    with that probability and scales the rest by 1/(1 - dropout_p). An
+    amp "allow" op."""
     query, key, value = autocast("scaled_dot_product_attention", "allow",
                                  query, key, value)
     q, k, v = (t.transpose(1, 2) for t in (query, key, value))
@@ -40,6 +45,11 @@ def _sdpa(query, key, value, attn_mask=None, is_causal=False, scale=None):
         else:
             logits = logits + attn_mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout_p:
+        keep = keep_mask(probs.shape, 1.0 - dropout_p, probs.device)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), dtype=probs.dtype,
+                                        device=probs.device))
     return fa.grouped_pv_out(probs, v).transpose(1, 2)
 
 
@@ -58,17 +68,17 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  training=True, scale=None, name=None):
     """paddle.nn.functional.scaled_dot_product_attention over [B,S,H,D]
     query and [B,S,KVH,D] key, value; causal masking is aligned
-    bottom-right."""
-    if dropout_p and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: training-mode dropout is not "
-            "ported")
+    bottom-right. Mask-free, dropout-free calls at the default scale on
+    the kernels' shapes run the flash kernels, the rest the dense
+    ``_sdpa``."""
+    drop = dropout_p if training else 0.0
     default_scale = scale is None or (
         scale == 1.0 / math.sqrt(query.shape[-1]))
-    if attn_mask is None and default_scale and _flash_eligible(query, key):
+    if (attn_mask is None and default_scale and not drop
+            and _flash_eligible(query, key)):
         return fa.flash_attention_fused(query, key, value, causal=is_causal)
     return _sdpa(query, key, value, attn_mask, is_causal=is_causal,
-                 scale=scale)
+                 scale=scale, dropout_p=drop)
 
 
 __all__ = ["scaled_dot_product_attention"]

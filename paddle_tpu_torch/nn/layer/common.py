@@ -16,6 +16,16 @@ from .. import functional as F
 from .. import initializer as I
 
 
+def name_parameters(module: nn.Module) -> None:
+    """Give each parameter of ``module`` its structured name (its
+    ``state_dict`` key, which the port shares with the JAX package) as
+    ``.param_name``: the optimizers key a parameter's state by it, as the
+    JAX package's key theirs by ``p.name`` (``torch.Tensor.name`` is a
+    read-only attribute of its own)."""
+    for name, p in module.named_parameters():
+        p.param_name = name
+
+
 def new_parameter(shape, init, device=None, dtype=None, generator=None):
     """A parameter of ``shape`` on ``device`` filled by ``init``."""
     t = torch.empty(tuple(int(s) for s in shape), device=resolve_device(device),
@@ -55,18 +65,23 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode (and at p=0). Training-mode dropout is not
-    ported and raises."""
+    """``F.dropout`` with the layer's ``p``, ``axis`` and ``mode``, in
+    training mode while the module trains."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        if self.training and self.p > 0:
-            raise NotImplementedError(
-                "training-mode dropout is not ported; call model.eval()")
-        return x
+        return F.dropout(x, p=self.p, axis=self.axis,
+                         training=self.training, mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
 
 
-__all__ = ["Dropout", "Embedding", "Linear", "new_parameter"]
+__all__ = ["Dropout", "Embedding", "Linear", "name_parameters",
+           "new_parameter"]

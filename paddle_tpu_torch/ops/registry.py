@@ -21,9 +21,10 @@ span on its trace.
 Not ported: the XLA eager-executable cache and its split pullbacks (the
 JAX module's ``:279-416``: PyTorch runs every op eagerly, nothing is
 compiled); the static-program record (``:417``; it comes with
-``static`` and ``jit``, ROADMAP queue A item 9); ``direct_grad`` and
-``allow_mesh_cache`` (``:100-127``; they come with recompute, queue A
-item 4, and fleet, item 10).
+``static`` and ``jit``, ROADMAP queue A item 9); ``direct_grad``
+(``:100-127``: the JAX recompute's switch off per-op pullbacks; the
+port's recompute is torch's checkpoint and needs none) and
+``allow_mesh_cache`` (it comes with fleet, queue A item 10).
 """
 from __future__ import annotations
 

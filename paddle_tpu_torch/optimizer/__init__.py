@@ -1,4 +1,5 @@
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import SGD, AdamW
+from .optimizers import SGD, Adam, AdamW
 
-__all__ = ["SGD", "AdamW", "Optimizer"]
+__all__ = ["SGD", "Adam", "AdamW", "Optimizer", "lr"]

@@ -60,7 +60,14 @@ sessions await the garbage collector still captures its graph; 40
 sampled sessions in a row all capture theirs (the count of failures is
 printed); weights replaced mid-decode with nothing queued re-capture
 the graph, which then serves the CPU session's streams with the same
-replacement. The
+replacement. The training recipe's options (``recipe`` tests): 2-layer
+bf16 models at GPT-3 1.3B's and TinyLlama-1.1B's widths give the same
+loss and gradient bytes with and without recompute (through K4/K5, K4
+run twice a layer with it); stochastic rounding on the card is
+unbiased within 5 standard errors and exact on representable values;
+dropout keeps 1 - p within 5 binomial standard deviations; one step of
+chip_smoke's [train_recipe] plan at 2 layers launches the expected
+kernels (counted by the wrappers, no plain call). The
 tests skip without a card; on a machine with one (the
 tests' conftest.py sets up JAX, which these tests do not use):
 
@@ -829,3 +836,168 @@ def test_cb_card_sampled_capture_rate():
             failures.append((i, repr(e)))
     print(f"sampled captures: {len(failures)} of 40 failed {failures}")
     assert not failures, failures
+
+
+# ---------------------------------------------------------------------------
+# the training recipe's options on the card (port slice 8)
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    if str(REPO) not in sys.path:
+        sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def _recipe_model(family, recompute, layers=2):
+    """GPT-3 1.3B's or TinyLlama-1.1B's width at ``layers`` layers on the
+    card, weights from seed 1234 (the same with and without recompute)."""
+    from dataclasses import replace
+
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_1p3b)
+
+    if family == "gpt":
+        cfg = replace(gpt3_1p3b(), num_layers=layers, recompute=recompute)
+        return GPTForCausalLM(cfg, device="cuda",
+                              generator=seed(1234, "cuda"))
+    cfg = replace(_chip_smoke().tinyllama_1p1b(), num_layers=layers,
+                  recompute=recompute)
+    return LlamaForCausalLM(cfg, device="cuda", generator=seed(1234, "cuda"))
+
+
+def _recipe_batch(model, b=2, s=1024):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, model.cfg.vocab_size, (b, s + 1), device="cuda",
+                        generator=g)
+    return ids[:, :-1], ids[:, 1:]
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("family", ["gpt", "tinyllama"])
+def test_recipe_card_recompute_gives_the_same_gradient_bytes(family):
+    """A 2-layer bf16 model at GPT-3 1.3B's / TinyLlama-1.1B's width
+    under amp O2 (B=2, S=1024): with recompute, K4 runs twice a layer
+    (forward and recompute) and the loss and every gradient equal the run
+    without it byte for byte (K4 and K5 are deterministic, and so is the
+    embedding's backward: ``F.embedding``'s sorted sum, where
+    ``index_select``'s atomic adds once gave wte another last bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    runs = []
+    for rc in (False, True):
+        model = ptt.amp.decorate(_recipe_model(family, rc), level="O2")
+        x, y = _recipe_batch(model)
+        fa.FLASH_FWD_KERNEL.reset_counts()
+        with ptt.amp.auto_cast(level="O2"):
+            _, loss = model(x, labels=y)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert fa.FLASH_FWD_KERNEL.launches == (4 if rc else 2)
+        runs.append((loss.detach(), {n: p.grad for n, p in
+                                     model.named_parameters()}))
+        del model
+    (la, ga), (lb, gb) = runs
+    assert torch.equal(la, lb), (float(la), float(lb))
+    for n in ga:
+        assert torch.equal(ga[n], gb[n]), n
+
+
+@pytest.mark.card
+def test_recipe_card_stochastic_rounding_is_unbiased():
+    """Stochastic rounding on the card: 2^22 copies of 1 + 2^-10 (1/8 of
+    a bf16 ulp above 1.0) round to 1.0 or 1 + 2^-7, with a mean within 5
+    standard errors (2^-7 sqrt(p (1 - p) / n), p = 1/8) of the value;
+    representable values do not move; a generator in the same state gives
+    the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.optimizer.optimizer import stochastic_round_bf16
+
+    n, p = 1 << 22, 1 / 8
+    x = torch.full((n,), 1.0 + 2.0 ** -10, device="cuda")
+    r = stochastic_round_bf16(x, torch.Generator("cuda").manual_seed(3))
+    assert set(r.float().unique().tolist()) == {1.0, 1.0078125}
+    err = float(r.double().mean()) - (1.0 + 2.0 ** -10)
+    bound = 5 * 2.0 ** -7 * (p * (1 - p) / n) ** 0.5
+    print(f"stochastic rounding on the card: mean error {err:.3e}, bound "
+          f"{bound:.3e}")
+    assert abs(err) < bound
+    again = stochastic_round_bf16(x, torch.Generator("cuda").manual_seed(3))
+    assert torch.equal(r.view(torch.int16), again.view(torch.int16))
+    y = torch.tensor([0.5, -2.0, 0.0, 3.140625, float("inf")],
+                     device="cuda")
+    assert torch.equal(stochastic_round_bf16(
+        y, torch.Generator("cuda").manual_seed(4)).float(), y)
+
+
+@pytest.mark.card
+def test_recipe_card_dropout_keep_rate():
+    """Dropout on the card keeps 1 - p of 2^24 elements within 5 binomial
+    standard deviations, at 1 / (1 - p); the same seed gives the same
+    bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.core.generator import rng_tracker
+    from paddle_tpu_torch.nn import functional as F
+
+    x = torch.ones(4096, 4096, device="cuda", dtype=torch.bfloat16)
+    rng_tracker.manual_seed(8)
+    y = F.dropout(x, p=0.1)
+    kept, n = int((y != 0).sum()), x.numel()
+    sd = (n * 0.9 * 0.1) ** 0.5
+    print(f"dropout on the card: kept {kept} of {n} (expected "
+          f"{n * 0.9:.0f} +- {sd:.0f})")
+    assert abs(kept - n * 0.9) < 5 * sd
+    assert set(y.float().unique().tolist()) == {
+        0.0, float(torch.tensor(1 / 0.9, dtype=torch.bfloat16))}
+    rng_tracker.manual_seed(8)
+    assert torch.equal(F.dropout(x, p=0.1), y)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("family", ["gpt", "tinyllama"])
+def test_recipe_card_step_launches_the_expected_kernels(family, monkeypatch):
+    """One step of chip_smoke's [train_recipe] plan (recompute, bf16
+    moments with stochastic rounding, no masters; GPT with the schedule
+    and the clip) at 2 layers: the wrappers count, outside any capture,
+    GPT 9 K2, 5 K3, 4 K4 and 2 K5; TinyLlama 9 K1, 4 K4 and 2 K5; no
+    plain call; the loss is finite and the state is as planned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "check",
+                        lambda cond, msg: None if cond else pytest.fail(msg))
+    model, opt, sched = cs._recipe(family == "gpt")(
+        _recipe_model(family, True))
+    x, y = _recipe_batch(model)
+    if family == "gpt":
+        want = {norm.LAYER_NORM_KERNEL: 9, norm.LAYER_NORM_BWD_KERNEL: 5,
+                fa.FLASH_FWD_KERNEL: 4, fa.FLASH_BWD_KERNEL: 2,
+                fused_ops.RMS_NORM_KERNEL: 0}
+    else:
+        want = {fused_ops.RMS_NORM_KERNEL: 9, fa.FLASH_FWD_KERNEL: 4,
+                fa.FLASH_BWD_KERNEL: 2, norm.LAYER_NORM_KERNEL: 0,
+                norm.LAYER_NORM_BWD_KERNEL: 0}
+    for k in want:
+        k.reset_counts()
+    with ptt.amp.auto_cast(level="O2"):
+        _, loss = model(x, labels=y)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    got = {k.symbol: (k.launches, k.plain_calls) for k in want}
+    assert got == {k.symbol: (n, 0) for k, n in want.items()}, got
+    assert torch.isfinite(loss)
+    cs._recipe_state(f"card {family}")(model, opt)

@@ -199,25 +199,32 @@ def test_flash_attention_packed_runs_the_plain_versions_on_cpu():
 
 
 def test_unported_attention_routes_raise(monkeypatch):
-    """The dense fallback of `flash_attention_fused` (a head dim outside
-    HEAD_DIMS) is a later slice on either FLAGS_flash_native_layout; kv
-    heads that do not divide the q heads are an error (grouped query
-    itself is ported: tests/test_torch_gqa.py; the head-major route and
-    its two-kernel backward: tests/test_torch_flash_hm.py)."""
-    with pytest.raises(NotImplementedError):
-        tfa.flash_attention_fused(torch.randn(1, 8, 2, 16),
-                                  torch.randn(1, 8, 1, 16),
-                                  torch.randn(1, 8, 1, 16), True)
+    """A head dim outside HEAD_DIMS takes the dense fallback
+    (`_reference_attention`, no kernel's plain version) on either
+    FLAGS_flash_native_layout, as in the JAX package (held against it in
+    tests/test_torch_dropout_loss.py); kv heads that do not divide the q
+    heads are an error (grouped query itself is ported:
+    tests/test_torch_gqa.py; the head-major route and its two-kernel
+    backward: tests/test_torch_flash_hm.py)."""
+    fk = tfa.FLASH_FWD_KERNEL
+    before = fk.plain_calls
+    q, k = torch.randn(1, 8, 2, 16), torch.randn(1, 8, 1, 16)
+    assert torch.equal(tfa.flash_attention_fused(q, k, k, True),
+                       tfa._reference_attention(q, k, k, True))
     with pytest.raises(ValueError):
         tfa._flash_nl(torch.randn(1, 8, 3 * 32), torch.randn(1, 8, 64),
                       torch.randn(1, 8, 64), True, 3)
     monkeypatch.setitem(core.flags._flags, "flash_native_layout", False)
-    with pytest.raises(NotImplementedError, match="dense fallback"):
-        tfa.flash_attention_packed(torch.randn(1, 8, 3 * 32), 2, True)
-    with pytest.raises(NotImplementedError, match="dense fallback"):
-        tfa.flash_attention_fused(torch.randn(1, 8, 4, 16),
-                                  torch.randn(1, 8, 2, 16),
-                                  torch.randn(1, 8, 2, 16), True)
+    qkv = torch.randn(1, 8, 3 * 32)
+    q4 = qkv.reshape(1, 8, 3, 2, 16)
+    assert torch.equal(tfa.flash_attention_packed(qkv, 2, True),
+                       tfa._reference_attention(
+                           q4[:, :, 0], q4[:, :, 1], q4[:, :, 2],
+                           True).reshape(1, 8, 32))
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    assert torch.equal(tfa.flash_attention_fused(q, k, k, True),
+                       tfa._reference_attention(q, k, k, True))
+    assert fk.plain_calls == before
 
 
 def test_kernel_wrappers_reject_cpu_tensors():

@@ -260,10 +260,20 @@ def test_sdpa_gqa_with_mask_is_grouped():
 
 
 def test_sdpa_training_dropout_raises():
+    """Training-mode dropout is ported: it takes the dense grouped
+    `_sdpa` (no K4 call), not the kernels, and repeats under the same
+    seed of the dropout stream (tests/test_torch_dropout_loss.py holds
+    its rate)."""
     x = torch.randn(1, 8, 2, 32)
-    with pytest.raises(NotImplementedError):
-        ptt.nn.functional.scaled_dot_product_attention(
-            x, x[:, :, :1], x[:, :, :1], dropout_p=0.1, training=True)
+    fk = tfa.FLASH_FWD_KERNEL
+    before = fk.plain_calls
+    outs = []
+    for _ in range(2):
+        ptt.core.generator.rng_tracker.manual_seed(4)
+        outs.append(ptt.nn.functional.scaled_dot_product_attention(
+            x, x[:, :, :1], x[:, :, :1], dropout_p=0.1, training=True))
+    assert fk.plain_calls == before
+    assert torch.equal(*outs)
 
 
 @pytest.mark.parametrize("pos_offset", [0, 5])

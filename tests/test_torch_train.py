@@ -358,37 +358,52 @@ def test_gpt_1p3b_width_loss_trajectory_matches_jax():
 
 
 def test_unported_llama_training_options_raise():
-    rm = tllama.LlamaForCausalLM(tllama.llama_tiny(num_kv_heads=2,
-                                                   recompute=True),
+    """Recompute is ported (tests/test_torch_recompute*.py): a llama_tiny
+    with it gives the logits of one without, byte for byte; no Llama
+    training option raises any more."""
+    cfg = dict(num_kv_heads=2)
+    rm = tllama.LlamaForCausalLM(tllama.llama_tiny(recompute=True, **cfg),
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="recompute"):
-        rm(torch.tensor(_batch()[0]))
+    pm = tllama.LlamaForCausalLM(tllama.llama_tiny(**cfg), device="cpu")
+    x = torch.tensor(_batch()[0])
+    assert torch.equal(rm(x), pm(x))
 
 
 def test_unported_training_options_raise(monkeypatch):
-    """FLAGS_use_fused_attention is ported (tests/test_torch_flash_hm.py)
-    but its dense fallback, for a head dim outside the kernels' (here
-    128 / 8 = 16), is not; nor are recompute, pure low-precision O2 and
-    the AdamW options below."""
+    """The training options of the JAX package's recipes are ported
+    (tests/test_torch_optimizer.py, test_torch_recompute*.py,
+    test_torch_dropout_loss.py): FLAGS_use_fused_attention at a head dim
+    outside the kernels' (here 128 / 8 = 16) takes the dense fallback and
+    gives the native route's logits (within 1e-5, two dense attention
+    orders); recompute, pure low-precision O2 and the AdamW options below
+    construct. What stays unported raises: decorate(master_grad=True) and
+    string regularizers; a moment_dtype typo is a ValueError."""
     _, tm = _pair()
     x = torch.tensor(_batch()[0])
-    monkeypatch.setitem(ptt.core.flags._flags, "use_fused_attention", True)
     narrow = tgpt.GPTForCausalLM(tgpt.GPTConfig(
         vocab_size=1024, hidden_size=128, num_layers=1, num_heads=8,
         max_seq_len=128), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense fallback"):
-        narrow(x)
+    want = narrow(x)
+    monkeypatch.setitem(ptt.core.flags._flags, "use_fused_attention", True)
+    _close(narrow(x).detach(), want.detach())
     monkeypatch.setitem(ptt.core.flags._flags, "use_fused_attention", False)
     rm = tgpt.GPTForCausalLM(tgpt.gpt_tiny(recompute=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        rm(x)
-    with pytest.raises(NotImplementedError):
-        ptt.amp.decorate(models=tm, level="O2", master_weight=False)
+    rm(x)
+    opt = ptt.optimizer.AdamW(parameters=tm.parameters())
+    ptt.amp.decorate(models=tm, optimizers=opt, level="O2",
+                     master_weight=False)
+    assert opt._multi_precision is False
     for kw in ({"moment_dtype": "bfloat16"}, {"stochastic_rounding": True},
-               {"amsgrad": True}, {"grad_clip": object()},
+               {"amsgrad": True},
+               {"grad_clip": ptt.nn.ClipGradByGlobalNorm(1.0)},
                {"apply_decay_param_fun": lambda n: True}):
-        with pytest.raises(NotImplementedError):
-            ptt.optimizer.AdamW(parameters=tm.parameters(), **kw)
+        ptt.optimizer.AdamW(parameters=tm.parameters(), **kw)
+    with pytest.raises(NotImplementedError):
+        ptt.amp.decorate(models=tm, level="O2", master_grad=True)
+    with pytest.raises(NotImplementedError):
+        ptt.optimizer.SGD(parameters=tm.parameters(), weight_decay="L2")
+    with pytest.raises(ValueError):
+        ptt.optimizer.AdamW(parameters=tm.parameters(), moment_dtype="bf16")
 
 
 @pytest.mark.parametrize("reduction", ["mean", "sum", "none"])
