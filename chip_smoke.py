@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Phases, in order (15 and 16 run right after 4 and 5, on the models those
-build, and 17 right after 12); any failure exits non-zero before the last
-line:
+Phases, in order (18, 15 and 19 run right after 4, and 18 and 16 right
+after 5, on the models those build; 17 right after 12); any failure exits
+non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
@@ -34,7 +34,11 @@ line:
      TinyLlama-1.1B, B=8, S=2048, 32 heads of d=64 over 4 kv heads, which
      the head-major route sees repeated to 32) and at ragged (Sq < Sk, and
      in bf16 Sq > Sk), d=32, fp32 and grouped-query ones (32:1, 8:2, 8:4,
-     4:2), every output held per element; K8 against K7 at S=2048 and
+     4:2), every output held per element; K4 alone at one query row (a
+     dense decode step: Sq = 1 against Sk = 1, 77, 512, 4096; 16:16 at
+     d=128 and 32:4 at d=64; bf16 and fp32) on out and lse, and its card
+     time at Llama-2-7B's and TinyLlama's decode shapes beside sdpa's;
+     K8 against K7 at S=2048 and
      8192; the kernels a bf16 and an fp32 K4, K5, K6, K7 and K8 call
      launch (by name and grid, from a CUDA graph of the call: in bf16 the
      warpgroup kernels, in fp32 the earlier ones); two forward and two
@@ -91,18 +95,24 @@ line:
      12 chat requests of 32 new tokens (cb_prompts: a shared 256-token
      system prompt, a full hit, ragged prompts of 40-480 tokens, 8
      submitted before the first step and 4 after the third). The decode
-     chunk runs as one CUDA graph per session: the session's own graph
-     holds exactly 8 x 65 RMSNorm kernels and no other norm, and the
-     run's launches are the wrapper's outside the capture plus the
-     replays times the graph's; one chunk replayed from the graph
-     equals the same chunk run eagerly from the same state (tokens,
-     lengths, every pool byte). Every request, with the prefix cache on
+     chunk runs as one CUDA graph per session and each admit width as
+     one CUDA graph captured at its first use: the session's own graphs
+     hold exactly 8 x 65 RMSNorm kernels (chunk) and 65 (each admit) and
+     no other norm, and the run's launches are the captures' warm-ups
+     plus the replays times the graphs'; one chunk, and the first admit
+     at each width the run uses (on a third pass of the same traffic),
+     replayed from their graphs equal the same programs run eagerly from
+     the same state (tokens, lengths, every pool byte), and a sampled
+     session streams the same bytes from graphs and with every program
+     eager. TTFT is read cold (the run above) and warm (a second pass of
+     the traffic, prefix cache flushed). Every request, with the prefix
+     cache on
      and off, is held to an independent B=1 paged forward of its own
      tokens: its first-token logits within 16 bf16 ulps, each of its 32
      tokens within 32 ulps of that forward's best; prefill tokens =
      prompt tokens - prefix-hit tokens, at least 4 hits and 1
-     copy-on-write, the pool quiescent after run(). TTFT median and p90,
-     decode ms per
+     copy-on-write, the pool quiescent after run(). TTFT median and p90
+     (beside the eager admits' in PERF.md), decode ms per
      token, tokens/s, the card's busy share of a chunk (CUDA events
      around the replay over the chunk step's host time), peak memory.
  16. GPT-3 1.3B the same way ([serve_cb_gpt]; 8 x 49 LayerNorm kernels
@@ -120,6 +130,26 @@ line:
      tokens/s, MFU (the recomputed forward not counted), peak memory, the
      card's share of a step, the persistent bytes and the state's dtype
      census.
+ 18. The models' default generate() ([generate_default]) on the
+     serving models (B=4, prompt 128): the dense (k, v) cache (32 tokens:
+     K4 L x 32 launches, the prefill and one query row a step; the norm
+     (2L + 1) x 32; 0 plain), the eager paged loop (use_paged_kv=True,
+     aot=False), and for GPT use_cache=False (8 tokens) and the dense
+     cache at a 77-token prompt (B=2: the packed projection's q, k, v
+     views into K4); every token held to an independent B=1 forward
+     within 2 x 16 bf16 ulps of its best; tokens equal to the AOT paged
+     stream counted; prefill ms, decode ms/token, the card's busy share,
+     peak memory.
+ 19. Llama-2-7B through the scheduler's overload paths
+     ([serve_cb_sched]): the [serve_cb_llama] traffic with
+     prefill_chunk=128 and kv_pool_bytes of 18 blocks (half of what the 4
+     slots' longest requests hold), a request whose deadline passed
+     before submission (expired), a priority-5 request that preempts a
+     running one, and one forced preempt() mid-decode: every finished
+     stream held by cb_hold, the first admit at each width graph against
+     eager, the longest prompt over >= ceil(len / 128) admits, the
+     preemptions, expiry and pool quiescence checked; streams equal to
+     [serve_cb_llama]'s counted.
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -925,6 +955,62 @@ def _same_forward_bytes(name, first, second):
               f"{name} {key}: two forward calls on the same inputs differ")
 
 
+def _check_attention_fwd(name, b, sq, sk, h, d, dt, g, kvh):
+    """K4 alone (a dense decode step has no backward) against its plain
+    version, per element, on [B, Sq, H*D] q and [B, Sk, KVH*D] k, v,
+    causal aligned bottom-right; out and lse, and two calls give the
+    same bytes."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    q = torch.randn(b, sq, h * d, generator=g, device="cuda").to(dt)
+    k, v = (torch.randn(b, sk, kvh * d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    out, lse = fa.flash_fwd_cuda(q, k, v, h, True)
+    _same_forward_bytes(name, (out, lse), fa.flash_fwd_cuda(q, k, v, h,
+                                                            True))
+    rout, rlse = fa._nl_forward_ref(q, k, v, h, True)
+    terms = _attention_terms(q, k, v, rout, rlse, torch.zeros_like(q), h,
+                             True)[0]
+    err = _check_close(out, rout, f"{name} out", terms)
+    ld = float((lse - rlse).abs().max())
+    check(ld <= 1e-5 * max(1.0, float(rlse.abs().max())),
+          f"{name} lse: max err {ld}")
+    return dict(out=err, lse=ld)
+
+
+# K4 at one query row (a dense decode step): (B, Sk, H, KVH, D) at which
+# its card time is measured. Llama-2-7B's heads (32 of d=128) and
+# TinyLlama's 32:4 at d=64, both at B=4, the serving phases' batch
+DECODE_SHAPES = [(BATCH, sk, 32, 32, 128) for sk in (1, 512, 4096)] + [
+    (BATCH, sk, 32, 4, 64) for sk in (1, 512, 4096)]
+
+
+def _time_decode(b, sk, h, kvh, d, g):
+    """Card ms of K4 at one causal query row against Sk keys, bf16,
+    beside the bound, the plain version and sdpa's forward at the same
+    shape ([B,H,1,D] against [B,KVH,Sk,D], enable_gqa when KVH < H,
+    is_causal=False: sdpa aligns its causal mask top-left, and one
+    bottom-right-aligned row sees every key)."""
+    import torch.nn.functional as TF
+
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    bf = torch.bfloat16
+    q = torch.randn(b, 1, h * d, generator=g, device="cuda").to(bf)
+    k, v = (torch.randn(b, sk, kvh * d, generator=g, device="cuda").to(bf)
+            for _ in range(2))
+    qh = q.reshape(b, 1, h, d).transpose(1, 2)
+    kh, vh = (x.reshape(b, sk, kvh, d).transpose(1, 2) for x in (k, v))
+    pairs, fwd, _ = _attn_work(b, 1, sk, h, d, True, kvh)
+    t = dict(shape=f"B={b} Sq=1 Sk={sk} H={h} KVH={kvh} D={d} causal bf16",
+             pairs=pairs)
+    return _timings(
+        t, fwd, partial(fa.flash_fwd_cuda, q, k, v, h, True),
+        partial(fa._nl_forward_ref, q, k, v, h, True),
+        {"sdpa": partial(TF.scaled_dot_product_attention, qh, kh, vh,
+                         enable_gqa=kvh != h)})
+
+
 def _no_repeat_memory(g):
     """The north star's no-K/V-repeat contract on the card, at TinyLlama's
     32:4 (B=8, S=2048, D=64, bf16, causal): the rise of allocated memory
@@ -1552,6 +1638,33 @@ def phase_train_kernels():
             rec["flash_fwd" + sfx]["max_abs_err"], e["out"], e["lse"])
         rec["flash_bwd" + sfx]["max_abs_err"] = max(
             rec["flash_bwd" + sfx]["max_abs_err"], e["dq"], e["dk"], e["dv"])
+    # K4 at one query row, a dense decode step's shape (no backward):
+    # Sq = Sk = 1 and Sq = 1 < Sk, MHA at d=128 and 32:4 at d=64
+    n_dec, dec_err = 0, 0.0
+    for dt in (bf, f32):
+        for h_, kvh_, d_ in ((16, 16, 128), (32, 4, 64)):
+            for sk in (1, 77, 512, 4096):
+                name = (f"decode sq=1 sk={sk} {h_}:{kvh_} d={d_} "
+                        f"{str(dt)[6:]}")
+                e = _check_attention_fwd(name, TRAIN_B, 1, sk, h_, d_, dt, g,
+                                         kvh_)
+                key = "flash_fwd" if kvh_ == h_ else "flash_fwd_gqa"
+                rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"],
+                                              e["out"], e["lse"])
+                dec_err = max(dec_err, e["out"], e["lse"])
+                n_dec += 1
+    print(f"[train_kernels] K4 at one query row: {n_dec} cases (Sk 1, 77, "
+          f"512, 4096; 16:16 d=128 and 32:4 d=64; bf16 and fp32, B="
+          f"{TRAIN_B}) held per element against the plain version (out "
+          f"and lse), two calls the same bytes")
+    rec["flash_fwd_decode"] = dict(
+        max_abs_err=dec_err, times=[_time_decode(*s, g) for s in
+                                    DECODE_SHAPES])
+    for t_ in rec["flash_fwd_decode"]["times"]:
+        print(f"[train_kernels] K4 decode {t_['shape']}: card ms kernel "
+              f"{t_['ms']:.5f}, plain {t_['plain_ms']:.5f}, sdpa "
+              f"{t_['library_ms']:.5f}, bound {t_['bound_ms']:.6f} "
+              f"({t_['bound_by']})")
     torch.cuda.synchronize()
     rec["no_repeat"] = _no_repeat_memory(g)
 
@@ -2611,76 +2724,206 @@ class _TimedGraph:
         self.events.append((start, end))
 
 
-def cb_drive(model, prompts, prefix_cache, tag, before_step=None):
-    """Serve ``prompts`` through a ContinuousBatchingSession (4 slots,
-    prompts up to 512, blocks of 64, chunks of 8, 32 new tokens each),
-    waves as cb_prompts says. before_step(session, step) runs before
-    each step. The kernel nodes of the session's decode graph are read
-    after the run (``graph_nodes``); ``first``
-    holds each request's first-token logits row, as its admit selected
-    from it. Returns a record of the run and the session."""
+def cb_session(model, prefix_cache=True, record=None, **kw):
+    """The [serve_cb_*] phases' ContinuousBatchingSession (4 slots,
+    prompts up to 512, blocks of 64, chunks of 8). ``record``: a [4, V]
+    fp32 buffer on the card into which every token selection copies the
+    logits it selects from, inside the programs the session captures
+    (so the session is built with its selection wrapped)."""
     from paddle_tpu_torch.inference import serving
 
-    sess = serving.ContinuousBatchingSession(
-        model, slots=CB_SLOTS, max_prompt_len=CB_PROMPT,
-        kv_block_size=CB_BLOCK, chunk=CB_CHUNK, prefix_cache=prefix_cache)
-    reqs = [serving.Request(i, p, CB_NEW) for i, p in enumerate(prompts)]
+    cls = serving.ContinuousBatchingSession
+    sess = cls.__new__(cls)
+    if record is not None:
+        select = cls._select.__get__(sess)
+
+        def recording(lv, live):
+            record.copy_(lv)         # inside the graphs: no host read
+            return select(lv, live)
+        sess._select = recording
+    sess.__init__(model, slots=CB_SLOTS, max_prompt_len=CB_PROMPT,
+                  kv_block_size=CB_BLOCK, chunk=CB_CHUNK,
+                  prefix_cache=prefix_cache, **kw)
+    return sess
+
+
+def _snapshot(sess):
+    """Clones of every tensor an admit or a chunk writes, and the
+    generator's state."""
+    return ([p.clone() for p in sess._kcs + sess._vcs],
+            [t.clone() for t in (sess._seq_lens, sess._tok_dev,
+                                 sess._toks_dev)], sess._gen.get_state())
+
+
+def _restore(sess, snap):
+    pools, small, gen = snap
+    for p, c in zip(sess._kcs + sess._vcs, pools):
+        p.copy_(c)
+    for t, c in zip((sess._seq_lens, sess._tok_dev, sess._toks_dev), small):
+        t.copy_(c)
+    sess._gen.set_state(gen)
+
+
+def _program_vs_eager(sess, prog, tag, what):
+    """``prog`` (a prepared admit, or the decode chunk) run eagerly
+    (``prog.body()``) and replayed from its CUDA graph from the same
+    state and generator state: equal tokens, lengths and pool bytes. The
+    session is left as one replay leaves it."""
+    snap = _snapshot(sess)
+    prog.body()
+    eager_small = [t.clone() for t in (sess._seq_lens, sess._tok_dev,
+                                       sess._toks_dev)]
+    changed, written = [], []
+    for p, c in zip(sess._kcs + sess._vcs, snap[0]):
+        m = (p != c).flatten(1).any(1)
+        changed.append(m)
+        written.append(p[m].clone())
+    _restore(sess, snap)
+    prog()
+    torch.cuda.synchronize()
+    check(all(torch.equal(t, e) for t, e in zip(
+        (sess._seq_lens, sess._tok_dev, sess._toks_dev), eager_small)),
+        f"{tag}: {what}: graph and eager tokens or lengths differ")
+    n_changed = 0
+    for p, c, m, w in zip(sess._kcs + sess._vcs, snap[0], changed, written):
+        check(torch.equal(p[m], w) and torch.equal(p[~m], c[~m]),
+              f"{tag}: {what}: graph and eager pool bytes differ")
+        n_changed += int(m.sum())
+    check(n_changed > 0, f"{tag}: {what} wrote no pool block")
+    del snap, written
+    return n_changed
+
+
+def cb_compare_admits(sess, tag):
+    """From now on, the first admit at each token-buffer width runs both
+    eagerly and from its CUDA graph, from the same state
+    (_program_vs_eager), before the run goes on from the replay.
+    Returns {width: pool blocks written}, filled as the run goes."""
+    checked = {}
+
+    def admit(toks, lens, cow):
+        prog = sess._admit_prepare(toks, lens, cow)
+        w = toks.shape[1]
+        if w in checked:
+            prog()
+        else:
+            checked[w] = _program_vs_eager(sess, prog, tag,
+                                           f"the admit of width {w}")
+        return sess._tok_dev
+    sess._admit = admit
+    return checked
+
+
+def cb_eager_programs(sess):
+    """Every program of ``sess`` from now on runs eagerly on the card (the
+    decode chunk rebuilt so, each admit width built so at its first use):
+    the yardstick of a graph-against-eager stream comparison."""
+    class Eager:
+        graph, device_bytes = None, 0
+
+        def __init__(self, body):
+            self.body, self.weights = body, sess._weight_addresses()
+
+        def __call__(self):
+            self.body()
+    sess._build_program = lambda body, kind, **span: Eager(body)
+    sess._build_chunk_program()
+
+
+def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
+             reqs=None, waves=((0, 8), (3, None)), compare_admits=False,
+             **sess_kw):
+    """Serve ``prompts`` (or ``reqs``, Requests) through a cb_session,
+    32 new tokens each, the waves ((step, count), ...) as cb_prompts
+    says. before_step(session, step) runs before each step. The kernel
+    nodes of the session's decode graph and of each admit graph are read
+    after the run (``graph_nodes``, ``admit_nodes``); ``first`` holds each
+    request's first-token logits row, as the admit that emitted its
+    first token selected from it (a copy the admit graphs make of the
+    logits into a static buffer, cb_session's ``record``).
+    ``compare_admits``: cb_compare_admits.
+    Returns a record of the run and the session."""
+    from paddle_tpu_torch.inference import serving
+
+    lv_buf = torch.empty(CB_SLOTS, model.cfg.vocab_size, device="cuda")
+    sess = cb_session(model, prefix_cache, record=lv_buf, **sess_kw)
+    if reqs is None:
+        reqs = [serving.Request(i, p, CB_NEW) for i, p in enumerate(prompts)]
     prog = sess._chunk_prog
     check(prog.graph is not None, "the decode chunk was not captured")
     timed = prog.graph = _TimedGraph(prog.graph)
-    first, select = {}, sess._select
+    admit_widths, prepare = [], sess._admit_prepare
 
-    def recording(lv, live):
-        # the admit's rows of the slots it prefills (no host read)
-        for i, s in enumerate(sess._slots):
-            if s.req is not None and s.first_chunk:
-                first[s.req.req_id] = lv[i].clone()
-        return select(lv, live)
-    sess._select = recording
+    def widths(toks, lens, cow):
+        admit_widths.append(toks.shape[1])
+        return prepare(toks, lens, cow)
+    sess._admit_prepare = widths
+    checked = cb_compare_admits(sess, tag) if compare_admits else {}
+    first, waiting = {}, list(reqs)
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-    for r in reqs[:8]:
-        sess.submit(r)
     steps, chunk_steps = [], []
     while True:
-        if len(steps) == 3:
-            for r in reqs[8:]:
-                sess.submit(r)
+        for at, count in waves:
+            if len(steps) == at:
+                for r in waiting[:count]:
+                    sess.submit(r)
+                waiting = waiting[count:] if count is not None else []
         if before_step is not None:
             n_events = len(timed.events)
             before_step(sess, len(steps))
             del timed.events[n_events:]      # not serving replays
-        n_chunks, live = sess.stats["chunk_steps"], sum(
-            s.req is not None for s in sess._slots)
+        n_chunks, n_admits, live = (
+            sess.stats["chunk_steps"], sess.stats["admit_steps"],
+            sum(s.req is not None for s in sess._slots))
+        fresh = [r for r in reqs if not r.tokens]
         t0 = time.perf_counter()
         more = sess.step()
         dt = time.perf_counter() - t0
-        if not more:
+        if not more and not waiting:
             break
         steps.append(dt)
         if sess.stats["chunk_steps"] > n_chunks:
             chunk_steps.append((dt, live))
+        if sess.stats["admit_steps"] > n_admits:
+            for r in fresh:
+                slot = [i for i, s in enumerate(sess._slots) if s.req is r]
+                if r.tokens and slot:
+                    first[r.req_id] = lv_buf[slot[0]].clone()
     out = sess.run()
     wall = time.perf_counter() - t_start
     torch.cuda.synchronize()
-    sess._select = select
     sess._pool.assert_quiescent()
-    check(sess._chunk_prog is prog and sess._captures == 1,
-          f"{tag}: the decode chunk was captured {sess._captures} times")
+    check(sess._chunk_prog is prog
+          and sess._captures == 1 + len(sess._admit_progs),
+          f"{tag}: {sess._captures} captures for the decode chunk and "
+          f"{len(sess._admit_progs)} admit widths")
     card_ms = [a.elapsed_time(b) for a, b in timed.events]
     check(len(card_ms) == len(chunk_steps) == sess.stats["chunk_steps"],
           f"{len(card_ms)} graph replays for {len(chunk_steps)} chunk "
           f"steps")
     prog.graph = timed.graph
-    nodes = dumped_kernel_nodes(prog.graph, f"{tag} chunk "
-                                f"{'on' if prefix_cache else 'off'}")
-    check(set(first) == set(range(len(prompts))),
-          f"{tag}: first-token rows of {sorted(first)}")
-    ttft = sorted(r.first_tok_t - r.submit_t for r in reqs)
+    onoff = "on" if prefix_cache else "off"
+    nodes = dumped_kernel_nodes(prog.graph, f"{tag} chunk {onoff}")
+    admit_nodes = {}
+    for w, p in sorted(sess._admit_progs.items()):
+        check(p.graph is not None, f"{tag}: the admit of width {w} was not "
+                                   f"captured")
+        admit_nodes[w] = dumped_kernel_nodes(p.graph,
+                                             f"{tag} admit {w} {onoff}")
+    done = [r for r in reqs if r.status == "done"]
+    check(set(first) >= {r.req_id for r in done},
+          f"{tag}: first-token rows of {sorted(map(str, first))}")
+    ttft = sorted(r.first_tok_t - r.submit_t for r in done)
     return dict(out=out, stats=sess.stats, wall_s=wall, steps=len(steps),
                 chunk_host_ms=[1e3 * dt for dt, _ in chunk_steps],
                 chunk_live=[n for _, n in chunk_steps],
                 chunk_card_ms=card_ms, ttft_s=ttft, graph_nodes=nodes,
+                admit_nodes=admit_nodes, admit_widths=admit_widths,
+                capture_ms=dict(chunk=1e3 * prog.capture_s, **{
+                    str(w): 1e3 * p.capture_s
+                    for w, p in sorted(sess._admit_progs.items())}),
+                admits_checked=checked, reqs=reqs,
                 first={k: v.float().cpu() for k, v in first.items()},
                 tokens=sum(len(t) for t in out.values())), sess
 
@@ -2708,19 +2951,41 @@ def cb_teacher_forced(model, prompt, stream):
         return ad.logits(hidden[0, len(prompt) - 1:]).float().cpu()
 
 
+def cb_margins(tf, toks, tag, what):
+    """Each token of ``toks`` scores within 2 x CB_ROW_ULPS bf16 ulps of
+    the best of the teacher-forced logits ``tf`` (cb_teacher_forced) at
+    its step. Returns (the worst margin in ulps, tokens not the argmax)."""
+    best = tf.max(-1).values
+    got = tf.gather(1, torch.as_tensor(toks)[:, None])[:, 0]
+    margin = (best - got) / bf16_ulp(tf.abs().max(-1).values)
+    bad = torch.nonzero(margin > 2 * CB_ROW_ULPS)[:, 0]
+    check(len(bad) == 0,
+          f"{tag}: {what} token at step {bad[:1].tolist()} scores "
+          f"{margin[bad[:1]].tolist()} ulps under an independent B=1 "
+          f"forward's best, bound {2 * CB_ROW_ULPS}; tokens "
+          f"{list(toks)}")
+    return margin.max().item(), int((best > got).sum())
+
+
 def cb_hold(model, prompts, runs, tag):
-    """Hold every request of every run in ``runs`` {name: record} to an
-    independent B=1 forward of its own tokens (cb_teacher_forced): its
-    first-token row within CB_ROW_ULPS bf16 ulps of the forward's row 0,
-    and each of its 32 tokens scoring within 2 x CB_ROW_ULPS ulps of the
-    forward's best at that step (a token the session chose from logits
-    within CB_ROW_ULPS of the forward's can score no lower). Every step
-    of every request is held, whatever the ties. Returns the readings."""
+    """Hold every request that finished in each run of ``runs`` {name:
+    record} to an independent B=1 forward of its own tokens
+    (cb_teacher_forced; ``prompts`` {req_id: prompt}, or a list indexed
+    by req_id): its first-token row within CB_ROW_ULPS bf16 ulps of the
+    forward's row 0, and each of its tokens scoring within 2 x
+    CB_ROW_ULPS ulps of the forward's best at that step (a token the
+    session chose from logits within CB_ROW_ULPS of the forward's can
+    score no lower). Every step of every request is held, whatever the
+    ties. Returns the readings."""
+    if not isinstance(prompts, dict):
+        prompts = dict(enumerate(prompts))
     forced = {}
-    row_ulps, margin_ulps, not_argmax, spread = [], [], 0, []
+    row_ulps, margin_ulps, not_argmax, spread, held = [], [], 0, [], 0
     for name, run in runs.items():
-        for rid, p in enumerate(prompts):
-            toks = np.asarray(run["out"][rid])
+        for rid, toks in run["out"].items():
+            if rid not in prompts or len(toks) == 0:
+                continue
+            p, toks = prompts[rid], np.asarray(toks)
             key = (rid, toks.tobytes())
             if key not in forced:
                 forced[key] = cb_teacher_forced(model, p, toks)
@@ -2732,74 +2997,122 @@ def cb_hold(model, prompts, runs, tag):
                   f"{tag}: request {rid} ({name}) first-token logits lie "
                   f"{err:.5f} ({err / ulp0:.1f} ulps) from an independent "
                   f"B=1 forward's, bound {CB_ROW_ULPS} ulps")
-            best = tf.max(-1).values
-            got = tf.gather(1, torch.as_tensor(toks)[:, None])[:, 0]
-            ulps = bf16_ulp(tf.abs().max(-1).values)
-            margin = (best - got) / ulps
-            margin_ulps.append(margin.max().item())
-            not_argmax += int((best > got).sum())
+            worst, n = cb_margins(tf, toks, tag, f"request {rid} ({name})")
+            margin_ulps.append(worst)
+            not_argmax += n
             spread.append(tf.std(-1).median().item())
-            bad = torch.nonzero(margin > 2 * CB_ROW_ULPS)[:, 0]
-            check(len(bad) == 0,
-                  f"{tag}: request {rid} ({name}) token at step "
-                  f"{bad[:1].tolist()} scores {margin[bad[:1]].tolist()} "
-                  f"ulps under an independent B=1 forward's best, bound "
-                  f"{2 * CB_ROW_ULPS}; tokens {toks.tolist()}")
+            held += len(toks)
     return dict(row_ulps_max=max(row_ulps), margin_ulps_max=max(margin_ulps),
-                tokens_not_argmax=not_argmax,
-                tokens_held=sum(len(r["out"]) * CB_NEW for r in runs.values()),
-                forwards=len(forced), logit_sd=float(np.median(spread)))
+                tokens_not_argmax=not_argmax, tokens_held=held,
+                requests_held=len(row_ulps), forwards=len(forced),
+                logit_sd=float(np.median(spread)))
 
 
 def cb_graph_vs_eager(sess, tag):
     """One decode chunk from the session's current state run eagerly and
-    replayed from its CUDA graph: equal tokens, lengths and pool bytes.
-    The state is put back afterwards."""
+    replayed from its CUDA graph: equal tokens, lengths and pool bytes
+    (_program_vs_eager). The state is put back afterwards."""
     live = [s.req is not None for s in sess._slots]
     check(any(live), f"{tag}: no live slot to compare a chunk on")
     sess._live_dev.copy_(torch.tensor(live))
     sess._bt_dev.copy_(torch.from_numpy(sess._bt))
-    pools = sess._kcs + sess._vcs
-    start = [p.clone() for p in pools]
-    small = (sess._seq_lens, sess._tok_dev)
-    start_small = [t.clone() for t in small]
+    snap = _snapshot(sess)
+    n = _program_vs_eager(sess, sess._chunk_prog, tag, "the decode chunk")
+    _restore(sess, snap)
+    torch.cuda.synchronize()
+    del snap
+    return dict(tokens=CB_CHUNK * CB_SLOTS, blocks_written=n)
 
-    def restore():
-        for p, c in zip(pools, start):
-            p.copy_(c)
-        for t, c in zip(small, start_small):
-            t.copy_(c)
-    sess._chunk_body()
-    eager_toks = sess._toks_dev.clone()
-    eager_small = [t.clone() for t in small]
-    changed, written = [], []
-    for p, c in zip(pools, start):
-        m = (p != c).flatten(1).any(1)
-        changed.append(m)
-        written.append(p[m].clone())
-    restore()
-    sess._chunk_prog()
-    torch.cuda.synchronize()
-    check(torch.equal(sess._toks_dev, eager_toks),
-          f"{tag}: graph and eager chunk tokens differ")
-    check(all(torch.equal(t, e) for t, e in zip(small, eager_small)),
-          f"{tag}: graph and eager chunk lengths or last tokens differ")
-    n_changed = 0
-    for p, c, m, w in zip(pools, start, changed, written):
-        check(torch.equal(p[m], w) and torch.equal(p[~m], c[~m]),
-              f"{tag}: graph and eager chunk pool bytes differ")
-        n_changed += int(m.sum())
-    check(n_changed > 0, f"{tag}: the chunk wrote no pool block")
-    restore()
-    torch.cuda.synchronize()
-    del start, written
-    return dict(tokens=int(eager_toks.numel()), blocks_written=n_changed)
+
+# TTFT median / p90 ms of the session with eager admits (PERF.md
+# section 5, its eager-admit table; NVIDIA H100 80GB HBM3, 700.00 W)
+EAGER_ADMIT_TTFT_MS = {"llama": (2024.0, 2790.5), "gpt": (656.1, 859.9)}
+CB_SAMPLED = dict(do_sample=True, temperature=0.9, top_k=50)
+
+
+def cb_serve(model, reqs, eager=False, compare=None, **kw):
+    """Serve ``reqs`` through a cb_session (all submitted at once) and
+    return its streams: from CUDA graphs, or with ``eager`` every program
+    run eagerly (cb_eager_programs); ``compare`` (a tag): the first admit
+    at each width checked graph against eager (cb_compare_admits)."""
+    sess = cb_session(model, **kw)
+    if eager:
+        cb_eager_programs(sess)
+    checked = cb_compare_admits(sess, compare) if compare else {}
+    for r in reqs:
+        sess.submit(r)
+    out = sess.run()
+    sess._pool.assert_quiescent()
+    widths = sorted(sess._admit_progs)
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, checked, widths
+
+
+def cb_warm_ttft(sess, prompts):
+    """The same traffic (cb_prompts' waves) again through a session that
+    has served it once, with its prefix cache flushed, so the same admit
+    widths run, every one now captured. Returns (TTFT seconds, sorted;
+    captures made by this pass)."""
+    from paddle_tpu_torch.inference import serving
+
+    sess.flush_prefix_cache()
+    captures = sess._captures
+    reqs = [serving.Request(1000 + i, p, CB_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs[:8]:
+        sess.submit(r)
+    steps = 0
+    while sess.step() or steps < 3:
+        steps += 1
+        if steps == 3:
+            for r in reqs[8:]:
+                sess.submit(r)
+    sess.run()
+    sess._pool.assert_quiescent()
+    return (sorted(r.first_tok_t - r.submit_t for r in reqs),
+            sess._captures - captures)
+
+
+def cb_count_launches(tag, kernel, run, recorded, outside, per_forward,
+                      compared=0):
+    """The launches of a served run, read from the graphs: the kernel's
+    nodes in the session's decode graph (CB_CHUNK forwards) and in each
+    admit graph (one forward), the wrapper's calls recorded in those
+    captures, and its launches outside them (each capture's warm-up, and
+    the ``compared`` admits run eagerly to compare them with their
+    graphs, which are not counted as the run's). Returns (the run's
+    launches, the kernel's nodes in the decode graph)."""
+    fragment = kernel.symbol.replace("ptt_", "") + "_kernel"
+    in_graph = sum(fragment in n for n, _ in run["graph_nodes"])
+    want = CB_CHUNK * per_forward
+    check(in_graph == want, f"{tag}: the chunk graph holds {in_graph} "
+                            f"{fragment} launches, want {want}")
+    for w, nodes in run["admit_nodes"].items():
+        n = sum(fragment in name for name, _ in nodes)
+        check(n == per_forward, f"{tag}: the admit graph of width {w} holds "
+                                f"{n} {fragment} launches, want "
+                                f"{per_forward}")
+    captured = want + len(run["admit_nodes"]) * per_forward
+    check(recorded == captured,
+          f"{tag}: {recorded} wrapper calls recorded in the captures for "
+          f"{captured} graph nodes")
+    check(outside == captured + compared * per_forward,
+          f"{tag}: {outside} launches outside the graphs for the captures' "
+          f"warm-ups ({captured}) and {compared} compared admits")
+    st = run["stats"]
+    launches = (captured + len(run["chunk_card_ms"]) * in_graph
+                + st["admit_steps"] * per_forward)
+    return launches, in_graph
 
 
 def _serve_cb(family, kernel):
     """The continuous-batching serving core at full width and depth;
-    every norm on ``kernel``."""
+    every norm on ``kernel``; the decode chunk and every admit width
+    from CUDA graphs."""
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.inference import serving
     from paddle_tpu_torch.nn.functional import norm
 
     tag = f"serve_cb_{family}"
@@ -2819,8 +3132,8 @@ def _serve_cb(family, kernel):
     for k in (kernel, other):
         k.reset_counts()
     on, sess = cb_drive(model, prompts, True, tag)
-    eager, recorded, plain = (kernel.launches, kernel.recorded,
-                              kernel.plain_calls)
+    outside, recorded, plain = (kernel.launches, kernel.recorded,
+                                kernel.plain_calls)
     check(plain == 0, f"{tag}: plain norm ran {plain} times on the card")
     check(other.launches == other.recorded == other.plain_calls == 0,
           f"{tag}: the other norm ran")
@@ -2837,27 +3150,30 @@ def _serve_cb(family, kernel):
           f"{st['prefix_hit_tokens']}")
     check(st["prefix_hits"] >= 4 and st["prefix_cow"] >= 1,
           f"{tag}: prefix stats {st}")
-
-    # what the session's own decode graph holds, and the launches of the
-    # run: the wrapper's launches outside the capture (the admits and the
-    # capture's warm-up chunk) and each replay's kernel nodes
-    fragment = kernel.symbol.replace("ptt_", "") + "_kernel"
-    nodes = on["graph_nodes"]
-    in_graph = sum(fragment in n for n, _ in nodes)
-    want = CB_CHUNK * per_forward
-    check(in_graph == want, f"{tag}: the chunk graph holds {in_graph} "
-                            f"{fragment} launches, want {want}")
-    check(recorded == want, f"{tag}: {recorded} wrapper calls recorded in "
-                            f"the capture for {in_graph} graph nodes")
-    check(eager == st["admit_steps"] * per_forward + want,
-          f"{tag}: {eager} launches outside the graph for "
-          f"{st['admit_steps']} admits and one warm-up chunk")
+    PHASE_STREAMS[tag] = on["out"]
+    widths_used = sorted(set(on["admit_widths"]))
+    check(set(widths_used) | {CB_PROMPT} == set(on["admit_nodes"]),
+          f"{tag}: admit widths {widths_used}, graphs "
+          f"{sorted(on['admit_nodes'])} (width {CB_PROMPT} is captured with "
+          f"the session)")
+    launches, in_graph = cb_count_launches(tag, kernel, on, recorded,
+                                           outside, per_forward)
     replays = len(on["chunk_card_ms"])
-    launches = eager + replays * in_graph
     # where a chunk's card time goes: the same chunk run eagerly under
     # the profiler (the graph's kernels, one by one)
-    with sess._null_chunk_inputs():
+    with sess._null_inputs():
         chunk_ms, top = device_breakdown(sess._chunk_body, top=8)
+    # TTFT once every admit width the traffic uses is captured; then the
+    # same traffic once more, the first admit at each width graph
+    # against eager
+    warm, warm_captures = cb_warm_ttft(sess, prompts)
+    check(warm_captures == 0, f"{tag}: the second pass captured "
+                              f"{warm_captures} programs")
+    admits_checked = cb_compare_admits(sess, tag)
+    cb_warm_ttft(sess, prompts)
+    check(set(widths_used) <= set(admits_checked),
+          f"{tag}: admit widths {widths_used}, checked graph against eager "
+          f"{sorted(admits_checked)}")
     del sess
     gc.collect()
     torch.cuda.empty_cache()
@@ -2874,6 +3190,23 @@ def _serve_cb(family, kernel):
     gc.collect()
     torch.cuda.empty_cache()
 
+    # a sampled session (4 requests, cache on, prefill in chunks of 64)
+    # from CUDA graphs against the same session with every program
+    # eager: the same bytes; its first admit at each width held graph
+    # against eager too
+    def sampled():
+        return [serving.Request(i, p, CB_CHUNK, seed=i)
+                for i, p in enumerate(prompts[:4])]
+    s_graph, s_checked, s_widths = cb_serve(
+        model, sampled(), compare=tag, prefill_chunk=CB_BLOCK, **CB_SAMPLED)
+    s_eager, _, _ = cb_serve(model, sampled(), eager=True,
+                             prefill_chunk=CB_BLOCK, **CB_SAMPLED)
+    check(all(np.array_equal(s_graph[r], s_eager[r]) for r in s_eager)
+          and set(s_graph) == set(s_eager),
+          f"{tag}: sampled streams from graphs {s_graph} and eager "
+          f"{s_eager} differ")
+    admits_checked = sorted(set(admits_checked) | set(s_checked))
+
     # every request of both runs against an independent B=1 forward of
     # its own tokens
     held = cb_hold(model, prompts, {"cache on": on, "cache off": off}, tag)
@@ -2886,13 +3219,22 @@ def _serve_cb(family, kernel):
     live = np.array(on["chunk_live"])
     ttft = np.array(on["ttft_s"]) * 1e3
     res = dict(
-        launches=launches, launches_outside_graph=eager,
-        wrapper_calls=eager + recorded, plain_calls=plain,
-        graph_launches_per_chunk=in_graph, graph_kernel_nodes=len(nodes),
+        launches=launches, launches_outside_graph=outside,
+        wrapper_calls=outside + recorded, plain_calls=plain,
+        graph_launches_per_chunk=in_graph,
+        graph_kernel_nodes=len(on["graph_nodes"]),
+        admit_graph_widths=sorted(on["admit_nodes"]),
+        admit_graph_kernel_nodes={w: len(n) for w, n in
+                                  on["admit_nodes"].items()},
+        admit_widths_checked=admits_checked,
+        capture_ms=on["capture_ms"],
         graph_replays=replays, stats=st, stats_off=off["stats"],
         steps=on["steps"], wall_s=on["wall_s"],
         ttft_ms_median=float(np.median(ttft)),
         ttft_ms_p90=float(np.percentile(ttft, 90)),
+        ttft_ms_eager_admits=EAGER_ADMIT_TTFT_MS[family],
+        ttft_ms_warm_median=1e3 * float(np.median(warm)),
+        ttft_ms_warm_p90=1e3 * float(np.percentile(warm, 90)),
         decode_ms_per_token=float(np.median(host)) / CB_CHUNK,
         ms_per_generated_token=float(np.median(host / (CB_CHUNK * live))),
         tokens_per_s=on["tokens"] / on["wall_s"],
@@ -2902,26 +3244,40 @@ def _serve_cb(family, kernel):
         peak_gb=peak_gb, held=held, row_ulps_bound=CB_ROW_ULPS,
         streams_equal_cache_on_off=int(same),
         eager_chunk_card_ms=chunk_ms, eager_chunk_top_kernels=top,
-        graph_vs_eager=ge, wall_s_off=off["wall_s"])
+        graph_vs_eager=ge,
+        sampled_graph_vs_eager=dict(requests=len(s_graph),
+                                    widths=s_widths),
+        wall_s_off=off["wall_s"])
     print(f"[{tag}] {len(prompts)} requests x {CB_NEW} tokens over "
           f"{CB_SLOTS} slots in {on['steps']} steps "
-          f"({st['admit_steps']} admits, {st['chunk_steps']} chunks of "
-          f"{CB_CHUNK} as CUDA graph replays); prefix hits "
+          f"({st['admit_steps']} admits as CUDA graph replays at widths "
+          f"{widths_used}, {st['chunk_steps']} chunks of {CB_CHUNK} as CUDA "
+          f"graph replays); prefix hits "
           f"{st['prefix_hits']}, hit tokens {st['prefix_hit_tokens']}, CoW "
           f"{st['prefix_cow']}, prefill tokens {st['prefill_tokens']} = "
           f"{plen} - {st['prefix_hit_tokens']}; pool quiescent")
     print(f"[{tag}] {kernel.symbol}: {launches} launches on the card = "
-          f"{eager} outside the graph ({st['admit_steps']} eager admits and "
-          f"the capture's warm-up chunk, x {per_forward}) + {replays} "
-          f"replays x {in_graph}; the session's own graph holds {in_graph} "
-          f"= {CB_CHUNK} x {per_forward} of its {len(nodes)} kernel nodes "
-          f"(the wrapper recorded {recorded} calls in its capture), 0 "
-          f"plain, none of the other norm")
+          f"{outside} outside the graphs (the captures' warm-ups: one chunk "
+          f"and one forward per admit width, x {per_forward}) + {replays} "
+          f"chunk replays x {in_graph} + {st['admit_steps']} admit replays x "
+          f"{per_forward}; the session's own graphs hold {in_graph} = "
+          f"{CB_CHUNK} x {per_forward} (chunk) and {per_forward} (each of "
+          f"{len(on['admit_nodes'])} admit widths) (the wrapper recorded "
+          f"{recorded} calls in the captures), 0 plain, none of the other "
+          f"norm")
+    print(f"[{tag}] capture host ms (warm-up, recording, instantiation): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in on["capture_ms"].items())
+          + f" (the chunk and width {CB_PROMPT} with the session, the others "
+          f"at their first use, inside the run)")
     print(f"[{tag}] graph vs eager: one chunk from the same state gives "
-          f"equal tokens, lengths and pool bytes ({ge['blocks_written']} "
-          f"blocks written)")
+          f"equal tokens, lengths and pool bytes "
+          f"({ge['blocks_written']} blocks written); so does the first "
+          f"admit at each of the widths {admits_checked} (a third pass of "
+          f"the traffic, and the sampled run); a sampled session "
+          f"of {len(s_graph)} requests (widths {s_widths}) streams the same "
+          f"bytes from graphs and eagerly")
     print(f"[{tag}] streams: all {held['tokens_held']} tokens of the "
-          f"{2 * len(prompts)} requests (cache on and off) held to an "
+          f"{held['requests_held']} requests (cache on and off) held to an "
           f"independent B=1 paged forward of their own tokens "
           f"({held['forwards']} forwards): first-token rows within "
           f"{held['row_ulps_max']:.1f} bf16 ulps (bound {CB_ROW_ULPS}), "
@@ -2931,8 +3287,14 @@ def _serve_cb(family, kernel):
           f"{held['logit_sd']:.3f}; {same} of {len(prompts)} streams equal "
           f"cache on and off")
     print(f"[{tag}] TTFT median {res['ttft_ms_median']:.1f} ms, p90 "
-          f"{res['ttft_ms_p90']:.1f} ms; decode "
-          f"{res['decode_ms_per_token']:.3f} ms/token per live slot (chunk step / {CB_CHUNK}), "
+          f"{res['ttft_ms_p90']:.1f} ms with admit graphs, their captures "
+          f"inside the run; {res['ttft_ms_warm_median']:.1f} / "
+          f"{res['ttft_ms_warm_p90']:.1f} ms on a second pass of the same "
+          f"traffic (prefix cache flushed, every width captured) (eager "
+          f"admits, PERF.md: {EAGER_ADMIT_TTFT_MS[family][0]} / "
+          f"{EAGER_ADMIT_TTFT_MS[family][1]} ms); decode "
+          f"{res['decode_ms_per_token']:.3f} ms/token per live slot (chunk "
+          f"step / {CB_CHUNK}), "
           f"{res['ms_per_generated_token']:.3f} ms per generated token; "
           f"{res['tokens_per_s']:.1f} tokens/s over the run "
           f"({on['wall_s']:.2f} s; cache off {off['wall_s']:.2f} s); chunk "
@@ -2946,11 +3308,9 @@ def _serve_cb(family, kernel):
     else:
         print(f"[{tag}] a chunk run eagerly under the profiler: card "
               f"{chunk_ms:.2f} ms; top kernels:")
-        for t in top:
-            print(f"[{tag}]   {t['ms']:9.2f} ms {t['calls']:6d}x "
-                  f"{t['kernel']}")
-    del model
-    _SERVING_MODELS.pop(family)
+        for t_ in top:
+            print(f"[{tag}]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
+                  f"{t_['kernel']}")
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2965,7 +3325,291 @@ def phase_serve_cb_llama():
 def phase_serve_cb_gpt():
     from paddle_tpu_torch.nn.functional import norm
 
-    return _serve_cb("gpt", norm.LAYER_NORM_KERNEL)
+    res = _serve_cb("gpt", norm.LAYER_NORM_KERNEL)
+    _release_serving_model("gpt")
+    return res
+
+
+def _release_serving_model(family):
+    _SERVING_MODELS.pop(family)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# [serve_cb_sched]: the scheduler's overload paths on Llama-2-7B
+SCHED_CHUNK = 128              # prefill_chunk
+SCHED_HI_STEP = 6              # the priority-5 request arrives before it
+SCHED_PREEMPT_STEP = 12        # preempt() before it (mid-decode)
+
+
+def phase_serve_cb_sched():
+    """Llama-2-7B through the session's overload paths: the cb_prompts
+    traffic with prefill_chunk=128 and a pool of half the blocks the 4
+    slots' longest requests hold (kv_pool_bytes), a request whose
+    deadline passed before its submission, a priority-5 request that
+    preempts a running one for its slot, and one forced preempt()
+    mid-decode. Every finished stream is held by cb_hold; the first
+    admit at each width graph against eager; the stats, the longest
+    prompt's chunks and the pool's quiescence checked."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.incubate.nn.functional.paged_kv import (
+        kv_block_bytes)
+    from paddle_tpu_torch.inference import serving
+
+    tag = "serve_cb_sched"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = serving_model("llama")
+    ad = serving.get_model_adapter(model)
+    kernel = fused_ops.RMS_NORM_KERNEL
+    prompts = dict(enumerate(cb_prompts(model.cfg.vocab_size)))
+    prompts["hi"] = np.random.RandomState(31).randint(
+        1, model.cfg.vocab_size, 200).astype(np.int64)
+    prompts["late"] = prompts[0].copy()
+    per_req = -(-(CB_PROMPT + CB_NEW) // CB_BLOCK)
+    blocks = CB_SLOTS * per_req // 2
+    budget = blocks * kv_block_bytes(ad.num_layers, ad.kv_heads, CB_BLOCK,
+                                     ad.head_dim, dtype=ad.dtype)
+    reqs = [serving.Request(i, prompts[i], CB_NEW) for i in range(12)]
+    late = serving.Request("late", prompts["late"], CB_NEW, deadline_s=-1.0)
+    hi = serving.Request("hi", prompts["hi"], CB_NEW, priority=5)
+    longest = max(range(12), key=lambda i: len(prompts[i]))
+    seen = dict(chunks=0, forced=None)
+
+    def before(sess, step):
+        s = [x for x in sess._slots if x.req is reqs[longest]]
+        if s and s[0].pending is not None:
+            seen["chunks"] += 1          # the longest prompt prefills now
+        if step >= SCHED_PREEMPT_STEP and seen["forced"] is None:
+            decoding = [x.req for x in sess._slots if x.req is not None
+                        and x.pending is None and x.req is not hi
+                        and not x.req.preemptions]
+            if decoding:
+                seen["forced"] = sess.preempt(decoding[0].req_id)
+
+    kernel.reset_counts()
+    run, sess = cb_drive(model, None, True, tag, before_step=before,
+                         reqs=[late] + reqs + [hi],
+                         waves=((0, 9), (3, 4), (SCHED_HI_STEP, None)),
+                         compare_admits=True, prefill_chunk=SCHED_CHUNK,
+                         kv_pool_bytes=budget)
+    st = run["stats"]
+    check(sess._num_blocks == blocks, f"{tag}: {sess._num_blocks} blocks "
+                                      f"for a budget of {blocks}")
+    check(kernel.plain_calls == 0, f"{tag}: plain norm ran")
+    launches, _ = cb_count_launches(
+        tag, kernel, run, kernel.recorded, kernel.launches,
+        2 * model.cfg.num_layers + 1, compared=len(run["admits_checked"]))
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(late.status == "expired" and late.tokens == [],
+          f"{tag}: the late request is {late.status} with "
+          f"{len(late.tokens)} tokens")
+    check(seen["forced"] is not None, f"{tag}: preempt() found no victim")
+    for r in reqs + [hi]:
+        check(r.status == "done" and len(r.tokens) == CB_NEW,
+              f"{tag}: request {r.req_id} {r.status} with "
+              f"{len(r.tokens)} tokens")
+    auto = [r.req_id for r in reqs if r.preemptions
+            and r.req_id != seen["forced"]]    # preempted for "hi"
+    check(st["preemptions"] >= 2 and auto,
+          f"{tag}: {st['preemptions']} preemptions, automatic {auto}")
+    check(st["expirations"] == 1, f"{tag}: {st['expirations']} expired")
+    # its first chunk runs in the step that admits it, the others in
+    # steps before which it is mid-prefill
+    seen["chunks"] += 1
+    need = -(-len(prompts[longest]) // SCHED_CHUNK)
+    check(seen["chunks"] >= need and st["admit_steps"] >= need,
+          f"{tag}: the {len(prompts[longest])}-token prompt prefilled over "
+          f"{seen['chunks']} admits, want >= {need}")
+    check(max(run["admit_widths"]) <= SCHED_CHUNK,
+          f"{tag}: admit widths {sorted(set(run['admit_widths']))}")
+    held = cb_hold(model, prompts, {"sched": run}, tag)
+    check(held["requests_held"] == 13, f"{tag}: {held['requests_held']} "
+                                       f"streams held")
+    plain = PHASE_STREAMS.get("serve_cb_llama", {})
+    equal = sum(np.array_equal(run["out"][i], plain[i])
+                for i in range(12) if i in plain)
+    preempted = sorted(str(r.req_id) for r in reqs + [hi] if r.preemptions)
+    ttft = np.array(run["ttft_s"]) * 1e3
+    res = dict(stats=st, num_blocks=blocks, kv_pool_bytes=budget,
+               launches=launches, forced=seen["forced"], automatic=auto,
+               preempted=preempted, longest_prompt=len(prompts[longest]),
+               longest_chunks=seen["chunks"],
+               admit_widths=sorted(set(run["admit_widths"])),
+               admits_checked=sorted(run["admits_checked"]), held=held,
+               streams_equal_plain=int(equal), wall_s=run["wall_s"],
+               ttft_ms_median=float(np.median(ttft)),
+               ttft_ms_p90=float(np.percentile(ttft, 90)),
+               peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{tag}] Llama-2-7B, prefill_chunk={SCHED_CHUNK}, kv_pool_bytes "
+          f"{budget} = {blocks} blocks (half of {CB_SLOTS} slots x "
+          f"{per_req}); {len(reqs) + 2} requests in {run['steps']} steps: "
+          f"{st['admit_steps']} admits at widths {res['admit_widths']} "
+          f"(each width's first admit equal graph vs eager: "
+          f"{res['admits_checked']}), {st['chunk_steps']} chunks; "
+          f"preemptions {st['preemptions']} (forced {seen['forced']}, "
+          f"automatic {auto}; preempted {preempted}), expirations "
+          f"{st['expirations']} (late: {late.status}), evictions "
+          f"{st['prefix_evictions']}, prefix hits {st['prefix_hits']}; the "
+          f"{len(prompts[longest])}-token prompt over {seen['chunks']} "
+          f"admits (>= {need}); pool quiescent; {kernel.symbol} {launches} "
+          f"launches, 0 plain")
+    print(f"[{tag}] streams: {held['tokens_held']} tokens of "
+          f"{held['requests_held']} requests held to an independent B=1 "
+          f"forward: first-token rows within {held['row_ulps_max']:.1f} "
+          f"ulps, every token within {held['margin_ulps_max']:.1f} ulps of "
+          f"its best ({held['tokens_not_argmax']} not the argmax); {equal} "
+          f"of 12 equal to [serve_cb_llama]'s unchunked, unpreempted "
+          f"streams; TTFT median {res['ttft_ms_median']:.1f} ms, p90 "
+          f"{res['ttft_ms_p90']:.1f} ms; {run['wall_s']:.2f} s; peak "
+          f"{res['peak_gb']:.2f} GiB")
+    _release_serving_model("llama")
+    return res
+
+
+# [generate_default]: the models' default generate() at full size
+GEN_NEW = 32                   # new tokens of the dense and paged loops
+GEN_NO_CACHE_NEW = 8           # GPT's use_cache=False
+
+
+def _generate_default(family, kernel):
+    """The family's serving model (B=4, prompt 128, bf16) through
+    model.generate with the JAX package's defaults (the dense (k, v)
+    cache), GPT's use_cache=False, and the eager paged loop
+    (use_paged_kv=True, aot=False); counts from 0 around each; every
+    token held to an independent B=1 forward (cb_margins)."""
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    tag = "generate_default"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = serving_model(family)
+    cfg = model.cfg
+    L, per_forward = cfg.num_layers, 2 * cfg.num_layers + 1
+    rs = np.random.RandomState(17)
+    ids = rs.randint(0, cfg.vocab_size, (BATCH, PROMPT)).astype(np.int64)
+    kernels = (kernel, fa.FLASH_FWD_KERNEL, fa.FLASH_FWD_FP32_KERNEL)
+
+    def counted(fn):
+        for k in kernels:
+            k.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        c = {k.symbol: k.launches for k in kernels}
+        check(sum(k.plain_calls for k in kernels) == 0,
+              f"{tag} {family}: a plain version ran on the card")
+        return out, c
+
+    def want(norms, k4):
+        return {kernel.symbol: norms, "ptt_flash_fwd": k4,
+                "ptt_flash_fwd_fp32": 0}
+    runs, launches = {}, {}
+    runs["dense"], launches["dense"] = counted(
+        lambda: model.generate(ids, max_new_tokens=GEN_NEW))
+    check(launches["dense"] == want(per_forward * GEN_NEW, L * GEN_NEW),
+          f"{tag} {family}: dense generate launches {launches['dense']}")
+    runs["paged eager"], launches["paged eager"] = counted(
+        lambda: model.generate(ids, max_new_tokens=GEN_NEW,
+                               use_paged_kv=True, aot=False,
+                               kv_block_size=BLOCK))
+    check(launches["paged eager"] == want(per_forward * GEN_NEW, 0),
+          f"{tag} {family}: paged eager launches {launches['paged eager']}")
+    prompt_of = {}
+    if family == "gpt":
+        runs["no cache"], launches["no cache"] = counted(
+            lambda: model.generate(ids, max_new_tokens=GEN_NO_CACHE_NEW,
+                                   use_cache=False))
+        check(launches["no cache"] == want(per_forward * GEN_NO_CACHE_NEW,
+                                           L * GEN_NO_CACHE_NEW),
+              f"{tag} gpt: no-cache launches {launches['no cache']}")
+        # the packed projection's q, k, v views reach K4 at a prompt
+        # length off every tile
+        ids77 = rs.randint(0, cfg.vocab_size, (2, 77)).astype(np.int64)
+        runs["dense S=77"], launches["dense S=77"] = counted(
+            lambda: model.generate(ids77, max_new_tokens=4))
+        check(launches["dense S=77"] == want(per_forward * 4, L * 4),
+              f"{tag} gpt: dense S=77 launches {launches['dense S=77']}")
+        prompt_of["dense S=77"] = ids77
+    aot = model.generate(ids, max_new_tokens=GEN_NEW, use_paged_kv=True,
+                         kv_block_size=BLOCK)
+    _, t_1 = sync_time(lambda: model.generate(ids, max_new_tokens=1))
+    _, t_n = sync_time(lambda: model.generate(ids, max_new_tokens=GEN_NEW))
+    ms_per_token = (t_n - t_1) / (GEN_NEW - 1) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    pre_ms, _ = device_breakdown(lambda: model.generate(ids,
+                                                        max_new_tokens=1))
+    all_ms, top = device_breakdown(lambda: model.generate(ids,
+                                                          max_new_tokens=9))
+    busy = step_card = None
+    if pre_ms is not None and all_ms is not None:
+        step_card = (all_ms - pre_ms) / 8
+        busy = step_card / ms_per_token
+
+    forced, worst, not_argmax, held, equal_aot = {}, 0.0, 0, 0, {}
+    for path, out in runs.items():
+        p_ids = prompt_of.get(path, ids)
+        s = p_ids.shape[1]
+        gen = out[:, s:].cpu().numpy()
+        check(tuple(out.shape) == (p_ids.shape[0], s + gen.shape[1])
+              and ((gen >= 0) & (gen < cfg.vocab_size)).all()
+              and np.array_equal(out[:, :s].cpu().numpy(), p_ids),
+              f"{tag} {family} {path}: output {tuple(out.shape)}")
+        if s == PROMPT:
+            a = aot[:, s:s + gen.shape[1]].cpu().numpy()
+            equal_aot[path] = (int((gen == a).sum()), gen.size)
+        for r in range(gen.shape[0]):
+            key = (r, s, gen[r].tobytes())
+            if key not in forced:
+                forced[key] = cb_teacher_forced(model, p_ids[r], gen[r])
+            w, n = cb_margins(forced[key], gen[r], f"{tag} {family}",
+                              f"{path} row {r}")
+            worst, not_argmax, held = max(worst, w), not_argmax + n, (
+                held + len(gen[r]))
+    res = dict(launches=launches, prefill_ms=t_1 * 1e3,
+               ms_per_token=ms_per_token, decode_card_ms=step_card,
+               card_busy=busy, peak_gb=peak_gb, tokens_held=held,
+               margin_ulps_max=worst, tokens_not_argmax=not_argmax,
+               tokens_equal_aot_paged=equal_aot, top_kernels_9_tokens=top)
+    print(f"[{tag}] {family}: model.generate(B={BATCH}, S={PROMPT}) dense "
+          f"(k, v) cache, {GEN_NEW} tokens: {kernel.symbol} "
+          f"{launches['dense'][kernel.symbol]} = {per_forward} x {GEN_NEW}, "
+          f"ptt_flash_fwd {launches['dense']['ptt_flash_fwd']} = {L} x "
+          f"{GEN_NEW} (the prefill and {GEN_NEW - 1} one-row steps), 0 "
+          f"plain; eager paged loop: {launches['paged eager']}"
+          + (f"; use_cache=False, {GEN_NO_CACHE_NEW} tokens: "
+             f"{launches['no cache']}; dense at S=77 (B=2), 4 tokens: "
+             f"{launches['dense S=77']}" if family == "gpt" else ""))
+    print(f"[{tag}] {family}: prefill {t_1 * 1e3:.1f} ms, decode "
+          f"{ms_per_token:.2f} ms/token (dense), card "
+          + (f"{step_card:.2f} ms a step = {100 * busy:.0f}% busy"
+             if busy is not None else "not measured (the profiler recorded "
+             "no device events)")
+          + f"; peak {peak_gb:.2f} GiB; all {held} tokens within "
+          f"{worst:.1f} bf16 ulps of an independent B=1 forward's best "
+          f"(bound {2 * CB_ROW_ULPS}; {not_argmax} not its argmax); tokens "
+          f"equal to the AOT paged stream: "
+          + ", ".join(f"{k} {n} of {of}"
+                      for k, (n, of) in equal_aot.items()))
+    return res
+
+
+def phase_generate_default_llama():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+
+    return _generate_default("llama", fused_ops.RMS_NORM_KERNEL)
+
+
+def phase_generate_default_gpt():
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _generate_default("gpt", norm.LAYER_NORM_KERNEL)
+
+
+PHASE_STREAMS = {}      # phase -> {req_id: tokens}, for later comparisons
 
 
 def main():
@@ -2979,8 +3623,12 @@ def main():
     build = phase_build()
     rec = {}
     for name, run in (("kernels", phase_kernels), ("llama", phase_llama),
+                      ("generate_default_llama",
+                       phase_generate_default_llama),
                       ("serve_cb_llama", phase_serve_cb_llama),
+                      ("serve_cb_sched", phase_serve_cb_sched),
                       ("gpt", phase_gpt),
+                      ("generate_default_gpt", phase_generate_default_gpt),
                       ("serve_cb_gpt", phase_serve_cb_gpt),
                       ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
@@ -3014,11 +3662,17 @@ def main():
     long = rec["train_long"]["launches"]
     r_gpt = rec["train_recipe"]["gpt"]["launches"]
     r_llama = rec["train_recipe"]["tinyllama"]["launches"]
+    g_llama = rec["generate_default_llama"]["launches"]
+    g_gpt = rec["generate_default_gpt"]["launches"]
     rows = [
         ("rms_norm", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
          {"llama2_7b serving": rec["llama"]["launches"],
-          "llama2_7b cb serving": rec["serve_cb_llama"]["launches"]},
+          "llama2_7b dense generate": g_llama["dense"]["ptt_rms_norm_fwd"],
+          "llama2_7b paged eager generate":
+              g_llama["paged eager"]["ptt_rms_norm_fwd"],
+          "llama2_7b cb serving": rec["serve_cb_llama"]["launches"],
+          "llama2_7b cb sched serving": rec["serve_cb_sched"]["launches"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -3029,6 +3683,12 @@ def main():
         ("layer_norm", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",
          {"gpt3_1p3b serving": rec["gpt"]["launches"],
+          "gpt3_1p3b dense generate": g_gpt["dense"]["ptt_layer_norm_fwd"]
+          + g_gpt["dense S=77"]["ptt_layer_norm_fwd"],
+          "gpt3_1p3b no-cache generate":
+              g_gpt["no cache"]["ptt_layer_norm_fwd"],
+          "gpt3_1p3b paged eager generate":
+              g_gpt["paged eager"]["ptt_layer_norm_fwd"],
           "gpt3_1p3b cb serving": rec["serve_cb_gpt"]["launches"]},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_train", "paddle_tpu_torch/csrc/layer_norm.cu",
@@ -3050,8 +3710,15 @@ def main():
         ("flash_fwd", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
          f"{fl}:769,805",
          {"gpt3_1p3b train": launches["ptt_flash_fwd"],
-          "gpt3_1p3b recipe train": r_gpt["ptt_flash_fwd"]},
+          "gpt3_1p3b recipe train": r_gpt["ptt_flash_fwd"],
+          "gpt3_1p3b no-cache generate": g_gpt["no cache"]["ptt_flash_fwd"]},
          tk["flash_fwd"], tk["flash_fwd"]),
+        ("flash_fwd_decode", "paddle_tpu_torch/csrc/flash_fwd_sm90.cu",
+         f"{fl}:769,805",
+         {"llama2_7b dense generate": g_llama["dense"]["ptt_flash_fwd"],
+          "gpt3_1p3b dense generate": g_gpt["dense"]["ptt_flash_fwd"]
+          + g_gpt["dense S=77"]["ptt_flash_fwd"]},
+         tk["flash_fwd_decode"], tk["flash_fwd_decode"]["times"][1]),
         ("flash_bwd", "paddle_tpu_torch/csrc/flash_bwd_sm90.cu",
          f"{fl}:873",
          {"gpt3_1p3b train": launches["ptt_flash_bwd"],

@@ -13,6 +13,9 @@ PADDLE_ENV_KNOBS = frozenset({
     # serving: the bounded waiting queue, the replica label of metrics
     # and events (inference/scheduler.py, inference/serving.py)
     "PADDLE_SERVING_MAX_WAITING", "PADDLE_REPLICA_NAME",
+    # the default KV pool byte budget of a ContinuousBatchingSession
+    # (inference/serving.py; num_blocks wins over it)
+    "PADDLE_SERVING_QUANT_KV_POOL_BYTES",
     # crash forensics (observability/flight_recorder.py)
     "PADDLE_CRASH_DIR", "PADDLE_CRASH_DUMP_INTERVAL",
     # SLO monitor policy (observability/slo.py)

@@ -383,18 +383,28 @@ def _hm_backward_split_ref(qh, kh, vh, out, lse, doh, causal):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _row_stride(x):
+    """The distance between consecutive rows of a [B,S,e] view as the
+    kernels step through them (row b*S + s at (b*S + s) times it):
+    stride(1), or, at S = 1, where stride(1) says nothing (a decode
+    step's column slice of a packed [B,1,3E] projection), stride(0)."""
+    return x.stride(0) if x.shape[1] == 1 else x.stride(1)
+
+
 def _check_operand(name, x, dtype, device, e):
-    """x: a [B,S,e] view whose rows are 16-byte aligned and whose last dim
-    is contiguous (a column slice of a packed array qualifies)."""
+    """x: a [B,S,e] view whose rows are 16-byte aligned, one row stride
+    apart, and whose last dim is contiguous (a column slice of a packed
+    array qualifies)."""
     if x.device != device or x.dtype != dtype:
         raise ValueError(f"flash attention: {name} must be {dtype} on "
                          f"{device}, got {x.dtype} on {x.device}")
     if x.dim() != 3 or x.shape[2] != e:
         raise ValueError(f"flash attention: {name} must be [B,S,{e}], got "
                          f"{tuple(x.shape)}")
-    item = x.element_size()
-    if (x.stride(2) != 1 or x.stride(0) != x.shape[1] * x.stride(1)
-            or (x.stride(1) * item) % 16 or x.data_ptr() % 16):
+    item, rs = x.element_size(), _row_stride(x)
+    if (x.stride(2) != 1
+            or (x.shape[0] > 1 and x.stride(0) != x.shape[1] * rs)
+            or (rs * item) % 16 or x.data_ptr() % 16):
         raise ValueError(
             f"flash attention: {name} must have contiguous, 16-byte aligned "
             f"rows of one stride, got strides {x.stride()}")
@@ -417,9 +427,10 @@ def _check_kernel_args(q, k, v, heads):
     _check_operand("q", q, q.dtype, q.device, e)
     for name, x in (("k", k), ("v", v)):
         _check_operand(name, x, q.dtype, q.device, k.shape[-1])
-    if k.shape != v.shape or k.shape[0] != b or k.stride() != v.stride():
+    if (k.shape != v.shape or k.shape[0] != b
+            or _row_stride(k) != _row_stride(v)):
         raise ValueError("flash attention: k and v must share shape and "
-                         "strides")
+                         "row stride")
     return b, sq, k.shape[1], d, k.shape[-1] // d
 
 
@@ -445,8 +456,8 @@ def flash_fwd_cuda(q, k, v, heads, causal):
     kernel, code = _bf16_or_fp32(q.dtype, FLASH_FWD_KERNEL,
                                  FLASH_FWD_FP32_KERNEL)
     kernel.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
-        k.stride(1), out.data_ptr(), lse.data_ptr(), b, sq, sk, heads, kvh,
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _row_stride(q),
+        _row_stride(k), out.data_ptr(), lse.data_ptr(), b, sq, sk, heads, kvh,
         d, int(bool(causal)), *code)
     return out, lse
 
@@ -475,8 +486,9 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
     _check_operand("dq", dq, q.dtype, q.device, e)
     for name, x in (("dk", dk), ("dv", dv)):
         _check_operand(name, x, q.dtype, q.device, kvh * d)
-    if dk.stride() != dv.stride():
-        raise ValueError("flash attention: dk and dv must share strides")
+    if _row_stride(dk) != _row_stride(dv):
+        raise ValueError("flash attention: dk and dv must share a row "
+                         "stride")
     if dq.shape[:2] != (b, sq) or dk.shape[:2] != (b, sk) \
             or dv.shape[:2] != (b, sk):
         raise ValueError("flash attention: gradient shapes do not match")
@@ -484,10 +496,10 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, heads, causal, dq, dk, dv):
     kernel, code = _bf16_or_fp32(q.dtype, FLASH_BWD_KERNEL,
                                  FLASH_BWD_FP32_KERNEL)
     kernel.launch(
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), q.stride(1),
-        k.stride(1), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), _row_stride(q),
+        _row_stride(k), out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dq.stride(1), dk.stride(1), b, sq, sk, heads, kvh, d,
+        _row_stride(dq), _row_stride(dk), b, sq, sk, heads, kvh, d,
         int(bool(causal)), *code)
 
 

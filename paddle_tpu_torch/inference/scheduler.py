@@ -1,13 +1,10 @@
 """Overload-robust scheduling for the continuous-batching serving path.
 Counterpart of paddle_tpu/inference/scheduler.py.
 
-In the port, requests carry priority 0 and no deadline, and chunked
-prefill is off (``Request(priority=, deadline_s=)`` and the session's
-``prefill_chunk=`` raise NotImplementedError until ROADMAP queue A item
-6): the queue is FIFO, no victim is ever strictly lower in priority, so
-nothing is preempted, and every prompt admits in one chunk. The policy
-below is the reference's, whole, so those features switch on here
-unchanged.
+The policy below is the reference's, whole: the session's
+``prefill_chunk=``, ``preempt()`` and ``kv_pool_bytes=`` and
+``Request(priority=, deadline_s=)`` drive it as they drive the JAX
+package's.
 
 The r4-r6 serving tier admits or queues forever: no bound on prefill
 work per step, no deadlines, no cancellation, no way to reclaim pool

@@ -9,25 +9,36 @@ decode executable, GenerationSession runs the same model code eagerly:
 the decode ``lax.scan`` is a Python loop, and the pools the JAX package
 donates into its decode executable are updated in place. Token selection
 stays on the card, so the loop never waits for the host until the tokens
-are returned.
+are returned. ``eager_generate`` is the models' default generate() loop
+(a dense or paged cache, or none), as the JAX package runs it eagerly.
 
-ContinuousBatchingSession keeps the reference's two programs. The mixed
-admit (prefill chunks beside one-token riders) runs eagerly, one width a
-dispatch. The pure-decode chunk, ``chunk`` steps for every slot with
-token selection on the card, is on a card ONE CUDA graph, captured once
-per session geometry (slots, chunk, blocks per slot, dtype) over static
-buffers that the host refills with ``copy_`` before each replay: the
-last tokens, the live mask, the block table and the cached lengths; the
-pools are written in place and the host reads one ``[chunk, slots]``
-token buffer back per chunk. The graph reads the weights by address: a
-weight replaced since the capture is seen before the next replay, which
-re-captures. On the CPU the same function runs eagerly. A capture that
-fails raises; nothing falls back to eager decode on a card.
+ContinuousBatchingSession keeps the reference's programs: the mixed
+admit (prefill chunks beside one-token riders) at each token-buffer
+width of its power-of-two ladder, and the pure-decode chunk (``chunk``
+steps for every slot with token selection on the card). On a card each
+is ONE CUDA graph, all in one shared memory pool: the chunk and the
+admit at width max_prompt_len captured with the session (the JAX
+package's pinned executables), each other admit width at its first use,
+over static
+buffers that the host refills with ``copy_`` before each replay (the
+tokens, the new-token counts and prefix-hit boundaries, the live mask,
+the block table and the cached lengths); copy-on-write block copies,
+whose number varies, run eagerly before an admit's replay. The pools are
+written in place and the host reads one token buffer back per dispatch.
+The graphs read the weights by address: a weight replaced since the
+capture is seen before the next replay, which re-captures. On the CPU
+the same functions run eagerly. A capture that fails raises; nothing
+falls back to eager admits or decode on a card.
+
+The scheduler's overload paths are the reference's: chunked prefill
+(``prefill_chunk``), request priorities and deadlines, preemption
+(automatic under slot or block pressure, or forced by ``preempt()``)
+with a re-prefill of the committed history through the prefix cache,
+and a pool sized by bytes (``kv_pool_bytes``).
 
 Not ported (NotImplementedError, ROADMAP queue A item 6): speculative
-decoding, chunked prefill, LoRA, quantized weights and pools, the
-hierarchical KV tier, host-side logprobs, the overlapped engine,
-preemption and request priorities / deadlines.
+decoding, LoRA, quantized weights and pools, the hierarchical KV tier,
+host-side logprobs and the overlapped engine.
 """
 from __future__ import annotations
 
@@ -38,6 +49,7 @@ import itertools
 import os
 import time
 import weakref
+from functools import partial
 from typing import Optional
 
 import numpy as np
@@ -45,30 +57,31 @@ import torch
 
 from ..analysis.sanitizers import race_handoff, race_track
 from ..core.flags import env_int
-from ..incubate.nn.functional.paged_kv import PagedCache, alloc_block_tables
+from ..incubate.nn.functional.paged_kv import (PagedCache,
+                                               alloc_block_tables,
+                                               init_block_cache)
 from .scheduler import AdmissionRejected, InvalidRequest  # noqa: F401
 # (re-exported: submit() raises them; the Scheduler itself lives in
 # scheduler.py and is reached via session.scheduler)
 
 __all__ = ["AdmissionRejected", "ContinuousBatchingSession",
            "GenerationSession", "InvalidRequest", "ModelAdapter",
-           "Request", "aot_generate", "get_model_adapter",
+           "Request", "aot_generate", "eager_generate",
+           "get_model_adapter",
            "make_run_model", "mask_logits", "sample_logits"]
 
 UNPORTED = "is not ported to paddle_tpu_torch (ROADMAP queue A item 6)"
 
 
 def _reject_unported(speculative=None, lora=None, quantize_weights=None,
-                     kv_dtype=None, prefill_chunk=None, kv_pool_bytes=None,
-                     kv_tier=None, logprobs=False, overlap=None):
+                     kv_dtype=None, kv_tier=None, logprobs=False,
+                     overlap=None):
     """Raise NotImplementedError naming every serving feature asked for
     that the port lacks. ``False``/"none" for the quantization knobs and
     ``kv_tier``, ``overlap=None``/``False`` (the sequential engine) and
     ``logprobs=False`` mean off, as in the JAX package."""
     asked = [name for name, v in (("speculative", speculative),
-                                  ("lora", lora),
-                                  ("prefill_chunk", prefill_chunk),
-                                  ("kv_pool_bytes", kv_pool_bytes))
+                                  ("lora", lora))
              if v is not None]
     asked += [name for name, v in (("quantize_weights", quantize_weights),
                                    ("kv_dtype", kv_dtype),
@@ -433,6 +446,79 @@ def aot_generate(model, input_ids, max_new_tokens: int,
     return out
 
 
+def eager_generate(model, input_ids, max_new_tokens: int,
+                   do_sample: bool = False, temperature: float = 1.0,
+                   top_k: int = 0, top_p: float = 1.0, eos_token_id=None,
+                   use_cache: bool = True, use_paged_kv: bool = False,
+                   kv_block_size: int = 64, seed: int = 0):
+    """The models' eager generate loop (the JAX package's
+    ``LlamaForCausalLM.generate`` / ``GPTForCausalLM.generate`` off the
+    AOT path): ``n_new = min(max_new_tokens, max_seq_len - S)`` steps,
+    each one forward of the backbone and a token selection on the
+    model's device. The cache is a dense per-layer (k, v) that grows by
+    concatenation (the default), the block-table pool
+    (``use_paged_kv``; each sequence rotated at its own cached length),
+    or none (``use_cache=False``: the no-cache forward over the whole
+    sequence so far, every step). Rows that emitted ``eos_token_id`` keep
+    emitting it, and the loop stops once every row has. Sampled draws
+    come from a generator seeded with ``seed`` on the model's device.
+    Returns prompt + generated tokens [B, S + n] on the model's device in
+    the caller's id dtype (the prompt alone when n_new <= 0)."""
+    adapter = get_model_adapter(model)
+    dev = adapter.device
+    ids_in = torch.as_tensor(input_ids)
+    out_dtype = ids_in.dtype
+    ids = ids_in.to(device=dev, dtype=torch.int64)
+    b, prompt_len = ids.shape
+    n_new = min(max_new_tokens, adapter.max_seq_len - prompt_len)
+    if n_new <= 0:
+        return ids.to(out_dtype)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(int(seed))
+    sampling = (bool(do_sample), float(temperature), int(top_k),
+                float(top_p))
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.inference_mode():
+            caches = None
+            if use_cache and use_paged_kv:
+                bt, nblocks = alloc_block_tables(
+                    b, adapter.max_seq_len, kv_block_size, device=dev)
+                caches = [PagedCache(*init_block_cache(
+                    nblocks, adapter.kv_heads, kv_block_size,
+                    adapter.head_dim, adapter.dtype, device=dev), bt,
+                    torch.zeros((b,), dtype=torch.int32, device=dev))
+                    for _ in range(adapter.num_layers)]
+            elif use_cache:
+                caches = [(None, None)] * adapter.num_layers
+            toks, cur, cached = [ids], ids, 0
+            done = torch.zeros((b,), dtype=torch.bool, device=dev)
+            for _ in range(n_new):
+                if caches is None:
+                    hidden = adapter.backbone(torch.cat(toks, dim=1))
+                else:
+                    # the paged pool's seq_lens is each row's cached
+                    # length; a dense cache's is the same for every row
+                    pos = (caches[0].seq_lens if use_paged_kv else cached)
+                    hidden, caches = adapter.backbone(cur, caches=caches,
+                                                      pos_offset=pos)
+                    cached += cur.shape[1]
+                lv = adapter.logits(hidden[:, -1]).float()
+                nxt = sample_logits(lv, generator, *sampling)
+                if eos_token_id is not None:
+                    nxt = torch.where(done, eos_token_id, nxt)
+                    done = done | (nxt == eos_token_id)
+                cur = nxt[:, None].to(torch.int64)
+                toks.append(cur)
+                if eos_token_id is not None and bool(done.all()):
+                    break
+            return torch.cat(toks, dim=1).to(out_dtype)
+    finally:
+        if was_training:
+            model.train()
+
+
 # ---------------------------------------------------------------------------
 # continuous batching
 # ---------------------------------------------------------------------------
@@ -506,9 +592,10 @@ def _serving_metrics():
                 "paged_kv_blocks",
                 "paged-KV pool block breakdown; a shared block counts "
                 "once, in exactly one state"),
-            # declared for the families' sake (the reference's set);
-            # nothing in the port feeds them until speculative decoding,
-            # preemption and a timed generate are ported
+            # the speculative ones and the generate timing are declared
+            # for the families' sake (the reference's set); nothing in
+            # the port feeds them until speculative decoding and a timed
+            # generate are ported
             "spec_proposed": reg.counter(
                 "serving_spec_proposed_tokens_total",
                 "draft tokens submitted to speculative verification"),
@@ -604,29 +691,35 @@ def pow2_width(need: int, cap: int = 0) -> int:
     return min(w, cap) if cap else w
 
 
-class _ChunkProgram:
-    """The decode chunk of one session: ``body()`` runs ``chunk`` decode
-    steps over the session's static buffers. On a card it is captured
-    once into a CUDA graph (``graph``) and every call replays it; on the
-    CPU every call runs ``body()``. ``weights`` is the record of weight
-    addresses it was built against (the graph reads every weight by
-    address). The graph keeps its nodes for ``debug_dump``: they are
-    each replay's launches."""
+class _GraphProgram:
+    """One of a session's serving programs (the decode chunk, or the
+    admit at one token-buffer width): ``body()`` runs it over the
+    session's static buffers. On a card it is captured once into a CUDA
+    graph (``graph``), in the session's shared graph memory pool, and
+    every call replays it; on the CPU every call runs ``body()``.
+    ``weights`` is the record of weight addresses it was built against
+    (the graph reads every weight by address). The graph keeps its nodes
+    for ``debug_dump``: they are each replay's launches. ``capture_s``:
+    the host seconds the capture took (warm-up, recording, instantiation)."""
 
-    def __init__(self, body, device, null_inputs, weights, generator=None):
+    def __init__(self, body, device, null_inputs, weights, generator=None,
+                 pool=None, what="the chunk program"):
         self.body = body
         self.weights = weights
         self.graph = None
         self.device_bytes = 0
+        self.capture_s = 0.0
         if device.type != "cuda":
             return
+        t0 = time.perf_counter()
         # capture over null inputs (every row dead, every table row
         # the sentinel): the warm-up and the capture write nothing the
         # session keeps, whatever state it is in. The garbage collector
         # stays off meanwhile. That is a guess, not a known fix: a
         # sampled capture once failed on the card with
         # cudaErrorStreamCaptureInvalidated, for a cause not found
-        # (ROADMAP queue C item 11)
+        # (ROADMAP queue C item 11). No collection runs before it: a
+        # full one would sit on the path of each admit width's first use
         before = torch.cuda.memory_allocated(device)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         graph.enable_debug_mode()
@@ -642,21 +735,28 @@ class _ChunkProgram:
                 raise
 
         gc_on = gc.isenabled()
-        gc.collect()
         gc.disable()
         try:
             with null_inputs():
                 side = torch.cuda.Stream(device)
                 side.wait_stream(torch.cuda.current_stream(device))
                 with torch.cuda.stream(side):
-                    body()
+                    body()                  # the warm-up
+                    # captured on the same stream, without the
+                    # synchronize and the empty_cache of torch.cuda.graph:
+                    # an admit width is captured mid-serving, where a
+                    # freed cache would send the next allocations back to
+                    # cudaMalloc
+                    graph.capture_begin(*(() if pool is None else (pool,)))
+                    try:
+                        recorded()
+                    finally:
+                        graph.capture_end()
                 torch.cuda.current_stream(device).wait_stream(side)
-                with torch.cuda.graph(graph):
-                    recorded()
         except Exception as e:
             if failed and failed[0] is not e:
                 raise RuntimeError(
-                    f"capturing the decode chunk failed: {failed[0]!r}"
+                    f"capturing {what} failed: {failed[0]!r}"
                 ) from failed[0]
             raise
         finally:
@@ -666,6 +766,7 @@ class _ChunkProgram:
         torch.cuda.synchronize(device)
         self.graph = graph
         self.device_bytes = torch.cuda.memory_allocated(device) - before
+        self.capture_s = time.perf_counter() - t0
 
     def __call__(self):
         if self.graph is None:
@@ -683,8 +784,6 @@ class Request:
     FLAGS_observability=0): queue wait, TTFT and total latency derive
     from them. ``trace`` is the request's span tree (None when tracing is
     off or the sampler skipped it): queue_wait -> admit -> decode.
-    ``status`` walks waiting -> running -> one of done/cancelled;
-    "rejected" is terminal at submit.
 
     ``seed`` folds into the session's sampling generator at the
     request's first admission (a no-op for greedy sessions). The draws
@@ -692,8 +791,12 @@ class Request:
     the JAX package's. ``block_hashes`` carries the prompt's chained
     full-block prefix hashes (truncated hex), stamped at admission.
 
-    ``priority`` other than 0 and ``deadline_s`` raise
-    NotImplementedError (ROADMAP queue A item 6)."""
+    ``priority`` (higher admits first; strictly lower-priority running
+    requests may be preempted for it) and ``deadline_s`` (seconds from
+    submit; past it the request terminates with status "expired",
+    checked at step boundaries) are the scheduler's knobs. ``status``
+    walks waiting -> running -> (preempted -> waiting ...) -> one of
+    done/cancelled/expired; "rejected" is terminal at submit."""
 
     __slots__ = ("req_id", "prompt", "max_new_tokens", "tokens",
                  "submit_t", "admit_t", "first_tok_t", "finish_t",
@@ -706,15 +809,11 @@ class Request:
                  priority: int = 0, deadline_s: Optional[float] = None,
                  seed: Optional[int] = None,
                  adapter: Optional[str] = None):
-        if int(priority) != 0:
-            raise NotImplementedError(f"Request priority {UNPORTED}")
-        if deadline_s is not None:
-            raise NotImplementedError(f"Request deadline_s {UNPORTED}")
         self.req_id = req_id
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
-        self.priority = 0
-        self.deadline_s = None
+        self.priority = int(priority)
+        self.deadline_s = None if deadline_s is None else float(deadline_s)
         self.seed = None if seed is None else int(seed)
         self.adapter = None if adapter is None else str(adapter)
         self.block_hashes = []
@@ -774,11 +873,13 @@ class ContinuousBatchingSession:
       freshly admitted slot feeds its right-padded prompt with its cache
       length reset to its prefix-hit boundary; a decoding slot feeds its
       last token; an idle slot feeds count 0) -> one next token per live
-      slot. Eager; C is the narrowest power of two over the longest
-      uncached tail (max_prompt_len with the prefix cache off).
+      slot. C is the narrowest power of two over the longest chunk of
+      uncached prompt (at most ``prefill_chunk``), or max_prompt_len with
+      the prefix cache and chunked prefill both off. One CUDA graph per
+      width on a card (module docstring).
     - ``decode_chunk``: ``chunk`` pure-decode steps for every slot, token
       selection on the card, one host read of the [chunk, S] tokens per
-      chunk. One CUDA graph on a card (module docstring).
+      chunk. One CUDA graph on a card.
 
     The KV pools are written in place; the host keeps the request queue
     (the Scheduler), the slot table, the block table mirror and the
@@ -808,8 +909,7 @@ class ContinuousBatchingSession:
         from .scheduler import Scheduler
 
         _reject_unported(speculative, lora, quantize_weights, kv_dtype,
-                         prefill_chunk, kv_pool_bytes, kv_tier, logprobs,
-                         overlap)
+                         kv_tier, logprobs, overlap)
         adapter = get_model_adapter(model)
         self.model = model
         self.slots = slots
@@ -829,12 +929,25 @@ class ContinuousBatchingSession:
         # but their entries are pool block ids assigned at admission;
         # prefix hits point several slots at the same physical blocks.
         # Default sizing: every slot can hold a full max_seq_len
-        # sequence; an explicit smaller num_blocks turns on allocation
-        # pressure and LRU eviction.
+        # sequence; an explicit smaller num_blocks, or a byte budget
+        # (kv_pool_bytes, else PADDLE_SERVING_QUANT_KV_POOL_BYTES; the
+        # JAX package's equal-byte-budget geometry), turns on allocation
+        # pressure, LRU eviction and preemption. num_blocks wins over a
+        # budget.
         mbs = -(-adapter.max_seq_len // kv_block_size)
-        nblocks = int(num_blocks) if num_blocks is not None else slots * mbs
-        self._kv_pool_bytes = nblocks * kv_block_bytes(
-            n_layers, heads, kv_block_size, hdim, dtype=adapter.dtype)
+        block_bytes = kv_block_bytes(n_layers, heads, kv_block_size, hdim,
+                                     dtype=adapter.dtype)
+        if kv_pool_bytes is None:
+            env_pb = os.environ.get("PADDLE_SERVING_QUANT_KV_POOL_BYTES",
+                                    "").strip()
+            kv_pool_bytes = int(env_pb) if env_pb else None
+        if num_blocks is not None:
+            nblocks = int(num_blocks)
+        elif kv_pool_bytes is not None:
+            nblocks = max(1, int(kv_pool_bytes) // block_bytes)
+        else:
+            nblocks = slots * mbs
+        self._kv_pool_bytes = nblocks * block_bytes
         self._blocks_per_slot = mbs
         self._cache_shape = (nblocks, heads, kv_block_size, hdim)
         self._cache_dtype = adapter.dtype
@@ -898,15 +1011,27 @@ class ContinuousBatchingSession:
         self._prefix_misses = 0
         self._prefix_hit_tokens = 0
         self._prefill_tokens = 0
-        self._sched = Scheduler(self, prefill_chunk=None,
+        self._sched = Scheduler(self, prefill_chunk=prefill_chunk,
                                 max_waiting=max_waiting,
                                 preemption=preemption)
-        # the decode chunk, captured here on a card (admits run eagerly)
+        # the programs: the decode chunk and the admit at width
+        # max_prompt_len, captured here on a card (the JAX package's
+        # pinned executables), and the admit at each other width of the
+        # ladder, captured at the width's first use. Their graphs share
+        # one memory pool (no two replays overlap); each admit width
+        # reads its own static token buffer [S, w] and the shared lens
+        # buffer [3, S]
         self._weight_dicts = [(m._parameters, m._buffers)
                               for m in model.modules()]
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        self._admit_toks = {}
+        self._admit_lens = zeros(3, slots)
+        self._admit_progs = {}
         self._captures = 0
         self._chunk_prog = None
         self._build_chunk_program()
+        self._admit_program(self.max_prompt_len)
         self._stepprof = StepProfiler(replica=self.replica_name)
         self._register_overlap_provider()
         self._register_memz_provider()
@@ -931,32 +1056,69 @@ class ContinuousBatchingSession:
                 for t in itertools.chain(params.values(), bufs.values())
                 if t is not None]
 
-    def _build_chunk_program(self):
-        """(Re)build the decode chunk: a CUDA graph on a card, eager on
-        the CPU. A card capture is a ``compile.chunk`` trace span, and
-        the ProgramCache gauges of the JAX package count the captures."""
+    def _build_program(self, body, kind, **span):
+        """A graph program of this session over ``body`` (captured on a
+        card, eager on the CPU). A card capture is a ``compile.<kind>``
+        trace span, and the JAX package's ProgramCache gauges count the
+        captured programs."""
         t0 = time.monotonic()
-        self._chunk_prog = None         # a retired graph goes first
-        prog = _ChunkProgram(self._chunk_body, self._device,
-                             self._null_chunk_inputs,
+        what = f"the {kind} program" + "".join(
+            f" of {k} {v}" for k, v in span.items())
+        prog = _GraphProgram(body, self._device, self._null_inputs,
                              self._weight_addresses(),
-                             self._gen if self._do_sample else None)
-        self._chunk_prog = prog
+                             self._gen if self._do_sample else None,
+                             self._graph_pool, what)
         if prog.graph is not None:
             self._captures += 1
-            _tracer().record_span("compile.chunk", t0)
-        if _obs_enabled():
-            from ..observability import get_registry
+            _tracer().record_span(f"compile.{kind}", t0, **span)
+        return prog
 
-            reg = get_registry()
-            reg.gauge("engine_program_cache_programs",
-                      "compiled serving executables resident in the "
-                      "unified ProgramCache").set(int(prog.graph is not None))
-            reg.gauge("engine_program_cache_compiles",
-                      "lifetime ProgramCache compiles (pinned + lazy)"
-                      ).set(self._captures)
-            reg.gauge("engine_program_cache_evictions",
-                      "ProgramCache LRU evictions").set(0)
+    def _record_program_gauges(self):
+        if not _obs_enabled():
+            return
+        from ..observability import get_registry
+
+        reg = get_registry()
+        progs = [self._chunk_prog, *self._admit_progs.values()]
+        reg.gauge("engine_program_cache_programs",
+                  "compiled serving executables resident in the "
+                  "unified ProgramCache").set(
+                      sum(p.graph is not None for p in progs))
+        reg.gauge("engine_program_cache_compiles",
+                  "lifetime ProgramCache compiles (pinned + lazy)"
+                  ).set(self._captures)
+        reg.gauge("engine_program_cache_evictions",
+                  "ProgramCache LRU evictions").set(0)
+
+    def _build_chunk_program(self):
+        """(Re)build the decode chunk; the admit programs, captured
+        against the same weights, go with it and are captured again at
+        their next use (max_prompt_len's too)."""
+        self._chunk_prog = None         # retired graphs go first
+        self._admit_progs.clear()
+        self._chunk_prog = self._build_program(self._chunk_body, "chunk")
+        self._record_program_gauges()
+
+    def _check_weights(self):
+        """Before any replay: a weight replaced since the programs were
+        captured (``param.data = ...``, ``load_state_dict(assign=True)``)
+        re-captures them first, so a replay never reads a freed one."""
+        if self._weight_addresses() != self._chunk_prog.weights:
+            self._build_chunk_program()
+
+    def _admit_program(self, w):
+        """The admit program of token-buffer width ``w`` (the JAX
+        package's per-width admit executable), built at its first use."""
+        prog = self._admit_progs.get(w)
+        if prog is None:
+            if w not in self._admit_toks:
+                self._admit_toks[w] = torch.zeros(
+                    (self.slots, w), dtype=torch.int32, device=self._device)
+            prog = self._build_program(partial(self._admit_body, w),
+                                       "admit", width=w)
+            self._admit_progs[w] = prog
+            self._record_program_gauges()
+        return prog
 
     def _select(self, lv, live):
         """Token selection on the card; dead rows emit eos (when set)."""
@@ -967,35 +1129,53 @@ class ContinuousBatchingSession:
             nxt = torch.where(live, nxt, self.eos_token_id)
         return nxt
 
-    def _admit(self, toks, lens, cow):
-        """One mixed admit dispatch (eager). ``toks`` [S, w] int32 token
-        buffer, ``lens`` [3, S] int32 (new-token counts, reset flags,
-        prefix-hit boundaries), ``cow`` [(src, dst)] block copies to run
-        first. Returns the selected tokens [S] on the device."""
-        dev = self._device
+    def _admit_body(self, w):
+        """One mixed admit over the static buffers: the [S, w] token
+        buffer of width ``w`` and the lens buffer [3, S] (new-token
+        counts, reset flags, prefix-hit boundaries); writes the pools in
+        place, the cached lengths and the selected tokens [S] (the next
+        chunk's starting tokens: mid-prefill and dead rows carry junk
+        there). No host read anywhere (capturable)."""
         with torch.inference_mode():
-            # copy-on-write first: a slot whose whole prompt was cached
-            # gets a private copy of the final shared block before its
-            # 1-token re-prefill writes into it
-            for src, dst in cow:
-                for c in self._kcs + self._vcs:
-                    c[dst].copy_(c[src])
-            toks = torch.from_numpy(toks).to(dev)
-            lens = torch.from_numpy(lens).to(dev)
+            lens = self._admit_lens
             new_lens, reset, hit_lens = lens[0], lens[1] > 0, lens[2]
             # freshly admitted slots restart their cache at the prefix
             # hit boundary (0 on a miss); frozen slots (new_lens == 0)
             # write nothing the session keeps and stay put
             seq_lens = torch.where(reset, hit_lens, self._seq_lens)
             lv, _, _, seq_lens = self._run_model(
-                toks, self._kcs, self._vcs, self._bt_dev, seq_lens,
-                seq_lens, new_lens, torch.clamp(new_lens - 1, min=0))
+                self._admit_toks[w], self._kcs, self._vcs, self._bt_dev,
+                seq_lens, seq_lens, new_lens,
+                torch.clamp(new_lens - 1, min=0))
             self._seq_lens.copy_(seq_lens)
-            nxt = self._select(lv, new_lens > 0)
-            # the selected row doubles as the next chunk's starting
-            # token (mid-prefill and dead rows carry junk there)
-            self._tok_dev.copy_(nxt)
-        return nxt
+            self._tok_dev.copy_(self._select(lv, new_lens > 0))
+
+    def _admit_prepare(self, toks, lens, cow):
+        """Everything of one mixed admit dispatch but the program: the
+        weight check, the width's program (captured at its first use),
+        the copy-on-write block copies (``cow`` [(src, dst)], eager:
+        their number varies; a slot whose whole prompt was cached gets a
+        private copy of the final shared block before its 1-token
+        re-prefill writes into it), and the static buffers refilled from
+        ``toks`` [S, w] and ``lens`` [3, S] (int32). Returns the program
+        to run."""
+        self._check_weights()
+        w = toks.shape[1]
+        prog = self._admit_program(w)
+        with torch.inference_mode():
+            for src, dst in cow:
+                for c in self._kcs + self._vcs:
+                    c[dst].copy_(c[src])
+            self._admit_toks[w].copy_(torch.from_numpy(toks))
+            self._admit_lens.copy_(torch.from_numpy(lens))
+        return prog
+
+    def _admit(self, toks, lens, cow):
+        """One mixed admit dispatch (:meth:`_admit_prepare`, then the
+        width's program). Returns the selected tokens [S] on the
+        device."""
+        self._admit_prepare(toks, lens, cow)()
+        return self._tok_dev
 
     def _chunk_body(self):
         """``chunk`` decode steps over the static buffers: reads the last
@@ -1016,17 +1196,19 @@ class ContinuousBatchingSession:
             self._seq_lens.copy_(seq_lens)
             self._tok_dev.copy_(tok)
 
-    def _null_chunk_inputs(self):
-        """Context: every row dead and every table row the sentinel, so
-        a chunk run inside writes no pool byte and advances no length
-        (a capture's warm-up and the capture itself); the last tokens,
-        the table and the sampling generator are put back on exit (the
-        live mask is refilled before every dispatch)."""
+    def _null_inputs(self):
+        """Context: every row dead (no new tokens, no reset) and every
+        table row the sentinel, so a chunk or an admit run inside writes
+        no pool byte and advances no length (a capture's warm-up and the
+        capture itself); the last tokens, the table and the sampling
+        generator are put back on exit (the live mask and the lens are
+        refilled before every dispatch)."""
         @contextlib.contextmanager
         def ctx():
             tok = self._tok_dev.clone()
             gen_state = self._gen.get_state()
             self._live_dev.fill_(False)
+            self._admit_lens.zero_()
             self._bt_dev.fill_(self._num_blocks)
             try:
                 yield
@@ -1077,15 +1259,21 @@ class ContinuousBatchingSession:
             if sess is None:
                 return None
             weights, wdetail = sess._weights_bytes()
+            admits = sess._admit_progs
             comps = {"weights": weights,
                      "kv_pool": int(sess._kv_pool_bytes),
-                     "executables": sess._chunk_prog.device_bytes}
+                     "executables": sess._chunk_prog.device_bytes + sum(
+                         p.device_bytes for p in admits.values())}
             detail = {"weights": wdetail,
                       "kv_pool": {"num_blocks": int(sess._num_blocks),
+                                  "kv_pool_bytes": int(sess._kv_pool_bytes),
                                   "kv_dtype": str(sess._cache_dtype)
                                   .replace("torch.", "")},
                       "executables": {"decode_chunk_graph":
-                                      sess._chunk_prog.graph is not None},
+                                      sess._chunk_prog.graph is not None,
+                                      "admit_graph_widths": sorted(
+                                          w for w, p in admits.items()
+                                          if p.graph is not None)},
                       "replica": sess.replica_name,
                       "role": sess.serving_role}
             return {"components": comps, "detail": detail}
@@ -1176,10 +1364,43 @@ class ContinuousBatchingSession:
         return self._sched.cancel(req_id)
 
     def preempt(self, req_id=None):
-        raise NotImplementedError(f"preempt() {UNPORTED}")
+        """Forcibly evict a running request (by id, or the scheduler's
+        default victim) back to the waiting queue: its blocks return to
+        the pool and it later re-admits through the prefix cache and a
+        re-prefill of its committed history, byte-identical for greedy
+        streams. Returns the preempted req_id or None. Chaos/testing
+        API; must be called between steps (the sequential engine has
+        nothing in flight between them)."""
+        return self._sched.force_preempt(req_id)
 
     def _preempt_slot(self, i):
-        raise NotImplementedError(f"preemption {UNPORTED}")
+        """Evict slot `i`'s request back to the waiting queue: its blocks
+        return to the pool (registered prompt hashes retained by
+        cache-on-free, so regeneration hits the prefix cache), the
+        request keeps its emitted tokens and re-admits later through an
+        ordinary (typically chunked) re-prefill of its full committed
+        history."""
+        t0 = time.monotonic()
+        req = self._slots[i].req
+        self._free_slot(i)
+        self._sched.requeue(req, t0)
+        if _obs_enabled():
+            sm = _serving_metrics()
+            sm["preempted"].inc()
+            sm["preempt_lat"].observe(time.monotonic() - t0)
+            sm["queue_depth"].set(len(self._sched.waiting))
+            if req.trace is not None:
+                req.trace.add_span("preempted", t0, t0,
+                                   n_tokens=len(req.tokens))
+            _tracer().record_span("scheduler.preempt", t0,
+                                  req_id=str(req.req_id),
+                                  n_tokens=len(req.tokens))
+            from ..observability import get_event_log
+
+            get_event_log().emit(
+                "serving.request_preempted", req_id=str(req.req_id),
+                n_tokens=len(req.tokens), priority=req.priority,
+                preemptions=req.preemptions)
 
     def _collect(self, i, slot, tok, obs=False):
         """Record one emitted token; evict slot `i` on completion."""
@@ -1486,8 +1707,7 @@ class ContinuousBatchingSession:
         address: a weight replaced since it was captured
         (``param.data = ...``, ``load_state_dict(assign=True)``)
         re-captures it first, so a replay never reads a freed one."""
-        if self._weight_addresses() != self._chunk_prog.weights:
-            self._build_chunk_program()
+        self._check_weights()
         live = [s.req is not None for s in self._slots]
         self._live_dev.copy_(torch.tensor(live))
         if self._bt_dirty:      # freed-slot rows were neutralized
@@ -1564,10 +1784,12 @@ class ContinuousBatchingSession:
                   if s.req is not None and i not in chunks]
         for i in riders:
             new_lens[i] = 1
-        # the token buffer's width: the narrowest power of two over the
-        # longest tail, max_prompt_len with the prefix cache off (the
-        # JAX package's admit ladder)
-        w = pow2_width(int(new_lens.max()) if self._pool.prefix_cache
+        # the token buffer's width (the JAX package's admit ladder): the
+        # narrowest power of two over the longest chunk while the prefix
+        # cache or chunked prefill is on, else max_prompt_len
+        ladder = (self._pool.prefix_cache
+                  or self._sched.prefill_chunk is not None)
+        w = pow2_width(int(new_lens.max()) if ladder
                        else self.max_prompt_len, self.max_prompt_len)
         toks = np.zeros((S, w), np.int32)
         for i, n in chunks.items():

@@ -1,6 +1,7 @@
-"""GPT-style decoder LM: training and paged-KV serving. Counterpart of
-paddle_tpu/models/gpt.py, cut to the non-tensor-parallel paths: the
-no-cache forward (training; ``GPTForCausalLM.forward(ids, labels)``) and
+"""GPT-style decoder LM: training, generation and paged-KV serving.
+Counterpart of paddle_tpu/models/gpt.py, cut to the non-tensor-parallel
+paths: the no-cache forward (training; ``GPTForCausalLM.forward(ids,
+labels)``), the dense (k, v) tuple cache of the default generate(), and
 the paged-cache serving path.
 
 Every LayerNorm runs the LayerNorm kernels (forward and backward) through
@@ -14,8 +15,10 @@ qkv weight is [E, 3E]), so its state_dict loads name for name
 (bridge.load_jax_state), and each parameter carries that name as
 ``.param_name`` (the key of its optimizer state). ``recompute=True`` recomputes
 each block in the backward while training (distributed.fleet.recompute).
-Not ported (raise): the dense-cache decode path and the model-parallel
-variants.
+The dense-cache path splits the packed projection into q, k, v views and
+takes scaled_dot_product_attention to the native-layout flash kernel (a
+decode step is one query row against the whole cache). Not ported
+(raise): the model-parallel variants.
 """
 from __future__ import annotations
 
@@ -100,9 +103,12 @@ class GPTAttention(nn.Module):
     def forward(self, x, cache=None):
         """No cache (training): the packed [B, S, 3E] projection feeds the
         flash kernels as is, or with FLAGS_use_fused_attention the whole
-        block runs as one fused op; returns out. Paged serving: the
-        projection reshaped to [B, S, 3, H, D]; returns (out, the cache
-        advanced by this call)."""
+        block runs as one fused op; returns out. Dense ``(k, v)`` cache
+        (``(None, None)`` before the prompt): the projection's q, k, v
+        views, this call's k/v appended to the cache's, causal attention
+        aligned bottom-right; returns (out, the grown (k, v)). Paged
+        serving: the projection reshaped to [B, S, 3, H, D]; returns (out,
+        the cache advanced by this call)."""
         if cache is None:
             if get_flag("use_fused_attention"):
                 out = fused_self_attention(
@@ -112,12 +118,17 @@ class GPTAttention(nn.Module):
             out = flash_attention_packed(self.qkv(x), self.num_heads,
                                          causal=True)
             return self.dropout(self.proj(out))
-        if not isinstance(cache, PagedCache):
-            raise NotImplementedError(
-                "GPTAttention: only the paged-cache serving path and the "
-                "no-cache forward are ported")
         b, s, _ = x.shape
         qkv = self.qkv(x).reshape(b, s, 3, self.num_heads, self.head_dim)
+        if not isinstance(cache, PagedCache):
+            q, k, v = (qkv[:, :, i] for i in range(3))
+            past_k, past_v = cache
+            if past_k is not None:
+                k = torch.cat([past_k, k], dim=1)
+                v = torch.cat([past_v, v], dim=1)
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out = out.reshape(b, s, self.num_heads * self.head_dim)
+            return self.dropout(self.proj(out)), (k, v)
         slt = (cache.new_lens if cache.new_lens is not None
                else torch.full((b,), s, dtype=torch.int32, device=x.device))
         out, _, kc, vc = block_multihead_attention(
@@ -181,9 +192,10 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, caches=None, pos_offset=0):
         """No caches (training): returns the final-norm hidden [B, S, E].
-        Paged caches (serving; ``pos_offset`` a scalar or a per-sequence
-        [B] vector): returns (hidden, the per-layer caches advanced by
-        this call)."""
+        Per-layer dense (k, v) or paged caches (generation, serving;
+        ``pos_offset`` the cached length, a scalar or a per-sequence [B]
+        vector): returns (hidden, the per-layer caches advanced by this
+        call)."""
         pos = _positions(0 if caches is None else pos_offset,
                          input_ids.shape[1], input_ids.device)
         if caches is not None:
@@ -238,18 +250,35 @@ class GPTForCausalLM(nn.Module):
                  use_cache: bool = True, use_paged_kv: bool = False,
                  kv_block_size: int = 64, aot: bool = True, seed: int = 0,
                  speculative=None):
-        """Greedy (or sampled) decoding through the paged-KV
-        GenerationSession. Only ``use_paged_kv=True`` is ported."""
-        from ..inference.serving import aot_generate
+        """Greedy (or sampled) decoding. By default an eager loop over a
+        dense per-layer (k, v) cache: one prefill over the prompt, then
+        one-token steps attending over the cached prefix.
+        ``use_cache=False`` runs the full no-cache forward over the
+        growing sequence at every step; ``use_paged_kv`` runs the loop
+        over the block-table pool, and with ``aot`` (the default) the
+        paged GenerationSession instead (inference.serving
+        aot_generate). Greedy tokens are the same on every path; ``seed``
+        seeds the sampling draws of each (the JAX package's eager loop
+        draws from its global generator). ``speculative`` needs the paged
+        session."""
+        from ..inference.serving import aot_generate, eager_generate
 
-        if not (use_paged_kv and aot and use_cache):
-            raise NotImplementedError(
-                "only generate(use_paged_kv=True, aot=True) is ported")
-        return aot_generate(
-            self, input_ids, max_new_tokens, kv_block_size=kv_block_size,
-            do_sample=do_sample, temperature=temperature, top_k=top_k,
-            top_p=top_p, eos_token_id=eos_token_id, seed=seed,
-            speculative=speculative)
+        if use_paged_kv and aot and use_cache:
+            return aot_generate(
+                self, input_ids, max_new_tokens, kv_block_size=kv_block_size,
+                do_sample=do_sample, temperature=temperature, top_k=top_k,
+                top_p=top_p, eos_token_id=eos_token_id, seed=seed,
+                speculative=speculative)
+        if speculative is not None:
+            raise ValueError(
+                "speculative decoding runs on the AOT serving path: "
+                "pass use_paged_kv=True, aot=True (and use_cache=True)")
+        return eager_generate(
+            self, input_ids, max_new_tokens, do_sample=do_sample,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, use_cache=use_cache,
+            use_paged_kv=use_paged_kv, kv_block_size=kv_block_size,
+            seed=seed)
 
 
 __all__ = ["GPTAttention", "GPTBlock", "GPTConfig", "GPTForCausalLM",

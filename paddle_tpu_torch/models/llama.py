@@ -1,17 +1,18 @@
 """Llama-family decoder: RMSNorm pre-norms, rotary embeddings,
 grouped-query attention, SwiGLU MLP. Counterpart of
-paddle_tpu/models/llama.py, cut to the paged-cache serving path and the
-no-cache training forward.
+paddle_tpu/models/llama.py: the no-cache training forward, the dense
+(k, v) tuple cache of the default generate(), and the paged-cache
+serving path.
 
-Every norm runs the RMSNorm kernel through fused_rms_norm. Training
-attention goes through scaled_dot_product_attention to the flash kernels,
-which address the shared kv heads in place. Parameter names and layouts
+Every norm runs the RMSNorm kernel through fused_rms_norm. Training and
+dense-cache attention go through scaled_dot_product_attention to the
+flash kernels, which address the shared kv heads in place; a dense
+decode step is one query row against the whole cache, causal aligned
+bottom-right. Parameter names and layouts
 are the JAX package's, so its state_dict loads name for name
 (bridge.load_jax_state), and each parameter carries that name as
 ``.param_name`` (the key of its optimizer state). ``recompute=True`` recomputes
 each layer in the backward while training (distributed.fleet.recompute).
-Not ported (raise NotImplementedError): the dense (k, v) tuple cache of
-the non-paged generate.
 """
 from __future__ import annotations
 
@@ -112,25 +113,30 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, cache=None, pos_offset=0):
         """No cache (training): rope at positions 0..S-1, causal attention
-        over the shared kv heads; returns out. Paged serving: each
+        over the shared kv heads; returns out. Dense ``(k, v)`` cache
+        (``(None, None)`` before the prompt): rope at the cached length,
+        this call's k/v appended to the cache's, causal attention aligned
+        bottom-right; returns (out, the grown (k, v)). Paged serving: each
         sequence's tokens are rotated at its own cached position
         (``pos_offset`` is a per-sequence [B] vector in decode); returns
         (out, the cache advanced by this call)."""
-        if cache is not None and not isinstance(cache, PagedCache):
-            raise NotImplementedError(
-                "LlamaAttention: the dense (k, v) cache is not ported; only "
-                "the paged cache and the no-cache forward are")
         b, s, e = x.shape
         d = self.head_dim
         q = self.q_proj(x).reshape(b, s, self.num_heads, d)
         k = self.k_proj(x).reshape(b, s, self.kv_heads, d)
         v = self.v_proj(x).reshape(b, s, self.kv_heads, d)
         # v is not rotated in llama
-        if cache is None:
+        if not isinstance(cache, PagedCache):
+            past_k, past_v = (None, None) if cache is None else cache
+            off = 0 if past_k is None else past_k.shape[1]
             q, k = fused_rotary_position_embedding(q, k, theta=self._theta,
-                                                   pos_offset=0)
+                                                   pos_offset=off)
+            if past_k is not None:
+                k = torch.cat([past_k, k], dim=1)
+                v = torch.cat([past_v, v], dim=1)
             out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-            return self.o_proj(out.reshape(b, s, e))
+            out = self.o_proj(out.reshape(b, s, e))
+            return out if cache is None else (out, (k, v))
         q, k = fused_rotary_position_embedding(
             q, k, theta=self._theta,
             position_ids=_positions(pos_offset, s, x.device))
@@ -195,8 +201,8 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, caches=None, pos_offset=0):
         """No caches (training): returns the final-norm hidden [B, S, E].
-        Paged caches (serving): returns (hidden, the per-layer caches
-        advanced by this call)."""
+        Per-layer dense (k, v) or paged caches (generation, serving):
+        returns (hidden, the per-layer caches advanced by this call)."""
         x = self.embed_tokens(input_ids)
         if caches is None:
             for layer in self.layers:
@@ -244,18 +250,31 @@ class LlamaForCausalLM(nn.Module):
                  top_k: int = 0, top_p: float = 1.0, eos_token_id=None,
                  use_paged_kv: bool = False, kv_block_size: int = 64,
                  aot: bool = True, seed: int = 0, speculative=None):
-        """Greedy (or sampled) decoding through the paged-KV
-        GenerationSession. Only ``use_paged_kv=True`` is ported."""
-        from ..inference.serving import aot_generate
+        """Greedy (or sampled) decoding. By default an eager loop over a
+        dense per-layer (k, v) cache: one prefill, then one-token steps
+        (rope at the cached position). ``use_paged_kv`` runs the same
+        loop over the block-table pool, and with ``aot`` (the default)
+        the paged GenerationSession instead (inference.serving
+        aot_generate). Greedy tokens are the same on all three paths;
+        ``seed`` seeds the sampling draws of each. ``speculative``
+        needs the paged session."""
+        from ..inference.serving import aot_generate, eager_generate
 
-        if not use_paged_kv or not aot:
-            raise NotImplementedError(
-                "only generate(use_paged_kv=True, aot=True) is ported")
-        return aot_generate(
-            self, input_ids, max_new_tokens, kv_block_size=kv_block_size,
-            do_sample=do_sample, temperature=temperature, top_k=top_k,
-            top_p=top_p, eos_token_id=eos_token_id, seed=seed,
-            speculative=speculative)
+        if use_paged_kv and aot:
+            return aot_generate(
+                self, input_ids, max_new_tokens, kv_block_size=kv_block_size,
+                do_sample=do_sample, temperature=temperature, top_k=top_k,
+                top_p=top_p, eos_token_id=eos_token_id, seed=seed,
+                speculative=speculative)
+        if speculative is not None:
+            raise ValueError(
+                "speculative decoding runs on the AOT serving path: "
+                "pass use_paged_kv=True (with aot=True)")
+        return eager_generate(
+            self, input_ids, max_new_tokens, do_sample=do_sample,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id, use_paged_kv=use_paged_kv,
+            kv_block_size=kv_block_size, seed=seed)
 
 
 def _llama_init(model: nn.Module, cfg: LlamaConfig, generator):

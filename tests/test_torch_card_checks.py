@@ -1001,3 +1001,151 @@ def test_recipe_card_step_launches_the_expected_kernels(family, monkeypatch):
     assert got == {k.symbol: (n, 0) for k, n in want.items()}, got
     assert torch.isfinite(loss)
     cs._recipe_state(f"card {family}")(model, opt)
+
+
+# ---------------------------------------------------------------------------
+# default decoding and the admit graphs on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.card
+@pytest.mark.parametrize("dtype", ["bf16", "fp32"])
+@pytest.mark.parametrize("heads", [(16, 16, 128), (32, 4, 64)],
+                         ids=["16:16-d128", "32:4-d64"])
+@pytest.mark.parametrize("sk", [1, 77, 512, 4096])
+def test_k4_card_one_query_row_equals_plain(monkeypatch, dtype, heads, sk):
+    """K4 at a dense decode step's shape, one causal query row against Sk
+    keys (Sq = Sk = 1 included), B=4: out and lse held per element
+    against the plain version (chip_smoke._check_attention_fwd: the
+    training cases' tolerances), two calls the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "check",
+                        lambda cond, msg: None if cond else pytest.fail(msg))
+    h, kvh, d = heads
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(sk)
+    errs = cs._check_attention_fwd(f"sq=1 sk={sk}", 4, 1, sk, h, d, dt, g,
+                                   kvh)
+    print(f"K4 one row, sk={sk} {h}:{kvh} d={d} {dtype}: {errs}")
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+def test_generate_card_default_paths_equal_cpu(family):
+    """The default dense generate, the eager paged loop and (GPT)
+    use_cache=False on the card, in fp32 with TF32 off, give the CPU's
+    greedy streams at a prompt length off every tile (77, B=2); the dense
+    loop launches the fp32 K4 entry once a layer a token (the prefill and
+    the one-row steps) and no plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import numpy as np
+
+    from paddle_tpu_torch.incubate.nn.functional import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _cb_pair(family)
+    ids = np.random.RandomState(3).randint(1, 1000, (2, 77)).astype(np.int64)
+    paths = [{}, dict(use_paged_kv=True, aot=False, kv_block_size=8)]
+    if family == "gpt":
+        paths.append(dict(use_cache=False))
+    for kw in paths:
+        fa.FLASH_FWD_FP32_KERNEL.reset_counts()
+        got = card.generate(ids, max_new_tokens=6, **kw).cpu().numpy()
+        if not kw:
+            assert fa.FLASH_FWD_FP32_KERNEL.launches == (
+                card.cfg.num_layers * 6)
+            assert fa.FLASH_FWD_FP32_KERNEL.plain_calls == 0
+        want = cpu.generate(ids, max_new_tokens=6, **kw).numpy()
+        assert np.array_equal(got, want), kw
+
+
+def _cb_admit_session(model, eager=False, **kw):
+    """A session whose chunked prefill (5 tokens a chunk) and prefix cache
+    run admits at several widths, serving _cb_requests."""
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    cs = _chip_smoke()
+    sess = ContinuousBatchingSession(model, slots=2, max_prompt_len=32,
+                                     kv_block_size=8, chunk=4,
+                                     prefill_chunk=5, **kw)
+    checked = {}
+    if eager:
+        cs.cb_eager_programs(sess)
+    elif next(model.parameters()).is_cuda:
+        checked = cs.cb_compare_admits(sess, "card test")
+    for rid, p, n in _cb_requests():
+        sess.submit(Request(rid, p, n))
+    out = sess.run()
+    sess._pool.assert_quiescent()
+    return out, checked, sess
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+def test_cb_card_admit_graphs_equal_eager(monkeypatch, family, sampled):
+    """Each admit width's CUDA graph against the same admit run eagerly
+    from the same state and generator state (chip_smoke
+    cb_compare_admits: equal tokens, lengths and pool bytes), at every
+    width the run uses; the whole run's streams equal those of the same
+    session with every program eager, byte for byte (sampled too), and,
+    greedy in fp32 with TF32 off, the CPU session's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the admit graphs have no CPU mode")
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "check",
+                        lambda cond, msg: None if cond else pytest.fail(msg))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _cb_pair(family)
+    kw = dict(do_sample=True, temperature=0.9, top_k=30) if sampled else {}
+    got, checked, sess = _cb_admit_session(card, **kw)
+    # width max_prompt_len (32) is captured with the session, used or not
+    assert len(checked) >= 2
+    assert set(checked) | {32} == set(sess._admit_progs)
+    assert all(p.graph is not None for p in sess._admit_progs.values())
+    assert sess._captures == 1 + len(sess._admit_progs)
+    eager, _, esess = _cb_admit_session(card, eager=True, **kw)
+    assert all(p.graph is None for p in esess._admit_progs.values())
+    for rid in eager:
+        assert list(got[rid]) == list(eager[rid]), rid
+    if not sampled:
+        want, _, _ = _cb_admit_session(cpu)
+        for rid in want:
+            assert list(got[rid]) == list(want[rid]), rid
+
+
+@pytest.mark.card
+def test_cb_card_sampled_admit_capture_rate():
+    """40 sampled sessions in a row (both families), each serving two
+    requests in chunks of 8, capture their decode graph and an admit graph
+    at every width they use (test_cb_card_sampled_capture_rate with the
+    admits; ROADMAP queue C item 11). Prints the failure count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphs have no CPU mode")
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    models = [_cb_pair(f)[1] for f in ("gpt", "llama")]
+    failures, widths = [], 0
+    for i in range(40):
+        try:
+            sess = ContinuousBatchingSession(
+                models[i % 2], slots=2, max_prompt_len=32, kv_block_size=8,
+                chunk=4, prefill_chunk=8, do_sample=True, temperature=0.9,
+                top_k=30)
+            for rid, p, _ in _cb_requests()[:2]:
+                sess.submit(Request(rid, p, 3))
+            sess.run()
+            assert sess._chunk_prog.graph is not None and sess._admit_progs
+            assert all(p.graph is not None
+                       for p in sess._admit_progs.values())
+            widths += len(sess._admit_progs)
+        except Exception as e:            # counted, then reported
+            failures.append((i, repr(e)))
+    print(f"sampled captures with admits: {len(failures)} of 40 sessions "
+          f"failed ({widths} admit graphs captured) {failures}")
+    assert not failures, failures

@@ -8,7 +8,8 @@ device="cpu" (the model's device). Greedy streams must be byte-identical
 to the JAX session's and to the JAX package's paged generate of each
 prompt (one ragged GenerationSession: its rows are independent), and
 ``stats`` equal key for key. Also here: every serving option outside
-the port raises NotImplementedError naming itself.
+the port raises NotImplementedError naming itself (the overload paths
+are held in test_torch_overload.py).
 
 The helpers (make_cb_pair, serve, jax_paged_generate) serve
 test_torch_prefix_cache.py and test_torch_serving_observability.py too.
@@ -277,19 +278,19 @@ def test_cb_manual_steps_then_run_returns_all_completed(family):
     assert steps == jsteps and stats == jstats
 
 
+# the ids are the ones these cases had when the list also held the
+# options since ported (prefill_chunk, kv_pool_bytes, preempt,
+# priority, deadline_s)
 @pytest.mark.parametrize("kwargs,name", [
-    ({"speculative": object()}, "speculative"),
-    ({"prefill_chunk": 4}, "prefill_chunk"),
-    ({"lora": object()}, "lora"),
-    ({"quantize_weights": "int8"}, "quantize_weights"),
-    ({"kv_dtype": "int8"}, "kv_dtype"),
-    ({"kv_pool_bytes": 1 << 20}, "kv_pool_bytes"),
-    ({"kv_tier": True}, "kv_tier"),
-    ({"logprobs": True}, "logprobs"),
-    ({"overlap": True}, "overlap"),
-    ("preempt", "preempt"),
-    ({"priority": 1}, "priority"),
-    ({"deadline_s": 1.0}, "deadline_s"),
+    pytest.param({"speculative": object()}, "speculative",
+                 id="kwargs0-speculative"),
+    pytest.param({"lora": object()}, "lora", id="kwargs2-lora"),
+    pytest.param({"quantize_weights": "int8"}, "quantize_weights",
+                 id="kwargs3-quantize_weights"),
+    pytest.param({"kv_dtype": "int8"}, "kv_dtype", id="kwargs4-kv_dtype"),
+    pytest.param({"kv_tier": True}, "kv_tier", id="kwargs6-kv_tier"),
+    pytest.param({"logprobs": True}, "logprobs", id="kwargs7-logprobs"),
+    pytest.param({"overlap": True}, "overlap", id="kwargs8-overlap"),
 ])
 def test_unported_options_raise(kwargs, name):
     """Every option outside the slice raises NotImplementedError naming
@@ -297,12 +298,7 @@ def test_unported_options_raise(kwargs, name):
     _, tm = make_cb_pair("gpt", seed=3)
     kw = dict(slots=1, max_prompt_len=8, kv_block_size=16, chunk=2)
     with pytest.raises(NotImplementedError, match=name) as e:
-        if kwargs == "preempt":
-            tserving.ContinuousBatchingSession(tm, **kw).preempt()
-        elif set(kwargs) & {"priority", "deadline_s"}:
-            tserving.Request(0, np.ones(4, np.int64), 2, **kwargs)
-        else:
-            tserving.ContinuousBatchingSession(tm, **kwargs, **kw)
+        tserving.ContinuousBatchingSession(tm, **kwargs, **kw)
     assert "queue A item 6" in str(e.value)
     # the off values of the same knobs are accepted
     tserving.ContinuousBatchingSession(

@@ -116,22 +116,6 @@ def test_make_run_model_prefill_and_decode_match_jax(family):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
-@pytest.mark.parametrize("family", ["llama", "gpt"])
-def test_unported_forward_paths_raise(family):
-    """Both families' no-cache (training) forwards are ported
-    (tests/test_torch_train.py, tests/test_torch_gqa.py); their
-    dense-cache decode is not. Both serve only through the paged KV
-    cache."""
-    _, tm = make_pair(family)
-    x = torch.zeros((1, 4, tm.cfg.hidden_size))
-    attn = (tm.llama.layers[0].self_attn if family == "llama"
-            else tm.gpt.blocks[0].attn)
-    with pytest.raises(NotImplementedError):
-        attn(x, cache=(None, None))
-    with pytest.raises(NotImplementedError):
-        tm.generate(np.zeros((1, 4), np.int64), max_new_tokens=2)
-
-
 @pytest.mark.parametrize("flag", ["tensor_parallel", "sequence_parallel",
                                   "segment_parallel"])
 def test_gpt_parallel_configs_raise(flag):
