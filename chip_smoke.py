@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Phases, in order (18, 15 and 19 run right after 4, and 18 and 16 right
-after 5, on the models those build; 17 right after 12); any failure exits
-non-zero before the last line:
+Phases, in order (18, 15, 20 and 19 run right after 4, and 18, 16 and 20
+right after 5, on the models those build; 17 right after 12); any failure
+exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
@@ -25,7 +25,12 @@ non-zero before the last line:
      (49 launches per forward, 0 plain).
   6. card vs CPU: tiny Llama-GQA and GPT in fp32 with identical weights
      give identical greedy streams (GenerationSession, fixed and ragged,
-     and ContinuousBatchingSession, whose card decode is a CUDA graph).
+     and ContinuousBatchingSession, whose card decode is a CUDA graph);
+     with speculative decoding (the n-gram proposer, a one-layer draft
+     and the model as its own draft; both sessions, their verify widths
+     and the draft's decode step CUDA graphs) the card's streams equal
+     the CPU's and the spec-off streams, the spec counts the CPU's, and
+     the self-draft accepts every draft.
   7. training kernels vs plain: LayerNorm backward (K3), flash
      attention forward / backward (K4 / K5), the head-major forward /
      one-pass backward (K6 / K7) and the head-major two-kernel backward
@@ -150,6 +155,27 @@ non-zero before the last line:
      eager, the longest prompt over >= ceil(len / 128) admits, the
      preemptions, expiry and pool quiescence checked; streams equal to
      [serve_cb_llama]'s counted.
+ 20. Speculative decoding on the serving models ([serve_spec]) with the
+     [serve_cb_*] traffic and session (4 slots, prompts to 512, blocks
+     of 64; k = 4): Llama-2-7B with the n-gram proposer, then with a
+     TinyLlama-1.1B draft (its vocabulary; max_seq_len raised to 4096;
+     weights from another seed); GPT-3 1.3B with the n-gram proposer,
+     then as its own draft. No decode chunk: each decode step is one
+     verify window, one CUDA graph per width captured at its first use,
+     holding exactly 2L + 1 norm kernels and no other norm (the draft's
+     decode step one graph of 45 / 49); the draft engine's lengths equal
+     the target's after every window; every stream held by cb_hold and
+     the streams byte-equal to [serve_cb_*]'s counted; the pool
+     quiescent. With the n-gram proposer also: the first window at each
+     width replayed from its graph equals the same window run eagerly
+     from the same state (tokens, accepted counts, boundaries, lengths,
+     every pool byte), and a sampled session streams the same bytes from
+     graphs, eagerly and with PADDLE_SPEC_DEVICE_ACCEPT=0. Readings:
+     acceptance, tokens emitted a row-window, verify card ms a window
+     (CUDA events around the replay) beside the step's host ms and the
+     proposal's, ms per generated token and tokens/s beside
+     [serve_cb_*]'s, TTFT cold and warm, capture ms per width, peak
+     memory.
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -158,6 +184,7 @@ Usage: python3 chip_smoke.py    (from the repository root; one card)
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -683,6 +710,76 @@ def phase_card_vs_cpu():
               f"differ")
         print(f"[card-vs-cpu] {family}: greedy streams equal "
               f"(fixed, ragged and continuous batching, fp32)")
+        _spec_card_vs_cpu(family, cls, cfg, cpu, gpu, ids, lens, streams[0])
+
+
+def _spec_card_vs_cpu(family, cls, cfg, cpu, gpu, ids, lens, plain):
+    """Speculative decoding in fp32 on the card against the CPU: the
+    n-gram proposer, a smaller draft of the same family (one layer, other
+    weights) and the model as its own draft, greedy, through
+    ContinuousBatchingSession (its verify windows and the draft's decode
+    step CUDA graphs) and a ragged GenerationSession (its verify widths
+    graphs): the card's streams equal the CPU's and the spec-off streams
+    (``plain``, the continuous session's) byte for byte, the spec counts
+    equal, and the self-draft accepts every draft it proposes."""
+    import dataclasses
+
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, GenerationSession, Request)
+    from paddle_tpu_torch.inference.speculative import SpeculativeConfig
+
+    small_cfg = dataclasses.replace(cfg, num_layers=1)
+    small = [cls(small_cfg, device="cpu", generator=seed(11, "cpu"))]
+    small.append(cls(small_cfg, device="cuda"))
+    small[1].load_state_dict(small[0].state_dict())
+    gs_plain = GenerationSession(
+        cpu, batch=4, prompt_len=16, max_new_tokens=16, kv_block_size=8,
+        ragged_prompts=True).generate(ids, prompt_lens=lens)
+    for name, drafts in (("ngram", (None, None)),
+                         ("small draft", [m.eval() for m in small]),
+                         ("self draft", (cpu, gpu))):
+        runs = []
+        for m, d in zip((cpu, gpu), drafts):
+            spec = SpeculativeConfig(num_draft_tokens=3, **(
+                {} if d is None else dict(proposer="draft", draft_model=d)))
+            sess = ContinuousBatchingSession(m, slots=2, max_prompt_len=16,
+                                             kv_block_size=8,
+                                             speculative=spec)
+            for r, n in enumerate(lens):
+                sess.submit(Request(r, ids[r, :n], 16))
+            out = sess.run()
+            sess._pool.assert_quiescent()
+            gs = GenerationSession(
+                m, batch=4, prompt_len=16, max_new_tokens=16,
+                kv_block_size=8, ragged_prompts=True, speculative=spec)
+            runs.append((out, gs.generate(ids, prompt_lens=lens).cpu(),
+                         sess.stats, gs))
+        (c_out, c_gs, c_st, _), (g_out, g_gs, g_st, gs) = runs
+        tag = f"[card-vs-cpu] {family} spec {name}"
+        check(all(gs._verify_ladder.programs[w].graph is not None
+                  for w in gs._verify_ladder.programs),
+              f"{tag}: a GenerationSession verify width was not captured")
+        check(all(np.array_equal(c_out[r], g_out[r])
+                  and np.array_equal(g_out[r], plain[r])
+                  for r in range(len(lens))),
+              f"{tag}: continuous batching streams differ (card, CPU, "
+              f"spec off)")
+        check(torch.equal(c_gs, g_gs) and torch.equal(g_gs, gs_plain),
+              f"{tag}: GenerationSession streams differ (card, CPU, spec "
+              f"off)")
+        check(c_st == g_st and g_st["spec_proposed_tokens"] > 0,
+              f"{tag}: spec counts differ: card {g_st}, CPU {c_st}")
+        if name == "self draft":
+            check(g_st["spec_accepted_tokens"]
+                  == g_st["spec_proposed_tokens"],
+                  f"{tag}: the self-draft accepted "
+                  f"{g_st['spec_accepted_tokens']} of "
+                  f"{g_st['spec_proposed_tokens']} drafts")
+        print(f"{tag}: streams equal to the CPU's and spec off's (both "
+              f"sessions, fp32); {g_st['spec_steps']} windows, accepted "
+              f"{g_st['spec_accepted_tokens']} of "
+              f"{g_st['spec_proposed_tokens']} drafts")
 
 # ---------------------------------------------------------------------------
 # training slices: K3-K7 and the train steps
@@ -2747,32 +2844,50 @@ def cb_session(model, prefix_cache=True, record=None, **kw):
     return sess
 
 
+def _small_state(sess):
+    """Every small tensor an admit, a chunk or a verify window writes:
+    the lengths, the last tokens, the chunk's tokens and (with
+    speculation) the verify ladder's outputs (accepted counts and
+    boundary tokens; the host-accept chain or logits and uniforms)."""
+    small = [sess._seq_lens, sess._tok_dev, sess._toks_dev]
+    ladder = sess._verify_ladder
+    if ladder is not None:
+        small += [ladder.result, ladder.u, *ladder.out.values()]
+    return small
+
+
+def _generators(sess):
+    return [sess._gen] + ([sess._spec_gen] if sess._spec is not None
+                          else [])
+
+
 def _snapshot(sess):
-    """Clones of every tensor an admit or a chunk writes, and the
-    generator's state."""
+    """Clones of every tensor an admit, a chunk or a verify window
+    writes, and the generators' states."""
     return ([p.clone() for p in sess._kcs + sess._vcs],
-            [t.clone() for t in (sess._seq_lens, sess._tok_dev,
-                                 sess._toks_dev)], sess._gen.get_state())
+            [t.clone() for t in _small_state(sess)],
+            [g.get_state() for g in _generators(sess)])
 
 
 def _restore(sess, snap):
-    pools, small, gen = snap
+    pools, small, gens = snap
     for p, c in zip(sess._kcs + sess._vcs, pools):
         p.copy_(c)
-    for t, c in zip((sess._seq_lens, sess._tok_dev, sess._toks_dev), small):
+    for t, c in zip(_small_state(sess), small):
         t.copy_(c)
-    sess._gen.set_state(gen)
+    for g, st in zip(_generators(sess), gens):
+        g.set_state(st)
 
 
 def _program_vs_eager(sess, prog, tag, what):
-    """``prog`` (a prepared admit, or the decode chunk) run eagerly
-    (``prog.body()``) and replayed from its CUDA graph from the same
-    state and generator state: equal tokens, lengths and pool bytes. The
-    session is left as one replay leaves it."""
+    """``prog`` (a prepared admit, the decode chunk, or a loaded verify
+    window) run eagerly (``prog.body()``) and replayed from its CUDA
+    graph from the same state and generator states: equal tokens,
+    lengths (and verify outputs) and pool bytes. The session is left as
+    one replay leaves it."""
     snap = _snapshot(sess)
     prog.body()
-    eager_small = [t.clone() for t in (sess._seq_lens, sess._tok_dev,
-                                       sess._toks_dev)]
+    eager_small = [t.clone() for t in _small_state(sess)]
     changed, written = [], []
     for p, c in zip(sess._kcs + sess._vcs, snap[0]):
         m = (p != c).flatten(1).any(1)
@@ -2782,7 +2897,7 @@ def _program_vs_eager(sess, prog, tag, what):
     prog()
     torch.cuda.synchronize()
     check(all(torch.equal(t, e) for t, e in zip(
-        (sess._seq_lens, sess._tok_dev, sess._toks_dev), eager_small)),
+        _small_state(sess), eager_small)),
         f"{tag}: {what}: graph and eager tokens or lengths differ")
     n_changed = 0
     for p, c, m, w in zip(sess._kcs + sess._vcs, snap[0], changed, written):
@@ -2811,6 +2926,27 @@ def cb_compare_admits(sess, tag):
                                            f"the admit of width {w}")
         return sess._tok_dev
     sess._admit = admit
+    return checked
+
+
+def cb_compare_verify(sess, tag):
+    """From now on, the first verify window at each width runs both
+    eagerly and from its CUDA graph, from the same state
+    (_program_vs_eager: tokens, accepted counts, boundary tokens,
+    lengths and every pool byte), before the run goes on from the
+    replay. Returns {width: pool blocks written}, filled as the run
+    goes."""
+    checked, dispatch = {}, sess._dispatch_spec_window
+
+    def spy(prog, w, *args):
+        if w not in checked:
+            real = prog
+
+            def prog():
+                checked[w] = _program_vs_eager(
+                    sess, real, tag, f"the verify window of width {w}")
+        return dispatch(prog, w, *args)
+    sess._dispatch_spec_window = spy
     return checked
 
 
@@ -3325,15 +3461,419 @@ def phase_serve_cb_llama():
 def phase_serve_cb_gpt():
     from paddle_tpu_torch.nn.functional import norm
 
-    res = _serve_cb("gpt", norm.LAYER_NORM_KERNEL)
-    _release_serving_model("gpt")
-    return res
+    return _serve_cb("gpt", norm.LAYER_NORM_KERNEL)
 
 
 def _release_serving_model(family):
     _SERVING_MODELS.pop(family)
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# [serve_spec]: speculative decoding on the serving models
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4                     # num_draft_tokens (SpeculativeConfig's default)
+PHASE_RECORDS = {}      # phase -> its record, for later phases' readings
+
+
+def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
+    """Serve ``prompts`` (cb_prompts' waves, 32 new tokens each) through a
+    speculative cb_session: no decode chunk, every decode step one verify
+    window. Each verify width's graph is timed (CUDA events around its
+    replays) and its kernel nodes are read after the run; a draft
+    model's engine must hold the target's committed length for every
+    live slot after every window. Returns a record of the run and the
+    session."""
+    from paddle_tpu_torch.inference import serving
+
+    lv_buf = torch.empty(CB_SLOTS, model.cfg.vocab_size, device="cuda")
+    sess = cb_session(model, True, record=lv_buf, speculative=spec)
+    check(sess._chunk_prog is None and sess._verify_ladder is not None,
+          f"{tag}: a speculative session built a decode chunk")
+    ladder, timed = sess._verify_ladder, {}
+    build = ladder._build
+
+    def timed_build(body, w):
+        prog = build(body, w)
+        check(prog.graph is not None,
+              f"{tag}: the verify program of width {w} was not captured")
+        prog.graph = timed[w] = _TimedGraph(prog.graph)
+        return prog
+    ladder._build = timed_build
+    engine = getattr(sess._proposer, "_engine", None)
+    draft_timed = []
+    if engine is not None:
+        get = engine._decode_program
+
+        def timed_program():
+            prog = get()
+            if not isinstance(prog.graph, _TimedGraph):
+                check(prog.graph is not None,
+                      f"{tag}: the draft decode step was not captured")
+                prog.graph = _TimedGraph(prog.graph)
+                draft_timed.append(prog.graph)
+            return prog
+        engine._decode_program = timed_program
+    propose, propose_ms = sess._proposer.propose, []
+
+    def timed_propose(contexts, caps):
+        t0 = time.perf_counter()
+        out = propose(contexts, caps)
+        propose_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+    sess._proposer.propose = timed_propose
+    reqs = [serving.Request(i, p, CB_NEW) for i, p in enumerate(prompts)]
+    first, waiting, steps, windows, synced = {}, list(reqs), 0, [], 0
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    while True:
+        for at, count in waves:
+            if steps == at:
+                for r in waiting[:count]:
+                    sess.submit(r)
+                waiting = waiting[count:] if count is not None else []
+        st0 = sess.stats
+        live = sum(s.req is not None for s in sess._slots)
+        before = {w: len(g.events) for w, g in timed.items()}
+        fresh = [r for r in reqs if not r.tokens]
+        t0 = time.perf_counter()
+        more = sess.step()
+        dt = time.perf_counter() - t0
+        if not more and not waiting:
+            break
+        steps += 1
+        st = sess.stats
+        if st["spec_steps"] > st0["spec_steps"]:
+            new = [(w, g) for w, g in timed.items()
+                   if len(g.events) > before.get(w, 0)]
+            check(len(new) == 1
+                  and len(new[0][1].events) == before.get(new[0][0], 0) + 1,
+                  f"{tag}: a window replayed {len(new)} verify graphs")
+            windows.append(dict(
+                host_ms=1e3 * dt, propose_ms=propose_ms[-1], live=live,
+                tokens=st["tokens_out"] - st0["tokens_out"],
+                width=new[0][0], event=new[0][1].events[-1]))
+            if engine is not None:
+                for i, s in enumerate(sess._slots):
+                    if s.req is not None:
+                        check(int(engine.seq[i]) == s.seq_len,
+                              f"{tag}: the draft engine holds "
+                              f"{int(engine.seq[i])} tokens of slot {i}, "
+                              f"the target {s.seq_len}")
+                        synced += 1
+        if st["admit_steps"] > st0["admit_steps"]:
+            for r in fresh:
+                slot = [i for i, s in enumerate(sess._slots) if s.req is r]
+                if r.tokens and slot:
+                    first[r.req_id] = lv_buf[slot[0]].clone()
+    out = sess.run()
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    sess._pool.assert_quiescent()
+    done = [r for r in reqs if r.status == "done"]
+    check(len(done) == len(reqs) and set(first) >= set(out),
+          f"{tag}: {len(done)} of {len(reqs)} requests done")
+    check(windows, f"{tag}: no speculative window ran")
+    for win in windows:
+        start, end = win.pop("event")
+        win["card_ms"] = start.elapsed_time(end)
+    for w, g in timed.items():
+        ladder.programs[w].graph = g.graph
+    draft_ms = [a.elapsed_time(b) for g in draft_timed for a, b in g.events]
+    if engine is not None:
+        check(len(draft_timed) == 1 and len(draft_ms)
+              == engine.decode_steps + engine.ingest_steps,
+              f"{tag}: {len(draft_timed)} draft decode graphs, "
+              f"{len(draft_ms)} replays")
+        engine._decode_prog.graph = draft_timed[0].graph
+    nodes = dict(
+        verify={w: dumped_kernel_nodes(g.graph, f"{tag} verify {w}")
+                for w, g in sorted(timed.items())},
+        admit={w: dumped_kernel_nodes(p.graph, f"{tag} admit {w}")
+               for w, p in sorted(sess._admit_progs.items())},
+        draft=None)
+    if engine is not None:
+        check(engine._decode_prog is not None
+              and engine._decode_prog.graph is not None,
+              f"{tag}: the draft decode step was not captured")
+        check(synced > 0, f"{tag}: no window checked the draft lengths")
+        nodes["draft"] = dumped_kernel_nodes(engine._decode_prog.graph,
+                                             f"{tag} draft decode")
+    return dict(
+        out=out, stats=sess.stats, wall_s=wall, steps=steps,
+        windows=windows, first={k: v.float().cpu()
+                                for k, v in first.items()},
+        replays={w: len(g.events) for w, g in timed.items()}, nodes=nodes,
+        draft_steps=None if engine is None else engine.decode_steps,
+        draft_ingests=None if engine is None else engine.ingest_steps,
+        draft_prefills=None if engine is None
+        else len(engine.prefill_widths),
+        draft_step_card_ms=float(np.median(draft_ms)) if draft_ms
+        else None,
+        capture_ms={str(w): 1e3 * p.capture_s
+                    for w, p in sorted(ladder.programs.items())},
+        draft_capture_ms=None if engine is None
+        else 1e3 * engine._decode_prog.capture_s,
+        ttft_s=sorted(r.first_tok_t - r.submit_t for r in done),
+        tokens=sum(len(t) for t in out.values()), synced=synced), sess
+
+
+def spec_launches(tag, kernel, other, run, outside, recorded, per_forward,
+                  draft_per_forward):
+    """The norm launches of a speculative run, read from its graphs: each
+    verify width's graph and each admit graph hold ``per_forward`` of
+    ``kernel``'s nodes and the draft decode graph ``draft_per_forward``,
+    none of ``other``'s; the wrapper recorded exactly those nodes in the
+    captures, and launched outside them once per capture's warm-up and
+    per eager draft prefill. Returns the run's launches: the eager ones,
+    plus each graph's replays times its nodes."""
+    frag = kernel.symbol.replace("ptt_", "") + "_kernel"
+    ofrag = other.symbol.replace("ptt_", "") + "_kernel"
+    nodes = run["nodes"]
+    graphs = [(f"verify {w}", n, per_forward)
+              for w, n in nodes["verify"].items()]
+    graphs += [(f"admit {w}", n, per_forward)
+               for w, n in nodes["admit"].items()]
+    if nodes["draft"] is not None:
+        graphs.append(("draft decode", nodes["draft"], draft_per_forward))
+    for what, n, want in graphs:
+        got = sum(frag in name for name, _ in n)
+        bad = sum(ofrag in name for name, _ in n)
+        check(got == want and bad == 0,
+              f"{tag}: the {what} graph holds {got} {frag} and {bad} "
+              f"{ofrag} launches, want {want} and 0")
+    captured = sum(want for _, _, want in graphs)
+    check(recorded == captured,
+          f"{tag}: {recorded} wrapper calls recorded in the captures for "
+          f"{captured} graph nodes")
+    prefills = (run["draft_prefills"] or 0) * (draft_per_forward or 0)
+    check(outside == captured + prefills,
+          f"{tag}: {outside} launches outside the graphs for the captures' "
+          f"warm-ups ({captured}) and the eager draft prefills ({prefills})")
+    draft_replays = (run["draft_steps"] or 0) + (run["draft_ingests"] or 0)
+    return (outside + run["stats"]["admit_steps"] * per_forward
+            + sum(run["replays"].values()) * per_forward
+            + draft_replays * (draft_per_forward or 0))
+
+
+def spec_case(family, kernel, other, model, prompts, spec, name,
+              draft_per_forward=None, full=False):
+    """One [serve_spec] case on a serving model: the main run (kernel
+    counts from 0), every stream held by cb_hold, the readings; with
+    ``full`` also the graph against eager at each verify width and a
+    sampled session byte for byte from graphs, eagerly and with host
+    accept. TTFT warm on a second pass of the same traffic."""
+    tag = f"serve_spec_{family} {name}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_forward = 2 * model.cfg.num_layers + 1
+    vocab = model.cfg.vocab_size
+    for k in (kernel, other):
+        k.reset_counts()
+    run, sess = spec_drive(model, prompts, spec, tag)
+    outside, recorded, plain = (kernel.launches, kernel.recorded,
+                                kernel.plain_calls)
+    check(plain == 0, f"{tag}: plain norm ran {plain} times on the card")
+    check(other.launches == other.recorded == other.plain_calls == 0,
+          f"{tag}: the other norm ran")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    launches = spec_launches(tag, kernel, other, run, outside, recorded,
+                             per_forward, draft_per_forward)
+    st = run["stats"]
+    check(set(run["out"]) == set(range(len(prompts))),
+          f"{tag}: requests missing from run()")
+    for rid, toks in run["out"].items():
+        check(len(toks) == CB_NEW and ((toks >= 0) & (toks < vocab)).all(),
+              f"{tag}: request {rid} tokens {toks}")
+    check(st["spec_steps"] == len(run["windows"]) and st["chunk_steps"] == 0,
+          f"{tag}: stats {st}")
+    widths = sorted({w["width"] for w in run["windows"]})
+    warm, warm_captures = cb_warm_ttft(sess, prompts)
+    check(warm_captures == 0, f"{tag}: the second pass captured "
+                              f"{warm_captures} programs")
+    checked = {}
+    if full:
+        checked = cb_compare_verify(sess, tag)
+        cb_warm_ttft(sess, prompts)
+        check(set(widths) <= set(checked),
+              f"{tag}: verify widths {widths}, checked graph against eager "
+              f"{sorted(checked)}")
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampled = None
+    if full:
+        from paddle_tpu_torch.inference import serving
+
+        def reqs():
+            return [serving.Request(i, p, CB_CHUNK, seed=i)
+                    for i, p in enumerate(prompts[:4])]
+        kw = dict(speculative=spec, prefill_chunk=CB_BLOCK, **CB_SAMPLED)
+        s_graph, _, _ = cb_serve(model, reqs(), **kw)
+        s_eager, _, _ = cb_serve(model, reqs(), eager=True, **kw)
+        os.environ["PADDLE_SPEC_DEVICE_ACCEPT"] = "0"
+        try:
+            s_host, _, _ = cb_serve(model, reqs(), **kw)
+        finally:
+            del os.environ["PADDLE_SPEC_DEVICE_ACCEPT"]
+        for what, s in (("eagerly", s_eager), ("with host accept", s_host)):
+            check(set(s) == set(s_graph)
+                  and all(np.array_equal(s_graph[r], s[r]) for r in s),
+                  f"{tag}: sampled streams from graphs {s_graph} and "
+                  f"{what} {s} differ")
+        sampled = len(s_graph)
+    held = cb_hold(model, prompts, {name: run}, tag)
+    base = PHASE_STREAMS.get(f"serve_cb_{family}", {})
+    same = sum(np.array_equal(run["out"][r], base[r]) for r in base)
+    cb = PHASE_RECORDS.get(f"serve_cb_{family}", {})
+    win = run["windows"]
+    host = np.array([w["host_ms"] for w in win])
+    card = np.array([w["card_ms"] for w in win])
+    toks = np.array([w["tokens"] for w in win])
+    live = np.array([w["live"] for w in win])
+    ttft = np.array(run["ttft_s"]) * 1e3
+    res = dict(
+        launches=launches, launches_outside_graph=outside,
+        wrapper_calls=outside + recorded, plain_calls=plain,
+        verify_widths=widths, verify_replays=run["replays"],
+        verify_graph_kernel_nodes={w: len(n) for w, n in
+                                   run["nodes"]["verify"].items()},
+        draft_graph_kernel_nodes=None if run["nodes"]["draft"] is None
+        else len(run["nodes"]["draft"]),
+        draft_steps=run["draft_steps"], draft_ingests=run["draft_ingests"],
+        draft_prefills=run["draft_prefills"],
+        draft_step_card_ms=run["draft_step_card_ms"],
+        draft_lengths_checked=run["synced"],
+        verify_widths_checked=sorted(checked), stats=st,
+        acceptance=st["spec_accepted_tokens"]
+        / max(1, st["spec_proposed_tokens"]),
+        emitted_per_window=float(toks.sum() / live.sum()),
+        verify_card_ms=float(np.median(card)),
+        step_host_ms=float(np.median(host)),
+        propose_ms=float(np.median([w["propose_ms"] for w in win])),
+        ms_per_generated_token=float(np.median(host / toks)),
+        decode_ms_per_token=float(np.median(host * live / toks)),
+        tokens_per_s=run["tokens"] / run["wall_s"],
+        serve_cb_ms_per_generated_token=cb.get("ms_per_generated_token"),
+        serve_cb_tokens_per_s=cb.get("tokens_per_s"),
+        ttft_ms_median=float(np.median(ttft)),
+        ttft_ms_p90=float(np.percentile(ttft, 90)),
+        ttft_ms_warm_median=1e3 * float(np.median(warm)),
+        ttft_ms_warm_p90=1e3 * float(np.percentile(warm, 90)),
+        capture_ms=run["capture_ms"],
+        draft_capture_ms=run["draft_capture_ms"], peak_gb=peak_gb,
+        held=held, streams_equal_serve_cb=int(same),
+        streams_compared=len(base), sampled_requests=sampled,
+        steps=run["steps"], wall_s=run["wall_s"])
+    print(f"[serve_spec] {tag}: {len(prompts)} requests x {CB_NEW} tokens in "
+          f"{run['steps']} steps ({st['admit_steps']} admits, "
+          f"{st['spec_steps']} verify windows at widths {widths}: "
+          f"replays {run['replays']}); proposed "
+          f"{st['spec_proposed_tokens']}, accepted "
+          f"{st['spec_accepted_tokens']} ({100 * res['acceptance']:.1f}%), "
+          f"{res['emitted_per_window']:.3f} tokens emitted a row-window; "
+          f"pool quiescent")
+    print(f"[serve_spec] {tag}: {kernel.symbol}: {launches} launches = "
+          f"{outside} outside the graphs (captures' warm-ups"
+          + ("" if draft_per_forward is None else
+             f", {run['draft_prefills']} eager draft prefills")
+          + f") + replays; each verify graph holds {per_forward} "
+          f"and no other norm"
+          + ("" if draft_per_forward is None else
+             f", the draft decode graph {draft_per_forward} "
+             f"({run['draft_steps']} drafting and {run['draft_ingests']} "
+             f"one-token ingest replays; the draft's lengths equal the "
+             f"target's at {run['synced']} slot-windows)")
+          + ", 0 plain")
+    if full:
+        print(f"[serve_spec] {tag}: graph vs eager: the first window at "
+              f"each width {sorted(checked)} equal (tokens, accepted "
+              f"counts, boundaries, lengths, pool bytes); a sampled "
+              f"session of {sampled} requests streams the same bytes from "
+              f"graphs, eagerly and with PADDLE_SPEC_DEVICE_ACCEPT=0")
+    print(f"[serve_spec] {tag}: streams: all {held['tokens_held']} tokens "
+          f"held to an independent B=1 forward: first-token rows within "
+          f"{held['row_ulps_max']:.1f} bf16 ulps (bound {CB_ROW_ULPS}), "
+          f"every token within {held['margin_ulps_max']:.1f} ulps of its "
+          f"best (bound {2 * CB_ROW_ULPS}); {same} of {len(base)} streams "
+          f"byte-equal to [serve_cb_{family}]'s")
+    print(f"[serve_spec] {tag}: verify card {res['verify_card_ms']:.2f} ms "
+          f"a window, step host {res['step_host_ms']:.2f} ms (propose "
+          f"{res['propose_ms']:.2f}"
+          + ("" if run["draft_step_card_ms"] is None else
+             f"; a draft step's card {run['draft_step_card_ms']:.2f}")
+          + f"); {res['ms_per_generated_token']:.3f} "
+          f"ms per generated token ([serve_cb_{family}] "
+          f"{cb.get('ms_per_generated_token')}), "
+          f"{res['tokens_per_s']:.1f} tokens/s ({cb.get('tokens_per_s')}); "
+          f"TTFT cold {res['ttft_ms_median']:.1f} / {res['ttft_ms_p90']:.1f}"
+          f" ms, warm {res['ttft_ms_warm_median']:.1f} / "
+          f"{res['ttft_ms_warm_p90']:.1f}; capture ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["capture_ms"].items())
+          + ("" if run["draft_capture_ms"] is None else
+             f", draft decode {run['draft_capture_ms']:.1f}")
+          + f"; peak {peak_gb:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _serve_spec(family, kernel, other):
+    """[serve_spec]: the n-gram proposer on the serving model (every
+    check), then a draft model: TinyLlama-1.1B for Llama-2-7B (its
+    vocabulary, max_seq_len raised to Llama-2-7B's 4096, weights from
+    another seed), GPT-3 1.3B as its own draft."""
+    from paddle_tpu_torch.core import seed
+    from paddle_tpu_torch.inference.speculative import SpeculativeConfig
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    model = serving_model(family)
+    prompts = cb_prompts(model.cfg.vocab_size)
+    res = {"ngram": spec_case(
+        family, kernel, other, model, prompts,
+        SpeculativeConfig(num_draft_tokens=SPEC_K), "ngram", full=True)}
+    if family == "llama":
+        cfg = tinyllama_1p1b()
+        cfg.max_seq_len = model.cfg.max_seq_len
+        draft = LlamaForCausalLM(cfg, device="cuda", dtype="bfloat16",
+                                 generator=seed(4321, "cuda")).eval()
+        res["draft"] = spec_case(
+            family, kernel, other, model, prompts,
+            SpeculativeConfig(num_draft_tokens=SPEC_K, proposer="draft",
+                              draft_model=draft), "tinyllama draft",
+            draft_per_forward=2 * cfg.num_layers + 1)
+        del draft
+    else:
+        res["draft"] = spec_case(
+            family, kernel, other, model, prompts,
+            SpeculativeConfig(num_draft_tokens=SPEC_K, proposer="draft",
+                              draft_model=model), "self draft",
+            draft_per_forward=2 * model.cfg.num_layers + 1)
+    res["launches"] = res["ngram"]["launches"] + res["draft"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_spec_llama():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_spec("llama", fused_ops.RMS_NORM_KERNEL,
+                       norm.LAYER_NORM_KERNEL)
+
+
+def phase_serve_spec_gpt():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    res = _serve_spec("gpt", norm.LAYER_NORM_KERNEL,
+                      fused_ops.RMS_NORM_KERNEL)
+    _release_serving_model("gpt")
+    return res
 
 
 # [serve_cb_sched]: the scheduler's overload paths on Llama-2-7B
@@ -3621,15 +4161,17 @@ def main():
     t_start = time.perf_counter()
     card = phase_card()
     build = phase_build()
-    rec = {}
+    rec = PHASE_RECORDS
     for name, run in (("kernels", phase_kernels), ("llama", phase_llama),
                       ("generate_default_llama",
                        phase_generate_default_llama),
                       ("serve_cb_llama", phase_serve_cb_llama),
+                      ("serve_spec_llama", phase_serve_spec_llama),
                       ("serve_cb_sched", phase_serve_cb_sched),
                       ("gpt", phase_gpt),
                       ("generate_default_gpt", phase_generate_default_gpt),
                       ("serve_cb_gpt", phase_serve_cb_gpt),
+                      ("serve_spec_gpt", phase_serve_spec_gpt),
                       ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
                       ("train", phase_train),
@@ -3672,7 +4214,11 @@ def main():
           "llama2_7b paged eager generate":
               g_llama["paged eager"]["ptt_rms_norm_fwd"],
           "llama2_7b cb serving": rec["serve_cb_llama"]["launches"],
-          "llama2_7b cb sched serving": rec["serve_cb_sched"]["launches"]},
+          "llama2_7b cb sched serving": rec["serve_cb_sched"]["launches"],
+          "llama2_7b spec ngram serving":
+              rec["serve_spec_llama"]["ngram"]["launches"],
+          "llama2_7b spec tinyllama-draft serving":
+              rec["serve_spec_llama"]["draft"]["launches"]},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -3689,7 +4235,11 @@ def main():
               g_gpt["no cache"]["ptt_layer_norm_fwd"],
           "gpt3_1p3b paged eager generate":
               g_gpt["paged eager"]["ptt_layer_norm_fwd"],
-          "gpt3_1p3b cb serving": rec["serve_cb_gpt"]["launches"]},
+          "gpt3_1p3b cb serving": rec["serve_cb_gpt"]["launches"],
+          "gpt3_1p3b spec ngram serving":
+              rec["serve_spec_gpt"]["ngram"]["launches"],
+          "gpt3_1p3b spec self-draft serving":
+              rec["serve_spec_gpt"]["draft"]["launches"]},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_train", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",

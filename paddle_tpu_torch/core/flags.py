@@ -24,6 +24,12 @@ PADDLE_ENV_KNOBS = frozenset({
     "PADDLE_SLO_EVAL_INTERVAL_S", "PADDLE_SLO_BURN_THRESHOLD",
     # device-memory budget of the HBM ledger (observability/memz.py)
     "PADDLE_MEMZ_HBM_BYTES",
+    # speculative decoding in the continuous session
+    # (inference/serving.py): 0 accepts on the host instead of in the
+    # verify graph; 1 gives the n-gram proposer a tenant corpus of at
+    # most the cap's tokens
+    "PADDLE_SPEC_DEVICE_ACCEPT", "PADDLE_SPEC_TENANT_STATS",
+    "PADDLE_SPEC_TENANT_CAP_TOKENS",
 })
 
 _flags: Dict[str, Any] = {
@@ -84,5 +90,15 @@ def env_int(name: str, default: int) -> int:
     return int(raw) if raw else int(default)
 
 
-__all__ = ["PADDLE_ENV_KNOBS", "env_int", "get_flag", "get_flags",
-           "set_flags"]
+def env_on(name: str, default: bool) -> bool:
+    """Boolean value of a registered PADDLE_* knob: unset -> ``default``;
+    "0", "false" or "off" -> False; anything else True (the JAX package's
+    ``_env_on``)."""
+    if name not in PADDLE_ENV_KNOBS:
+        raise KeyError(f"{name} is not a registered PADDLE_* knob")
+    raw = os.environ.get(name, "").strip().lower()
+    return bool(default) if not raw else raw not in ("0", "false", "off")
+
+
+__all__ = ["PADDLE_ENV_KNOBS", "env_int", "env_on", "get_flag",
+           "get_flags", "set_flags"]

@@ -355,6 +355,38 @@ race_handoff("PrefixBlockPool.*",
              "session toucher' invariant)")
 
 
+def write_span_blocks(table_row, start: int, count: int,
+                      block_size: int, num_blocks: int):
+    """Pool block ids a multi-position cache write at logical positions
+    [start, start + count) lands in, given one sequence's block table
+    row (host numpy). Entries holding the out-of-pool sentinel
+    (>= num_blocks) are left out: the write drops there, as it does past
+    the table's capacity. The speculative verify path audits this span
+    with PrefixBlockPool.assert_private before every window."""
+    import numpy as np
+
+    if count <= 0:
+        return []
+    row = np.asarray(table_row).reshape(-1)
+    first = int(start) // int(block_size)
+    last = (int(start) + int(count) - 1) // int(block_size)
+    return [int(row[k]) for k in range(first, min(last + 1, len(row)))
+            if 0 <= int(row[k]) < int(num_blocks)]
+
+
+def rollback_seq_lens(seq_lens, accepted_lens):
+    """Cached lengths after speculative verification (host numpy): the
+    accepted boundary replaces the optimistic post-write length.
+    Positions in (accepted, written] hold rejected draft KV; every read
+    masks them (attention stops at seq_lens) and the next window writes
+    from the accepted boundary up, so a stale position is overwritten
+    before the boundary can pass it."""
+    import numpy as np
+
+    lens = np.asarray(seq_lens)
+    return np.minimum(lens, np.asarray(accepted_lens)).astype(lens.dtype)
+
+
 def _write_tokens(cache, vals, block_tables, start_pos):
     """Scatter vals [B, S, H, D] into the pool, in place, at logical
     positions start_pos[b] + [0, S). Returns the pool.
@@ -477,4 +509,5 @@ __all__ = ["PagedCache", "PrefixBlockPool", "adapter_hash_seed",
            "alloc_block_tables", "block_attention_gqa_impl",
            "block_attention_impl", "block_grouped_query_attention",
            "block_multihead_attention", "chain_block_hashes",
-           "init_block_cache", "kv_block_bytes", "pool_occupancy"]
+           "init_block_cache", "kv_block_bytes", "pool_occupancy",
+           "rollback_seq_lens", "write_span_blocks"]

@@ -36,9 +36,19 @@ The scheduler's overload paths are the reference's: chunked prefill
 with a re-prefill of the committed history through the prefix cache,
 and a pool sized by bytes (``kv_pool_bytes``).
 
-Not ported (NotImplementedError, ROADMAP queue A item 6): speculative
-decoding, LoRA, quantized weights and pools, the hierarchical KV tier,
-host-side logprobs and the overlapped engine.
+Speculative decoding (``speculative=``, inference/speculative/) runs in
+both sessions and in ``aot_generate``: a proposer drafts up to k tokens a
+row, and one verify program of the window's width scores them all. With
+it on, ContinuousBatchingSession captures no decode chunk: each decode
+step is one verify window whose graph also folds the acceptance and
+rolls the lengths back on the card (device accept; host accept with
+PADDLE_SPEC_DEVICE_ACCEPT=0); GenerationSession replaces its decode loop
+with the host loop of propose, verify (its programs graphs too, over
+pools it keeps), accept and rollback.
+
+Not ported (NotImplementedError, ROADMAP queue A item 6): LoRA,
+quantized weights and pools, the hierarchical KV tier, host-side
+logprobs and the overlapped engine (with speculation or without).
 """
 from __future__ import annotations
 
@@ -56,11 +66,12 @@ import numpy as np
 import torch
 
 from ..analysis.sanitizers import race_handoff, race_track
-from ..core.flags import env_int
+from ..core.flags import env_int, env_on
 from ..incubate.nn.functional.paged_kv import (PagedCache,
                                                alloc_block_tables,
                                                init_block_cache)
 from .scheduler import AdmissionRejected, InvalidRequest  # noqa: F401
+from .speculative.verify import pow2_width
 # (re-exported: submit() raises them; the Scheduler itself lives in
 # scheduler.py and is reached via session.scheduler)
 
@@ -77,12 +88,11 @@ def _reject_unported(speculative=None, lora=None, quantize_weights=None,
                      kv_dtype=None, kv_tier=None, logprobs=False,
                      overlap=None):
     """Raise NotImplementedError naming every serving feature asked for
-    that the port lacks. ``False``/"none" for the quantization knobs and
+    that the port lacks (with speculation on, "with speculative" names
+    the combination). ``False``/"none" for the quantization knobs and
     ``kv_tier``, ``overlap=None``/``False`` (the sequential engine) and
     ``logprobs=False`` mean off, as in the JAX package."""
-    asked = [name for name, v in (("speculative", speculative),
-                                  ("lora", lora))
-             if v is not None]
+    asked = ["lora"] if lora is not None else []
     asked += [name for name, v in (("quantize_weights", quantize_weights),
                                    ("kv_dtype", kv_dtype),
                                    ("kv_tier", kv_tier))
@@ -92,7 +102,8 @@ def _reject_unported(speculative=None, lora=None, quantize_weights=None,
     if overlap:
         asked.append("overlap=True")
     if asked:
-        raise NotImplementedError(f"{', '.join(asked)} {UNPORTED}")
+        spec = " with speculative" if speculative is not None else ""
+        raise NotImplementedError(f"{', '.join(asked)}{spec} {UNPORTED}")
 
 
 class ModelAdapter:
@@ -141,16 +152,19 @@ def get_model_adapter(model) -> ModelAdapter:
 
 
 def make_run_model(model, adapter):
-    """The forward shared by prefill and decode: one pass of the real
-    model over the paged pools (updated in place), in eval mode, under
-    inference_mode. Returns (last-position logits fp32 [B, V], kcs, vcs,
-    seq_lens'). ``new_lens``: per-sequence valid token counts (ragged
-    prompts; masks reads and the seq_lens advance, never the writes);
-    ``last_idx``: per-sequence index of the position whose logits to
-    return (None = the final position)."""
+    """The forward shared by prefill, decode and verify: one pass of the
+    real model over the paged pools (updated in place), in eval mode,
+    under inference_mode. Returns (last-position logits fp32 [B, V], kcs,
+    vcs, seq_lens'). ``new_lens``: per-sequence valid token counts
+    (ragged prompts; masks reads and the seq_lens advance, never the
+    writes); ``last_idx``: per-sequence index of the position whose
+    logits to return (None = the final position); ``all_logits=True``
+    returns fp32 logits [B, S, V] at EVERY position of the token buffer
+    instead, one unembedding over [B·S, E] (the speculative verifier
+    scores a whole draft window in one dispatch)."""
 
     def run_model(tok_ids, kcs, vcs, bt, seq_lens, pos, new_lens=None,
-                  last_idx=None):
+                  last_idx=None, all_logits=False):
         was_training = model.training
         if was_training:
             model.eval()
@@ -160,13 +174,18 @@ def make_run_model(model, adapter):
                           for kc, vc in zip(kcs, vcs)]
                 hidden, ncaches = adapter.backbone(tok_ids, caches=caches,
                                                    pos_offset=pos)
-                if last_idx is None:
-                    h_last = hidden[:, -1]
+                if all_logits:
+                    b, s = hidden.shape[:2]
+                    lv = adapter.logits(hidden.reshape(b * s, -1)).float()
+                    lv = lv.reshape(b, s, -1)
                 else:
-                    idx = last_idx.to(torch.int64)[:, None, None].expand(
-                        -1, 1, hidden.shape[-1])
-                    h_last = torch.gather(hidden, 1, idx)[:, 0]
-                lv = adapter.logits(h_last).float()
+                    if last_idx is None:
+                        h_last = hidden[:, -1]
+                    else:
+                        idx = last_idx.to(torch.int64)[:, None, None].expand(
+                            -1, 1, hidden.shape[-1])
+                        h_last = torch.gather(hidden, 1, idx)[:, 0]
+                    lv = adapter.logits(h_last).float()
         finally:
             if was_training:
                 model.train()
@@ -219,6 +238,16 @@ class GenerationSession:
     The model is seen through its ModelAdapter: GPT's tied-wte logits,
     Llama's untied lm_head and GQA pools. The tokens and pools live on the
     model's device.
+
+    ``speculative`` (a SpeculativeConfig or its kwargs): the decode loop
+    becomes the JAX package's host loop (``_spec_decode``): propose,
+    verify every row's window in one program of the window's width
+    (host accept: the argmax chain, or the logits of a sampled session),
+    accept with ``greedy_accept`` / ``rejection_accept`` (a numpy rng
+    seeded with the request's seed), roll the lengths back. The verify
+    programs read pools, a table and lengths that the session keeps (the
+    pools zeroed for each request), so on a card each width is one CUDA
+    graph, captured at its first use.
     """
 
     def __init__(self, model, batch: int, prompt_len: int,
@@ -230,6 +259,8 @@ class GenerationSession:
                  prefix_sharing: bool = True,
                  speculative=None, lora=None,
                  quantize_weights=None, kv_dtype=None):
+        from .speculative import resolve_speculative
+
         _reject_unported(speculative, lora, quantize_weights, kv_dtype)
         adapter = get_model_adapter(model)
         if prompt_len + max_new_tokens > adapter.max_seq_len:
@@ -262,15 +293,76 @@ class GenerationSession:
         self._n_layers = adapter.num_layers
         self._run_model = make_run_model(model, adapter)
         self._shared_plan = None      # lazy: repeated-prompt path
+        self._spec = resolve_speculative(speculative)
+        self._proposer = self._verify_ladder = None
+        if self._spec is not None:
+            self._build_spec(model, adapter)
 
-    def _fresh_pools(self):
-        """Zeroed K and V pools, one per layer, for one request."""
+    def _build_spec(self, model, adapter):
+        """The proposer, the pools, table and lengths the verify programs
+        read (static: a graph reads them by address), and the ladder."""
+        from .speculative import VerifyLadder, build_proposer
+
+        dev, b = self._device, self.batch
+        self._proposer = build_proposer(
+            self._spec, rows=b, kv_block_size=self._kv_block_size,
+            capacity=adapter.max_seq_len)
+        self._spec_pools = self._zero_pools()
+        self._spec_bt = self._bt_dev.clone()
+        self._spec_seq = torch.zeros((b,), dtype=torch.int32, device=dev)
+        self._weight_dicts = [(m._parameters, m._buffers)
+                              for m in model.modules()]
+        self._spec_weights = weight_addresses(self._weight_dicts)
+        self._graph_pool = (torch.cuda.graph_pool_handle()
+                            if dev.type == "cuda" else None)
+        do_sample, temperature, top_k, top_p = self._sampling
+        self._verify_ladder = VerifyLadder(
+            self._run_model, rows=b, cap=self._spec.num_draft_tokens + 1,
+            device=dev,
+            pools=lambda: (*self._spec_pools, self._spec_bt,
+                           self._spec_seq),
+            build=self._build_verify, greedy=not do_sample,
+            sampling={"do_sample": do_sample, "temperature": temperature,
+                      "top_k": top_k, "top_p": top_p},
+            vocab=model.cfg.vocab_size)
+
+    def _build_verify(self, body, w):
+        return _GraphProgram(body, self._device, self._spec_null_inputs,
+                             self._spec_weights, pool=self._graph_pool,
+                             what=f"the verify program of width {w}")
+
+    def _spec_null_inputs(self):
+        """Context: every row dead and every table row the sentinel, so a
+        verify capture's warm-up and recording write no pool byte; the
+        table is put back on exit."""
+        @contextlib.contextmanager
+        def ctx():
+            bt = self._spec_bt.clone()
+            self._verify_ladder.new_lens.zero_()
+            self._spec_bt.fill_(self._cache_shape[0])
+            try:
+                yield
+            finally:
+                self._spec_bt.copy_(bt)
+        return ctx()
+
+    def _zero_pools(self):
         def side():
             return tuple(torch.zeros(self._cache_shape,
                                      dtype=self._cache_dtype,
                                      device=self._device)
                          for _ in range(self._n_layers))
         return side(), side()
+
+    def _fresh_pools(self):
+        """Zeroed K and V pools, one per layer, for one request: new ones,
+        or with speculation the session's own, zeroed in place."""
+        if self._spec is None:
+            return self._zero_pools()
+        with torch.inference_mode():
+            for c in self._spec_pools[0] + self._spec_pools[1]:
+                c.zero_()
+        return self._spec_pools
 
     def _select(self, lv, generator, done):
         """Token selection on the card; rows that emitted eos keep
@@ -388,17 +480,116 @@ class GenerationSession:
         else:
             tok, kcs, vcs, seq_lens, done, bt = self._prefill(
                 ids, lens, generator)
-        toks = [tok]
-        for _ in range(self.n_new - 1):
-            # the incoming token sits at each sequence's cached length
-            lv, kcs, vcs, seq_lens = self._run_model(
-                tok[:, None], kcs, vcs, bt, seq_lens, seq_lens)
-            tok, done = self._select(lv, generator, done)
-            toks.append(tok)
-        gen = torch.stack(toks, dim=1).to(out_dtype)
+        if self._spec is not None:
+            lens_np = (lens.cpu().numpy() if self.ragged else
+                       np.full((self.batch,), self.prompt_len, np.int64))
+            gen, n_prop, n_acc = self._spec_decode(ids_host, lens_np, tok,
+                                                   bt, seq_lens, done, seed)
+            if _obs_enabled():
+                sm = _serving_metrics()
+                sm["spec_proposed"].inc(n_prop)
+                sm["spec_accepted"].inc(n_acc)
+                if n_prop:
+                    sm["spec_rate"].set(n_acc / n_prop)
+            gen = torch.from_numpy(gen).to(device=self._device,
+                                           dtype=out_dtype)
+        else:
+            toks = [tok]
+            for _ in range(self.n_new - 1):
+                # the incoming token sits at each sequence's cached length
+                lv, kcs, vcs, seq_lens = self._run_model(
+                    tok[:, None], kcs, vcs, bt, seq_lens, seq_lens)
+                tok, done = self._select(lv, generator, done)
+                toks.append(tok)
+            gen = torch.stack(toks, dim=1).to(out_dtype)
         if self.ragged:
             return gen
         return torch.cat([ids.to(out_dtype), gen], dim=1)
+
+    def _spec_decode(self, prompts, lens, tok0, bt, seq_lens, done0, seed):
+        """Host-driven speculative decode (the JAX package's
+        ``_spec_decode``): propose a per-row draft window, verify every
+        window in ONE program of the ladder's width, accept or reject on
+        the host, roll each row's cached length back to its accepted
+        boundary, repeat until every row holds n_new tokens. Greedy rows
+        emit the target's argmax chain; sampled rows draw from the exact
+        target distribution by rejection sampling with a numpy rng
+        seeded with ``seed``. Rows that emit eos freeze (new_lens 0) and
+        pad with eos, as the decode loop's done rows do. Returns (gen
+        [B, n_new] int32 numpy, proposed draft tokens, accepted draft
+        tokens)."""
+        from .speculative import greedy_accept, rejection_accept
+
+        B, k = self.batch, self._spec.num_draft_tokens
+        eos = self.eos_token_id
+        do_sample, temperature, top_k, top_p = self._sampling
+        ladder = self._verify_ladder
+        weights = weight_addresses(self._weight_dicts)
+        if weights != self._spec_weights:    # the graphs read weights
+            self._spec_weights = weights     # by address: re-capture
+            ladder.clear()
+        rng = np.random.default_rng(seed)
+        emitted = [[int(t)] for t in _harvest_sync(tok0)]
+        done = _harvest_sync(done0)
+        seq = _harvest_sync(seq_lens).astype(np.int32)
+        with torch.inference_mode():
+            self._spec_bt.copy_(bt)
+        self._proposer.on_admit(
+            [(r, prompts[r, :lens[r]]) for r in range(B)])
+        n_prop = n_acc_total = 0
+        while True:
+            active = [r for r in range(B)
+                      if not done[r] and len(emitted[r]) < self.n_new]
+            if not active:
+                break
+            contexts, caps = [], {}
+            for r in active:
+                hist = np.concatenate(
+                    [prompts[r, :lens[r]].astype(np.int64),
+                     np.asarray(emitted[r], np.int64)])
+                contexts.append((r, hist))
+                caps[r] = max(0, min(k, self.n_new - len(emitted[r]) - 1))
+            proposals = self._proposer.propose(contexts, caps)
+            need = 1 + max(len(proposals.get(r, ())) for r in active)
+            prog, w = ladder.get(need)
+            toks = np.zeros((B, w), np.int32)
+            new_lens = np.zeros((B,), np.int32)
+            for r in active:
+                d = np.asarray(proposals[r])[:min(caps[r], w - 1)]
+                proposals[r] = d
+                toks[r, 0] = emitted[r][-1]
+                toks[r, 1:1 + len(d)] = d
+                new_lens[r] = 1 + len(d)
+            ladder.load(toks, new_lens)
+            with torch.inference_mode():
+                self._spec_seq.copy_(torch.from_numpy(seq))
+            prog()
+            lv = _harvest_sync(ladder.out[w])    # accept/reject on host
+            for r in active:
+                m = int(new_lens[r])
+                if do_sample:
+                    out, n_acc = rejection_accept(
+                        lv[r, :m], proposals[r], rng, temperature, top_k,
+                        top_p)
+                else:
+                    out, n_acc = greedy_accept(lv[r, :m], proposals[r])
+                n_prop += len(proposals[r])
+                for j, t in enumerate(out):
+                    emitted[r].append(int(t))
+                    if j < n_acc:  # accepted drafts that truly entered
+                        n_acc_total += 1   # the stream (eos may cut
+                        # the window short)
+                    if eos is not None and int(t) == eos:
+                        done[r] = True
+                        break
+                seq[r] += n_acc + 1
+                self._proposer.rollback(r, int(seq[r]))
+        fill = eos if eos is not None else 0
+        gen = np.full((B, self.n_new), fill, np.int32)
+        for r in range(B):
+            row = emitted[r][:self.n_new]
+            gen[r, :len(row)] = row
+        return gen, n_prop, n_acc_total
 
 
 def aot_generate(model, input_ids, max_new_tokens: int,
@@ -408,10 +599,13 @@ def aot_generate(model, input_ids, max_new_tokens: int,
                  speculative=None, lora=None, adapters=None,
                  quantize_weights=None, kv_dtype=None):
     """Serve one generate() call through a per-model cache of
-    GenerationSessions keyed by (shape, sampling) class. Output after
-    every row has emitted eos is trimmed, as the JAX package's eager loop
-    stops there. The cache keeps PADDLE_SERVING_SESSION_CACHE sessions
-    per model (default 8), dropping the least recently served."""
+    GenerationSessions keyed by (shape, sampling, speculation) class.
+    Output after every row has emitted eos is trimmed, as the JAX
+    package's eager loop stops there. The cache keeps
+    PADDLE_SERVING_SESSION_CACHE sessions per model (default 8), dropping
+    the least recently served."""
+    from .speculative import resolve_speculative
+
     _reject_unported(speculative, lora, quantize_weights, kv_dtype)
     if adapters is not None:
         raise NotImplementedError("LoRA serving is not ported")
@@ -420,8 +614,13 @@ def aot_generate(model, input_ids, max_new_tokens: int,
     n_new = min(max_new_tokens, adapter.max_seq_len - prompt_len)
     if n_new <= 0:
         return input_ids
+    # the speculative config is part of the session identity: a spec
+    # session holds proposer state and decodes by verify windows, so it
+    # never serves a plain caller of the same shape class, nor the reverse
+    spec = resolve_speculative(speculative)
     key = (b, prompt_len, n_new, kv_block_size, do_sample, temperature,
-           top_k, top_p, eos_token_id)
+           top_k, top_p, eos_token_id,
+           None if spec is None else spec.cache_key())
     cache = getattr(model, "_serving_sessions", None)
     if cache is None:
         cache = model._serving_sessions = collections.OrderedDict()
@@ -431,7 +630,7 @@ def aot_generate(model, input_ids, max_new_tokens: int,
             model, batch=b, prompt_len=prompt_len, max_new_tokens=n_new,
             kv_block_size=kv_block_size, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            eos_token_id=eos_token_id)
+            eos_token_id=eos_token_id, speculative=spec)
         cap = max(1, env_int("PADDLE_SERVING_SESSION_CACHE", 8))
         while len(cache) > cap:
             cache.popitem(last=False)
@@ -683,12 +882,16 @@ def _harvest_sync(value) -> np.ndarray:
     return value.cpu().numpy().copy()
 
 
-def pow2_width(need: int, cap: int = 0) -> int:
-    """Narrowest power-of-two >= need, capped at cap (0 = uncapped)."""
-    w = 1
-    while w < need:
-        w *= 2
-    return min(w, cap) if cap else w
+def weight_addresses(weight_dicts):
+    """(address, shape, strides, dtype) of every tensor in ``weight_dicts``
+    [(module._parameters, module._buffers)], read from the modules' own
+    dicts, so a replaced Parameter shows as well as a replaced ``.data``:
+    what a captured graph reads by address. A third of a millisecond for
+    300 tensors."""
+    return [(t.data_ptr(), t.shape, t.stride(), t.dtype)
+            for params, bufs in weight_dicts
+            for t in itertools.chain(params.values(), bufs.values())
+            if t is not None]
 
 
 class _GraphProgram:
@@ -881,6 +1084,17 @@ class ContinuousBatchingSession:
       selection on the card, one host read of the [chunk, S] tokens per
       chunk. One CUDA graph on a card.
 
+    With ``speculative`` (a SpeculativeConfig or its kwargs) no decode
+    chunk is built: a step with no prefill work is one speculative window
+    for every live slot (``_spec_step``): the proposer drafts up to k
+    tokens a slot, and one verify program of the window's width (one
+    CUDA graph a width on a card, captured at its first use) scores
+    them, folds the acceptance (greedy matching or exact rejection
+    sampling, uniforms from the session's own Philox generator seeded
+    with the config's seed) and rolls the lengths back on the card; two
+    int32 vectors are read back. PADDLE_SPEC_DEVICE_ACCEPT=0 accepts on
+    the host instead (the same decisions).
+
     The KV pools are written in place; the host keeps the request queue
     (the Scheduler), the slot table, the block table mirror and the
     prefix-caching block pool (PrefixBlockPool). The session lives on the
@@ -907,6 +1121,7 @@ class ContinuousBatchingSession:
                                                        kv_block_bytes)
         from ..observability.stepprof import StepProfiler
         from .scheduler import Scheduler
+        from .speculative import resolve_speculative
 
         _reject_unported(speculative, lora, quantize_weights, kv_dtype,
                          kv_tier, logprobs, overlap)
@@ -1014,6 +1229,13 @@ class ContinuousBatchingSession:
         self._sched = Scheduler(self, prefill_chunk=prefill_chunk,
                                 max_waiting=max_waiting,
                                 preemption=preemption)
+        self._spec = resolve_speculative(speculative)
+        self._spec_steps = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._proposer = self._verify_ladder = None
+        if self._spec is not None:
+            self._build_spec(adapter, model.cfg.vocab_size)
         # the programs: the decode chunk and the admit at width
         # max_prompt_len, captured here on a card (the JAX package's
         # pinned executables), and the admit at each other width of the
@@ -1045,16 +1267,48 @@ class ContinuousBatchingSession:
     def scheduler(self):
         return self._sched
 
+    def _build_spec(self, adapter, vocab):
+        """The proposer, the window uniforms' generator and the verify
+        ladder (its programs captured at each width's first use).
+        PADDLE_SPEC_TENANT_STATS=1 gives the n-gram proposer a tenant
+        corpus (PADDLE_SPEC_TENANT_CAP_TOKENS tokens; every request of
+        the port is the base-model tenant)."""
+        from .speculative import VerifyLadder, build_proposer
+
+        spec, dev = self._spec, self._device
+        self._proposer = build_proposer(
+            spec, rows=self.slots, kv_block_size=self._kv_block_size,
+            capacity=adapter.max_seq_len,
+            tenant_stats=env_on("PADDLE_SPEC_TENANT_STATS", False),
+            tenant_cap_tokens=env_int("PADDLE_SPEC_TENANT_CAP_TOKENS",
+                                      8192))
+        # the windows' uniforms: one [S, k+1] draw a verify dispatch,
+        # greedy too, from a generator of their own (the JAX session
+        # splits its spec key once a dispatch)
+        self._spec_gen = torch.Generator(device=dev)
+        self._spec_gen.manual_seed(int(spec.seed))
+        self._spec_accept = ("device" if env_on("PADDLE_SPEC_DEVICE_ACCEPT",
+                                                True) else "host")
+        self._spec_stage = False      # the overlapped engine's staging
+        self._spec_by_adapter = {}
+        self._verify_ladder = VerifyLadder(
+            self._run_model, rows=self.slots,
+            cap=spec.num_draft_tokens + 1, device=dev,
+            pools=lambda: (self._kcs, self._vcs, self._bt_dev,
+                           self._seq_lens),
+            build=lambda body, w: self._build_program(body, "verify",
+                                                      width=w),
+            greedy=not self._do_sample, accept=self._spec_accept,
+            sampling={"do_sample": self._do_sample,
+                      "temperature": self._temperature,
+                      "top_k": self._top_k, "top_p": self._top_p},
+            generator=self._spec_gen, last_tok=self._tok_dev, vocab=vocab)
+
     # -- programs ----------------------------------------------------------
     def _weight_addresses(self):
-        """(address, shape, strides, dtype) of every parameter and buffer,
-        read from the modules' own dicts, so a replaced Parameter shows
-        as well as a replaced ``.data``: what the captured decode chunk
-        reads by address. A third of a millisecond for 300 tensors."""
-        return [(t.data_ptr(), t.shape, t.stride(), t.dtype)
-                for params, bufs in self._weight_dicts
-                for t in itertools.chain(params.values(), bufs.values())
-                if t is not None]
+        """The model's weight addresses (``weight_addresses``): what the
+        session's graphs read."""
+        return weight_addresses(self._weight_dicts)
 
     def _build_program(self, body, kind, **span):
         """A graph program of this session over ``body`` (captured on a
@@ -1064,9 +1318,10 @@ class ContinuousBatchingSession:
         t0 = time.monotonic()
         what = f"the {kind} program" + "".join(
             f" of {k} {v}" for k, v in span.items())
+        gen = (self._spec_gen if kind == "verify"
+               else self._gen if self._do_sample else None)
         prog = _GraphProgram(body, self._device, self._null_inputs,
-                             self._weight_addresses(),
-                             self._gen if self._do_sample else None,
+                             self._weight_addresses(), gen,
                              self._graph_pool, what)
         if prog.graph is not None:
             self._captures += 1
@@ -1079,7 +1334,7 @@ class ContinuousBatchingSession:
         from ..observability import get_registry
 
         reg = get_registry()
-        progs = [self._chunk_prog, *self._admit_progs.values()]
+        progs = self._programs().values()
         reg.gauge("engine_program_cache_programs",
                   "compiled serving executables resident in the "
                   "unified ProgramCache").set(
@@ -1090,20 +1345,37 @@ class ContinuousBatchingSession:
         reg.gauge("engine_program_cache_evictions",
                   "ProgramCache LRU evictions").set(0)
 
+    def _programs(self):
+        """{name: program} of every program the session holds: the
+        decode chunk, the admit widths, the verify widths."""
+        progs = {} if self._chunk_prog is None else {
+            "chunk": self._chunk_prog}
+        progs.update((f"admit {w}", p) for w, p in self._admit_progs.items())
+        if self._verify_ladder is not None:
+            progs.update((f"verify {w}", p)
+                         for w, p in self._verify_ladder.programs.items())
+        return progs
+
     def _build_chunk_program(self):
-        """(Re)build the decode chunk; the admit programs, captured
-        against the same weights, go with it and are captured again at
-        their next use (max_prompt_len's too)."""
+        """(Re)build the decode chunk (none with speculation: decode is
+        one verify window a step); the admit and verify programs,
+        captured against the same weights, go with it and are captured
+        again at their next use (max_prompt_len's too)."""
         self._chunk_prog = None         # retired graphs go first
         self._admit_progs.clear()
-        self._chunk_prog = self._build_program(self._chunk_body, "chunk")
+        if self._verify_ladder is not None:
+            self._verify_ladder.clear()
+        self._prog_weights = self._weight_addresses()
+        if self._spec is None:
+            self._chunk_prog = self._build_program(self._chunk_body,
+                                                   "chunk")
         self._record_program_gauges()
 
     def _check_weights(self):
         """Before any replay: a weight replaced since the programs were
         captured (``param.data = ...``, ``load_state_dict(assign=True)``)
         re-captures them first, so a replay never reads a freed one."""
-        if self._weight_addresses() != self._chunk_prog.weights:
+        if self._weight_addresses() != self._prog_weights:
             self._build_chunk_program()
 
     def _admit_program(self, w):
@@ -1203,18 +1475,24 @@ class ContinuousBatchingSession:
         capture itself); the last tokens, the table and the sampling
         generator are put back on exit (the live mask and the lens are
         refilled before every dispatch)."""
+        gens = [self._gen] + ([self._spec_gen] if self._spec is not None
+                              else [])
+
         @contextlib.contextmanager
         def ctx():
             tok = self._tok_dev.clone()
-            gen_state = self._gen.get_state()
+            gen_states = [g.get_state() for g in gens]
             self._live_dev.fill_(False)
             self._admit_lens.zero_()
+            if self._verify_ladder is not None:
+                self._verify_ladder.new_lens.zero_()
             self._bt_dev.fill_(self._num_blocks)
             try:
                 yield
             finally:
                 self._tok_dev.copy_(tok)
-                self._gen.set_state(gen_state)
+                for g, st in zip(gens, gen_states):
+                    g.set_state(st)
                 self._bt_dev.copy_(torch.from_numpy(self._bt))
         return ctx()
 
@@ -1260,19 +1538,26 @@ class ContinuousBatchingSession:
                 return None
             weights, wdetail = sess._weights_bytes()
             admits = sess._admit_progs
+            verify = ({} if sess._verify_ladder is None
+                      else sess._verify_ladder.programs)
             comps = {"weights": weights,
                      "kv_pool": int(sess._kv_pool_bytes),
-                     "executables": sess._chunk_prog.device_bytes + sum(
-                         p.device_bytes for p in admits.values())}
+                     "executables": sum(p.device_bytes for p in
+                                        sess._programs().values())}
             detail = {"weights": wdetail,
                       "kv_pool": {"num_blocks": int(sess._num_blocks),
                                   "kv_pool_bytes": int(sess._kv_pool_bytes),
                                   "kv_dtype": str(sess._cache_dtype)
                                   .replace("torch.", "")},
                       "executables": {"decode_chunk_graph":
-                                      sess._chunk_prog.graph is not None,
+                                      sess._chunk_prog is not None
+                                      and sess._chunk_prog.graph
+                                      is not None,
                                       "admit_graph_widths": sorted(
                                           w for w, p in admits.items()
+                                          if p.graph is not None),
+                                      "verify_graph_widths": sorted(
+                                          w for w, p in verify.items()
                                           if p.graph is not None)},
                       "replica": sess.replica_name,
                       "role": sess.serving_role}
@@ -1293,8 +1578,9 @@ class ContinuousBatchingSession:
                 "prefill_tokens": self._prefill_tokens,
                 "prefix_evictions": self._pool.evictions,
                 "prefix_cow": self._pool.cow_copies,
-                "spec_steps": 0, "spec_proposed_tokens": 0,
-                "spec_accepted_tokens": 0, "kv_spills": 0,
+                "spec_steps": self._spec_steps,
+                "spec_proposed_tokens": self._spec_proposed,
+                "spec_accepted_tokens": self._spec_accepted, "kv_spills": 0,
                 "kv_restores": 0, "kv_fetches": 0, "kv_fetch_hits": 0,
                 "kv_spill_us": 0.0, "kv_restore_us": 0.0,
                 "preemptions": self._sched.preemptions,
@@ -1315,6 +1601,9 @@ class ContinuousBatchingSession:
         self._prefill_tokens = int(d.get("prefill_tokens", 0))
         self._pool.evictions = int(d.get("prefix_evictions", 0))
         self._pool.cow_copies = int(d.get("prefix_cow", 0))
+        self._spec_steps = int(d.get("spec_steps", 0))
+        self._spec_proposed = int(d.get("spec_proposed_tokens", 0))
+        self._spec_accepted = int(d.get("spec_accepted_tokens", 0))
         self._sched.preemptions = int(d.get("preemptions", 0))
         self._sched.expirations = int(d.get("expirations", 0))
         self._sched.cancellations = int(d.get("cancellations", 0))
@@ -1420,6 +1709,12 @@ class ContinuousBatchingSession:
         if hit_eos or len(req.tokens) >= req.max_new_tokens:
             req.status = "done"
             req.finish_t = time.monotonic()
+            store = getattr(self._proposer, "store", None)
+            if store is not None:
+                # the committed stream feeds its tenant's draft corpus
+                store.observe(self._spec_tenant_seed(req), np.concatenate(
+                    [np.asarray(req.prompt, np.int64),
+                     np.asarray(req.tokens, np.int64)]))
             # slot freed (cache junk is reset on admit); blocks return
             # to the pool with their prompt-prefix hashes retained
             # (cache-on-free): the next identical prefix revives them
@@ -1455,6 +1750,10 @@ class ContinuousBatchingSession:
         slot.seq_len = 0
         self._bt[i, :] = self._num_blocks
         self._bt_dirty = True
+        if self._proposer is not None:
+            # roll the draft row back to empty: a freed or preempted
+            # request leaves no draft state behind
+            self._proposer.rollback(i, 0)
 
     def _terminate(self, req, status, slot=None):
         """Terminal path for cancellation/rejection: free any held slot
@@ -1625,6 +1924,9 @@ class ContinuousBatchingSession:
         self._bt[i, :len(table)] = table
         self._bt[i, len(table):] = nb        # sentinel
         self._bt_dirty = True
+        if getattr(self._proposer, "store", None) is not None:
+            # adapter-aware drafting: bind the row to its tenant corpus
+            self._proposer.set_tenant(i, self._spec_tenant_seed(req))
         slot.pending = np.asarray(ep[hit:], np.int32)
         slot.first_chunk = True
         slot.hit = hit
@@ -1694,6 +1996,8 @@ class ContinuousBatchingSession:
                 # pool). Guard instead of spinning.
                 raise RuntimeError(
                     "no admissible request and no live slot")
+            if self._spec is not None:
+                return self._spec_step(obs, t0, sp)
             return self._decode_step(obs, t0, sp)
         finally:
             sched._in_step = False
@@ -1812,6 +2116,7 @@ class ContinuousBatchingSession:
         # its very first token, and its trace closes inside _collect
         t1 = time.monotonic() if obs else 0.0
         n_stream = 0
+        on_admit = []
         for i, n in chunks.items():
             s = self._slots[i]
             s.pending = s.pending[n:]
@@ -1832,6 +2137,8 @@ class ContinuousBatchingSession:
                 # prefix shares them (first writer wins)
                 for k, h in enumerate(s.hashes):
                     self._pool.register(s.block_ids[k], h)
+                if s.draft_prompt is not None:
+                    on_admit.append((i, s.draft_prompt))
                 s._clear_prefill()
                 self._collect(i, s, nxt[i], obs)
                 n_stream += 1
@@ -1844,6 +2151,12 @@ class ContinuousBatchingSession:
                                      via="admit")
             self._collect(i, s, nxt[i], obs)
             n_stream += 1
+        if self._proposer is not None and on_admit:
+            # a draft model prefills its own pools with the full committed
+            # history (no prefix cache of its own); a request that
+            # completed on its first token is skipped
+            self._proposer.on_admit([(i, dp) for i, dp in on_admit
+                                     if self._slots[i].req is not None])
         self._admit_steps += 1
         if obs:
             sm = _serving_metrics()
@@ -1873,6 +2186,246 @@ class ContinuousBatchingSession:
         if sp:
             self._stepprof.end(
                 sp, tokens=n_emitted,
+                live=sum(s.req is not None for s in self._slots))
+        return True
+
+    # -- speculative decoding ----------------------------------------------
+    def _spec_tenant_seed(self, req) -> bytes:
+        """The draft-corpus key of a request: the shared base-model corpus
+        (an adapter's own corpus comes with LoRA serving, not ported)."""
+        return b"__base__"
+
+    def _spec_contexts(self):
+        """(contexts, caps) for this step's spec windows: every live
+        slot's full token history, with drafting capped so the window
+        never emits past the request's remaining budget (the commit
+        boundary stays within the blocks sized at submit())."""
+        k = self._spec.num_draft_tokens
+        contexts, caps = [], {}
+        for i, s in enumerate(self._slots):
+            if s.req is None:
+                continue
+            req = s.req
+            hist = np.concatenate(
+                [req.prompt, np.asarray(req.tokens, np.int64)])
+            contexts.append((i, hist))
+            caps[i] = max(0, min(k, req.max_new_tokens
+                                 - len(req.tokens) - 1))
+        return contexts, caps
+
+    def _build_spec_window(self, contexts, caps, proposals):
+        """The dispatch-ready window from one round of proposals:
+        (program, width, toks, new_lens, old_lens, rows). Committed
+        lengths come from the host mirror (s.seq_len), never from the
+        device. Free rows' values are irrelevant: their sentinel tables
+        audit to the empty span, their new_lens stays 0, and an admit
+        resets the row."""
+        S = self.slots
+        need = 1 + max((len(proposals.get(i, ())) for i, _ in contexts),
+                       default=0)
+        prog, w = self._verify_ladder.get(need)
+        toks = np.zeros((S, w), np.int32)
+        new_lens = np.zeros((S,), np.int32)
+        old_lens = np.array([s.seq_len for s in self._slots], np.int32)
+        rows = []
+        for i, _ in contexts:
+            d = np.asarray(proposals.get(i, np.zeros((0,), np.int64)))
+            d = d[:min(caps[i], w - 1)]
+            proposals[i] = d
+            toks[i, 0] = self._slots[i].last_tok
+            toks[i, 1:1 + len(d)] = d
+            new_lens[i] = 1 + len(d)
+            rows.append(i)
+        return prog, w, toks, new_lens, old_lens, rows
+
+    def _dispatch_spec_window(self, prog, w, toks, new_lens, old_lens,
+                              proposals, rows, obs, t0, t_verify0, sp):
+        """Audit and dispatch one window; returns the inflight record
+        (acceptance not yet read back). A device-accept program folds
+        the acceptance, rolls the lengths back and refreshes the
+        last-token vector on the card; a host-accept one leaves the
+        chain or the logits (and the window's uniforms) in the ladder's
+        buffers."""
+        from ..incubate.nn.functional.paged_kv import write_span_blocks
+
+        # the window writes the FULL width w for EVERY row (new_lens
+        # masks reads, never writes), so the audited span is w from each
+        # row's committed length, padding included: every touched block
+        # must be private to its slot, never a shared or canonical
+        # cached prefix block (freed rows hold sentinel entries and
+        # audit to the empty span)
+        for i in range(self.slots):
+            self._pool.assert_private(write_span_blocks(
+                self._bt[i], int(old_lens[i]), w, self._kv_block_size,
+                self._num_blocks))
+        if self._bt_dirty:
+            self._bt_dev.copy_(torch.from_numpy(self._bt))
+            self._bt_dirty = False
+        self._verify_ladder.load(toks, new_lens)
+        if sp:
+            sp.kind = "spec"
+            sp.mark_dispatch()
+        prog()
+        self._spec_steps += 1
+        return {"kind": "spec", "rows": tuple(rows), "proposals": proposals,
+                "new_lens": new_lens, "old_lens": old_lens, "width": w,
+                "t0": t0, "t_verify0": t_verify0}
+
+    def _spec_bookkeeping(self, inflight, acc_np, bound_np, obs) -> int:
+        """Commit one window from its two int32 vectors: each row's
+        emitted tokens are drafts[:n_accepted] + [boundary]."""
+        t0 = inflight["t0"]
+        t_verify0 = inflight["t_verify0"]
+        w = inflight["width"]
+        old_lens = inflight["old_lens"]
+        proposals = inflight["proposals"]
+        t_acc0 = time.monotonic() if obs else 0.0
+        n_emitted = realized_acc = proposed = 0
+        for i in inflight["rows"]:
+            s = self._slots[i]
+            drafts = proposals[i]
+            n_acc = min(int(acc_np[i]), len(drafts))
+            emitted = [int(t) for t in drafts[:n_acc]]
+            emitted.append(int(bound_np[i]))
+            self._spec_proposed += len(drafts)
+            proposed += len(drafts)
+            req = s.req
+            row_acc = 0
+            if obs and req is not None and req.trace is not None:
+                # the window's span BEFORE _collect (which may finish the
+                # request and close its trace); propose, verify and
+                # accept are its children, so the per-phase breakdown
+                # (top level only) never counts them twice
+                t1 = time.monotonic()
+                d = req.trace.add_span(
+                    "decode", t0, t1, via="spec",
+                    proposed=len(drafts), accepted=int(n_acc))
+                req.trace.add_span("spec.propose", t0, t_verify0,
+                                   parent=d)
+                req.trace.add_span("spec.verify", t_verify0, t_acc0,
+                                   parent=d, width=int(w))
+                req.trace.add_span("spec.accept", t_acc0, t1, parent=d)
+            for j, t in enumerate(emitted):
+                if s.req is None:      # eos / max_new freed the slot;
+                    break              # tokens past it are discarded
+                if j < n_acc:          # count only accepted drafts that
+                    self._spec_accepted += 1      # enter the stream
+                    req.spec_accepted_tokens += 1
+                    row_acc += 1
+                self._collect(i, s, int(t), obs)
+                n_emitted += 1
+            realized_acc += row_acc
+            if s.req is not None:
+                s.seq_len = int(old_lens[i]) + n_acc + 1
+            self._proposer.rollback(i, int(old_lens[i]) + n_acc + 1)
+            if obs and req is not None and req.adapter is not None:
+                pa = self._spec_by_adapter.setdefault(req.adapter, [0, 0])
+                pa[0] += len(drafts)
+                pa[1] += row_acc
+        if obs:
+            now = time.monotonic()
+            sm = _serving_metrics()
+            sm["tokens"].inc(n_emitted)
+            sm["spec_proposed"].inc(proposed)
+            sm["spec_accepted"].inc(realized_acc)
+            sm["spec_rate"].set(self._spec_accepted
+                                / max(1, self._spec_proposed))
+            for name, (p, a) in self._spec_by_adapter.items():
+                sm["spec_rate"].set(a / max(1, p), adapter=name)
+            sm["spec_draft_lat"].observe(t_verify0 - t0)
+            sm["spec_verify_lat"].observe(now - t_verify0)
+            if n_emitted:
+                sm["tpot"].observe_many((now - t0) / n_emitted, n_emitted)
+                _slo().observe("tpot", (now - t0) / n_emitted,
+                               count=n_emitted)
+            self._record_state_metrics(sm)
+        return n_emitted
+
+    def _spec_window(self, obs, t0, sp):
+        """Propose, build and dispatch this step's window. Returns the
+        inflight record."""
+        self._check_weights()         # before the width's program is got
+        contexts, caps = self._spec_contexts()
+        proposals = self._proposer.propose(contexts, caps)
+        t_verify0 = time.monotonic() if obs else 0.0
+        prog, w, toks, new_lens, old_lens, rows = \
+            self._build_spec_window(contexts, caps, proposals)
+        return self._dispatch_spec_window(prog, w, toks, new_lens,
+                                          old_lens, proposals, rows, obs,
+                                          t0, t_verify0, sp)
+
+    def _spec_step(self, obs, t0, sp=None):
+        """One speculative decode step for every live slot: propose up to
+        k draft tokens a slot (the host n-gram lookup or the draft
+        model's own paged decode), then verify AND accept every window
+        in ONE replay of the window width's program: greedy matching or
+        exact rejection sampling runs on the card (``acceptance_fold``)
+        and only the accepted counts and boundary tokens are read back.
+        Rejected drafts roll the slot's cached length back to its
+        accepted boundary on the card: their KV stays in the slot's
+        private tail blocks (audited before the dispatch), invisible to
+        reads and overwritten from the boundary up by the next window."""
+        if self._spec_accept != "device":
+            return self._spec_step_host(obs, t0, sp)
+        inflight = self._spec_window(obs, t0, sp)
+        if sp:
+            sp.mark_harvest()
+        acc_np, bound_np = _harvest_sync(self._verify_ladder.result)
+        if sp:
+            sp.mark_harvested()
+        n = self._spec_bookkeeping(inflight, acc_np, bound_np, obs)
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n,
+                live=sum(s.req is not None for s in self._slots))
+        return True
+
+    def _spec_step_host(self, obs, t0, sp=None):
+        """Host-accept spec step (PADDLE_SPEC_DEVICE_ACCEPT=0): greedy
+        reads the argmax chain back and accepts with the numpy
+        ``greedy_accept``; sampled runs ``fold_host``, the same fold as
+        the device program, over the window's logits and uniforms, so
+        the decisions and boundary draws are the device path's. The
+        lengths are rolled back from the host."""
+        from ..incubate.nn.functional.paged_kv import rollback_seq_lens
+        from .speculative import greedy_accept
+
+        ladder = self._verify_ladder
+        inflight = self._spec_window(obs, t0, sp)
+        w, rows = inflight["width"], inflight["rows"]
+        new_lens, old_lens = inflight["new_lens"], inflight["old_lens"]
+        if sp:
+            sp.mark_harvest()
+        if ladder.greedy:
+            chain = _harvest_sync(ladder.out[w])      # [S, w] int32
+            acc_np = np.zeros((self.slots,), np.int32)
+            bound_np = np.zeros((self.slots,), np.int32)
+            for i in rows:
+                emitted, n_acc = greedy_accept(
+                    chain[i, :int(new_lens[i])], inflight["proposals"][i])
+                acc_np[i] = n_acc
+                bound_np[i] = emitted[-1]
+        else:
+            with torch.inference_mode():
+                folded = torch.stack(ladder.fold_host(
+                    ladder.out[w], ladder.toks[w], ladder.new_lens,
+                    ladder.u))
+            acc_np, bound_np = _harvest_sync(folded)
+        if sp:
+            sp.mark_harvested()
+        n = self._spec_bookkeeping(inflight, acc_np, bound_np, obs)
+        # the host program advanced no length: the accepted boundary per
+        # row, the committed length elsewhere
+        accepted = old_lens + new_lens
+        for i in rows:
+            accepted[i] = old_lens[i] + min(
+                int(acc_np[i]), int(new_lens[i]) - 1) + 1
+        with torch.inference_mode():
+            self._seq_lens.copy_(torch.from_numpy(rollback_seq_lens(
+                old_lens + new_lens, accepted)))
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n,
                 live=sum(s.req is not None for s in self._slots))
         return True
 

@@ -1149,3 +1149,123 @@ def test_cb_card_sampled_admit_capture_rate():
     print(f"sampled captures with admits: {len(failures)} of 40 sessions "
           f"failed ({widths} admit graphs captured) {failures}")
     assert not failures, failures
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding's verify graphs on the card (port slice 10)
+# ---------------------------------------------------------------------------
+
+def _spec_requests():
+    """_cb_requests' prompts with 3-12 new tokens: the requests end at
+    different remaining budgets, so the windows take several widths."""
+    return [(rid, p, n) for (rid, p, _), n in zip(_cb_requests(),
+                                                   (3, 8, 4, 12, 6))]
+
+
+def _spec_session(model, eager=False, compare=False, **kw):
+    """A speculative session (the model as its own draft, k = 4) serving
+    _spec_requests; with ``compare`` the first window at each width runs
+    graph against eager (chip_smoke cb_compare_verify)."""
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    cs = _chip_smoke()
+    sess = ContinuousBatchingSession(
+        model, slots=2, max_prompt_len=32, kv_block_size=8,
+        speculative={"proposer": "draft", "draft_model": model}, **kw)
+    checked = {}
+    if eager:
+        cs.cb_eager_programs(sess)
+    elif compare:
+        checked = cs.cb_compare_verify(sess, "card test")
+    for rid, p, n in _spec_requests():
+        sess.submit(Request(rid, p, n))
+    out = sess.run()
+    sess._pool.assert_quiescent()
+    return out, checked, sess
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("family", ["gpt", "llama"])
+@pytest.mark.parametrize("sampled", [False, True],
+                         ids=["greedy", "sampled"])
+def test_cb_card_spec_verify_graphs_equal_eager(monkeypatch, family,
+                                                sampled):
+    """Each verify width's CUDA graph (forward, acceptance fold and the
+    rollback of the lengths) against the same window run eagerly from
+    the same state and generator states (chip_smoke cb_compare_verify:
+    equal tokens, accepted counts, boundaries, lengths and pool bytes)
+    at every width the run uses; the run's streams equal those of the
+    same session with every program eager and, greedy in fp32 with TF32
+    off, the CPU session's; sampled, host accept
+    (PADDLE_SPEC_DEVICE_ACCEPT=0) streams the same bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the verify graphs have no CPU mode")
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "check",
+                        lambda cond, msg: None if cond else pytest.fail(msg))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu, card = _cb_pair(family)
+    kw = dict(do_sample=True, temperature=0.9, top_k=30) if sampled else {}
+    got, checked, sess = _spec_session(card, compare=True, **kw)
+    progs = sess._verify_ladder.programs
+    print(f"{family} {'sampled' if sampled else 'greedy'}: verify widths "
+          f"checked graph against eager {sorted(checked)}")
+    assert len(checked) >= (3 if sampled else 2), checked
+    assert set(checked) == set(progs), (checked, progs)
+    assert all(p.graph is not None for p in progs.values())
+    assert sess.stats["spec_steps"] > 0 and sess._chunk_prog is None
+    eager, _, esess = _spec_session(card, eager=True, **kw)
+    assert all(p.graph is None
+               for p in esess._verify_ladder.programs.values())
+    for rid in eager:
+        assert list(got[rid]) == list(eager[rid]), rid
+    if sampled:
+        monkeypatch.setenv("PADDLE_SPEC_DEVICE_ACCEPT", "0")
+        host, _, hsess = _spec_session(card, **kw)
+        assert hsess._spec_accept == "host"
+        for rid in host:
+            assert list(got[rid]) == list(host[rid]), rid
+    else:
+        want, _, csess = _spec_session(cpu)
+        assert csess.stats == sess.stats
+        for rid in want:
+            assert list(got[rid]) == list(want[rid]), rid
+
+
+@pytest.mark.card
+def test_cb_card_sampled_spec_capture_rate():
+    """40 sampled speculative sessions in a row (both families, each its
+    own draft), each serving two requests, capture every verify width
+    they use, the admit widths and the draft's decode step
+    (test_cb_card_sampled_admit_capture_rate with the verify ladder;
+    ROADMAP queue C item 11). Prints the failure count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphs have no CPU mode")
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    models = [_cb_pair(f)[1] for f in ("gpt", "llama")]
+    failures, widths = [], 0
+    for i in range(40):
+        try:
+            sess = ContinuousBatchingSession(
+                models[i % 2], slots=2, max_prompt_len=32, kv_block_size=8,
+                speculative={"proposer": "draft", "draft_model":
+                             models[i % 2], "seed": i},
+                do_sample=True, temperature=0.9, top_k=30)
+            for rid, p, _ in _spec_requests()[:2]:
+                sess.submit(Request(rid, p, 10))
+            sess.run()
+            progs = sess._verify_ladder.programs
+            assert progs and all(p.graph is not None
+                                 for p in progs.values())
+            assert all(p.graph is not None
+                       for p in sess._admit_progs.values())
+            assert sess._proposer._engine._decode_prog.graph is not None
+            widths += len(progs)
+        except Exception as e:            # counted, then reported
+            failures.append((i, repr(e)))
+    print(f"sampled spec captures: {len(failures)} of 40 sessions failed "
+          f"({widths} verify graphs captured) {failures}")
+    assert not failures, failures

@@ -282,8 +282,10 @@ def test_cb_manual_steps_then_run_returns_all_completed(family):
 # options since ported (prefill_chunk, kv_pool_bytes, preempt,
 # priority, deadline_s)
 @pytest.mark.parametrize("kwargs,name", [
-    pytest.param({"speculative": object()}, "speculative",
-                 id="kwargs0-speculative"),
+    # speculation itself is ported: beside an unported option it raises,
+    # naming the option "with speculative"
+    pytest.param({"speculative": {"num_draft_tokens": 2}, "overlap": True},
+                 "speculative", id="kwargs0-speculative"),
     pytest.param({"lora": object()}, "lora", id="kwargs2-lora"),
     pytest.param({"quantize_weights": "int8"}, "quantize_weights",
                  id="kwargs3-quantize_weights"),

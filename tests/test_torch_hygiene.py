@@ -90,7 +90,8 @@ def test_entry_points_without_device_raise_when_no_card(no_card):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"speculative": {"num_draft_tokens": 3}}, {"lora": object()},
+    {"speculative": {"num_draft_tokens": 3}, "quantize_weights": "int8"},
+    {"lora": object()},
     {"quantize_weights": "int8"}, {"kv_dtype": "int8"}])
 def test_unported_session_options_raise(kwargs):
     from paddle_tpu_torch.inference.serving import (GenerationSession,
