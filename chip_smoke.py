@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Phases, in order (18, 15, 20 and 19 run right after 4, and 18, 16 and 20
-right after 5, on the models those build; 17 right after 12); any failure
-exits non-zero before the last line:
+Phases, in order (18, 15, 21, 20 and 19 run right after 4, and 18, 16,
+21 and 20 right after 5, on the models those build; 17 right after 12);
+any failure exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
      checkout (one nvcc per source, in parallel); the warpgroup kernels of
@@ -30,7 +30,9 @@ exits non-zero before the last line:
      and the model as its own draft; both sessions, their verify widths
      and the draft's decode step CUDA graphs) the card's streams equal
      the CPU's and the spec-off streams, the spec counts the CPU's, and
-     the self-draft accepts every draft.
+     the self-draft accepts every draft; a greedy logprobs=True session
+     (raw-logits admit graphs) gives the CPU's streams, each log p within
+     CARD_LOGPROB_ATOL of the CPU's.
   7. training kernels vs plain: LayerNorm backward (K3), flash
      attention forward / backward (K4 / K5), the head-major forward /
      one-pass backward (K6 / K7) and the head-major two-kernel backward
@@ -109,8 +111,13 @@ exits non-zero before the last line:
      replayed from their graphs equal the same programs run eagerly from
      the same state (tokens, lengths, every pool byte), and a sampled
      session streams the same bytes from graphs and with every program
-     eager. TTFT is read cold (the run above) and warm (a second pass of
-     the traffic, prefix cache flushed). Every request, with the prefix
+     eager. The session runs the default engine, the overlapped one:
+     chunks launch from staged plans (at least one), each still running
+     on the card when step() returns (a CUDA event recorded after its
+     replay not yet complete), and the bookkeeping and staging behind it
+     run under torch.cuda.set_sync_debug_mode("error"). TTFT is read
+     cold (the run above) and warm (a second pass of the traffic, prefix
+     cache flushed). Every request, with the prefix
      cache on
      and off, is held to an independent B=1 paged forward of its own
      tokens: its first-token logits within 16 bf16 ulps, each of its 32
@@ -119,7 +126,10 @@ exits non-zero before the last line:
      copy-on-write, the pool quiescent after run(). TTFT median and p90
      (beside the eager admits' in PERF.md), decode ms per
      token, tokens/s, the card's busy share of a chunk (CUDA events
-     around the replay over the chunk step's host time), peak memory.
+     around the replay over the chunk step's host time; on the
+     overlapped engine that host time no longer brackets the step's own
+     replay) and over decode stretches (the reading [serve_overlap_*]
+     gives the sequential engine), the overlap fraction, peak memory.
  16. GPT-3 1.3B the same way ([serve_cb_gpt]; 8 x 49 LayerNorm kernels
      a chunk).
  17. The JAX package's own single-chip training recipes ([train_recipe]):
@@ -175,7 +185,27 @@ exits non-zero before the last line:
      (CUDA events around the replay) beside the step's host ms and the
      proposal's, ms per generated token and tokens/s beside
      [serve_cb_*]'s, TTFT cold and warm, capture ms per width, peak
-     memory.
+     memory. The default (overlapped) engine's staged windows are held as
+     in 15.
+ 21. The overlapped engine against the sequential one
+     ([serve_overlap_llama], [serve_overlap_gpt]) on the serving models,
+     where [serve_cb_*] (the overlapped engine) does not reach: the
+     sequential engine on [serve_cb_*]'s traffic, one cold pass whose
+     streams are [serve_cb_*]'s byte for byte; for GPT-3 1.3B that
+     traffic with n-gram verify windows (k = 4) on both engines; 4
+     periodic prompts at once with the n-gram proposer on both engines
+     (where windows stage); and 4 sampled requests with pinned seeds
+     through the device sampler and logprobs=True (raw-logits admit
+     graphs, width-1 replays a decode token); each two-way run served
+     twice by one session (cold, then warm): the engines' streams and
+     stats byte-equal, logprobs' streams the device sampler's with every
+     log p finite and <= 0; for each pass the staged and mispredicted
+     steps, ms per generated token, the card's busy share over decode
+     stretches (CUDA events; [serve_cb_*] gives the same reading), the
+     overlap fraction and the host ms hidden behind replays (step
+     profiler), and the norm kernel's launches, read from the nodes of
+     every graph each session captured (tools/engine_ab.py times the
+     two engines against each other).
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -710,7 +740,50 @@ def phase_card_vs_cpu():
               f"differ")
         print(f"[card-vs-cpu] {family}: greedy streams equal "
               f"(fixed, ragged and continuous batching, fp32)")
+        _logprobs_card_vs_cpu(family, cpu, gpu, ids, lens, streams[0])
         _spec_card_vs_cpu(family, cls, cfg, cpu, gpu, ids, lens, streams[0])
+
+
+# |card - CPU| of a greedy token's log p in fp32 (TF32 off): the two
+# devices' GEMMs sum in other orders, so the logits, and the log p
+# taken from them, differ by a few fp32 ulps (about 1e-6 at |log p| < 10);
+# the bound is 100x that
+CARD_LOGPROB_ATOL = 1e-4
+
+
+def _logprobs_card_vs_cpu(family, cpu, gpu, ids, lens, plain):
+    """A greedy logprobs=True continuous session (raw-logits admit graphs
+    on the card, each decode step ``chunk`` width-1 replays) gives the
+    CPU's streams and the spec-off continuous session's (``plain``), and
+    each token's log p within CARD_LOGPROB_ATOL of the CPU's."""
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    runs = []
+    for m in (cpu, gpu):
+        sess = ContinuousBatchingSession(m, slots=2, max_prompt_len=16,
+                                         kv_block_size=8, chunk=4,
+                                         logprobs=True)
+        reqs = [Request(r, ids[r, :n], 16) for r, n in enumerate(lens)]
+        for q in reqs:
+            sess.submit(q)
+        runs.append((sess.run(), reqs))
+        sess._pool.assert_quiescent()
+    (c_out, c_reqs), (g_out, g_reqs) = runs
+    tag = f"[card-vs-cpu] {family} logprobs"
+    check(all(np.array_equal(c_out[r], g_out[r])
+              and np.array_equal(g_out[r], plain[r])
+              for r in range(len(lens))),
+          f"{tag}: streams differ (card, CPU, the device sampler)")
+    err = max(float(np.abs(np.subtract(g.token_logprobs,
+                                       c.token_logprobs)).max())
+              for g, c in zip(g_reqs, c_reqs))
+    check(err <= CARD_LOGPROB_ATOL,
+          f"{tag}: log p {err:.3g} from the CPU's, bound "
+          f"{CARD_LOGPROB_ATOL}")
+    print(f"{tag}: greedy streams equal to the CPU's and the device "
+          f"sampler's; log p within {err:.3g} of the CPU's (bound "
+          f"{CARD_LOGPROB_ATOL})")
 
 
 def _spec_card_vs_cpu(family, cls, cfg, cpu, gpu, ids, lens, plain):
@@ -2809,8 +2882,8 @@ def cb_prompts(vocab):
 class _TimedGraph:
     """A CUDA graph whose replays each record a pair of CUDA events."""
 
-    def __init__(self, graph):
-        self.graph, self.events = graph, []
+    def __init__(self, graph, log=None):
+        self.graph, self.events, self.log = graph, [], log
 
     def replay(self):
         start = torch.cuda.Event(enable_timing=True)
@@ -2819,6 +2892,45 @@ class _TimedGraph:
         self.graph.replay()
         end.record()
         self.events.append((start, end))
+        if self.log is not None:       # replays of several graphs, in order
+            self.log.append((start, end))
+
+
+def sync_guard(sess):
+    """Run the post-dispatch part of the overlapped engine's step() (the
+    harvested step's bookkeeping and the next stage: _commit_and_stage,
+    _stage_next, _stage_next_spec) under
+    torch.cuda.set_sync_debug_mode("error"), so a synchronizing call
+    there (a read of the card, a copy from pageable memory) raises.
+    Returns {method: calls}, filled as the session runs."""
+    calls, depth = {}, [0]
+    for name in ("_commit_and_stage", "_stage_next", "_stage_next_spec"):
+        calls[name] = 0
+
+        def guarded(*a, _fn=getattr(sess, name), _name=name, **kw):
+            calls[_name] += 1
+            depth[0] += 1
+            if depth[0] == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _fn(*a, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    torch.cuda.set_sync_debug_mode(0)
+        setattr(sess, name, guarded)
+    return calls
+
+
+def staged_returns(sess, step, last_event):
+    """One step() of an overlapped session: (the step's result, whether
+    it dispatched from a staged plan, whether that replay was still
+    running when step() returned). ``last_event()`` gives the end event
+    of the newest replay (recorded right after it)."""
+    ov = sess._ov.overlapped
+    more = step()
+    staged = sess._ov.overlapped > ov
+    return more, staged, staged and not last_event().query()
 
 
 def cb_session(model, prefix_cache=True, record=None, **kw):
@@ -2995,10 +3107,11 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
         return prepare(toks, lens, cow)
     sess._admit_prepare = widths
     checked = cb_compare_admits(sess, tag) if compare_admits else {}
+    guarded = sync_guard(sess)
     first, waiting = {}, list(reqs)
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-    steps, chunk_steps = [], []
+    steps, chunk_steps, staged, bounds = [], [], [0, 0], [0]
     while True:
         for at, count in waves:
             if len(steps) == at:
@@ -3014,14 +3127,18 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
             sum(s.req is not None for s in sess._slots))
         fresh = [r for r in reqs if not r.tokens]
         t0 = time.perf_counter()
-        more = sess.step()
+        more, from_plan, running = staged_returns(
+            sess, sess.step, lambda: timed.events[-1][1])
         dt = time.perf_counter() - t0
+        staged[0] += from_plan
+        staged[1] += running
         if not more and not waiting:
             break
         steps.append(dt)
         if sess.stats["chunk_steps"] > n_chunks:
             chunk_steps.append((dt, live))
         if sess.stats["admit_steps"] > n_admits:
+            bounds.append(len(timed.events))     # a new decode stretch
             for r in fresh:
                 slot = [i for i, s in enumerate(sess._slots) if s.req is r]
                 if r.tokens and slot:
@@ -3035,10 +3152,19 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
           f"{tag}: {sess._captures} captures for the decode chunk and "
           f"{len(sess._admit_progs)} admit widths")
     card_ms = [a.elapsed_time(b) for a, b in timed.events]
+    busy = stretch_busy(timed.events[a:b] for a, b in
+                        zip(bounds, bounds[1:] + [len(timed.events)]))
     check(len(card_ms) == len(chunk_steps) == sess.stats["chunk_steps"],
           f"{len(card_ms)} graph replays for {len(chunk_steps)} chunk "
           f"steps")
     prog.graph = timed.graph
+    ov = sess._ov
+    check(staged[1] == staged[0],
+          f"{tag}: {staged[0] - staged[1]} of {staged[0]} staged decode "
+          f"steps returned with their chunk already finished on the card")
+    check(not sess._overlap or guarded["_commit_and_stage"] == staged[0],
+          f"{tag}: {guarded} post-dispatch calls under sync-debug "
+          f"mode for {staged[0]} staged steps")
     onoff = "on" if prefix_cache else "off"
     nodes = dumped_kernel_nodes(prog.graph, f"{tag} chunk {onoff}")
     admit_nodes = {}
@@ -3061,7 +3187,13 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
                     for w, p in sorted(sess._admit_progs.items())}),
                 admits_checked=checked, reqs=reqs,
                 first={k: v.float().cpu() for k, v in first.items()},
-                tokens=sum(len(t) for t in out.values())), sess
+                tokens=sum(len(t) for t in out.values()),
+                card_busy_decode_stretches=busy,
+                engine=dict(overlap=sess._overlap, steps=ov.steps,
+                            overlapped=ov.overlapped,
+                            mispredicts=ov.mispredicts,
+                            staged_running_at_return=staged[1],
+                            sync_guarded=dict(guarded))), sess
 
 
 def cb_teacher_forced(model, prompt, stream):
@@ -3151,6 +3283,7 @@ def cb_graph_vs_eager(sess, tag):
     live = [s.req is not None for s in sess._slots]
     check(any(live), f"{tag}: no live slot to compare a chunk on")
     sess._live_dev.copy_(torch.tensor(live))
+    sess._live_up = None         # the next dispatch uploads its own mask
     sess._bt_dev.copy_(torch.from_numpy(sess._bt))
     snap = _snapshot(sess)
     n = _program_vs_eager(sess, sess._chunk_prog, tag, "the decode chunk")
@@ -3275,6 +3408,10 @@ def _serve_cb(family, kernel):
           f"{tag}: the other norm ran")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     st = on["stats"]
+    eng = on["engine"]
+    check(eng["overlap"] and eng["overlapped"] > 0,
+          f"{tag}: the default engine launched {eng['overlapped']} chunks "
+          f"from a staged plan")
     check(set(on["out"]) == set(range(len(prompts))),
           f"{tag}: requests missing from run()")
     for rid, toks in on["out"].items():
@@ -3287,6 +3424,13 @@ def _serve_cb(family, kernel):
     check(st["prefix_hits"] >= 4 and st["prefix_cow"] >= 1,
           f"{tag}: prefix stats {st}")
     PHASE_STREAMS[tag] = on["out"]
+    # the overlapped engine's readings, as [serve_overlap_*] reads the
+    # sequential engine's on the same traffic
+    eng.update(
+        ms_per_generated_token=1e3 * on["wall_s"] / on["tokens"],
+        card_busy_decode_stretches=on["card_busy_decode_stretches"],
+        engine_overlap_fraction=eng["overlapped"] / eng["steps"])
+    PHASE_ENGINE[tag] = eng
     widths_used = sorted(set(on["admit_widths"]))
     check(set(widths_used) | {CB_PROMPT} == set(on["admit_nodes"]),
           f"{tag}: admit widths {widths_used}, graphs "
@@ -3365,6 +3509,7 @@ def _serve_cb(family, kernel):
         admit_widths_checked=admits_checked,
         capture_ms=on["capture_ms"],
         graph_replays=replays, stats=st, stats_off=off["stats"],
+        engine=eng,
         steps=on["steps"], wall_s=on["wall_s"],
         ttft_ms_median=float(np.median(ttft)),
         ttft_ms_p90=float(np.percentile(ttft, 90)),
@@ -3392,6 +3537,17 @@ def _serve_cb(family, kernel):
           f"{st['prefix_hits']}, hit tokens {st['prefix_hit_tokens']}, CoW "
           f"{st['prefix_cow']}, prefill tokens {st['prefill_tokens']} = "
           f"{plen} - {st['prefix_hit_tokens']}; pool quiescent")
+    busy = eng["card_busy_decode_stretches"]
+    print(f"[{tag}] overlapped engine (the default): {eng['steps']} steps, "
+          f"{eng['overlapped']} chunks launched from a staged plan, each "
+          f"still running on the card when step() returned (the "
+          f"bookkeeping and staging behind it under sync-debug \"error\": "
+          f"{eng['sync_guarded']}), {eng['mispredicts']} mispredicts; "
+          f"engine_overlap_fraction {eng['engine_overlap_fraction']:.3f}, "
+          f"{eng['ms_per_generated_token']:.3f} ms per generated token "
+          f"(wall over tokens, captures inside), card busy over decode "
+          f"stretches "
+          + ("not measured" if busy is None else f"{100 * busy:.2f}%"))
     print(f"[{tag}] {kernel.symbol}: {launches} launches on the card = "
           f"{outside} outside the graphs (the captures' warm-ups: one chunk "
           f"and one forward per admit width, x {per_forward}) + {replays} "
@@ -3436,7 +3592,9 @@ def _serve_cb(family, kernel):
           f"({on['wall_s']:.2f} s; cache off {off['wall_s']:.2f} s); chunk "
           f"card {res['chunk_card_ms']:.2f} ms of host "
           f"{res['chunk_host_ms']:.2f} ms = {100 * res['card_busy']:.1f}% "
-          f"busy; peak {peak_gb:.2f} GiB; GenerationSession (PR 1, for "
+          f"(the overlapped engine's step host time does not bracket its "
+          f"own replay: busy over decode stretches, above, is the reading "
+          f"comparable across engines); peak {peak_gb:.2f} GiB; GenerationSession (PR 1, for "
           f"reference): {GS_MS_PER_TOKEN[family]} ms/token")
     if chunk_ms is None:
         print(f"[{tag}] a chunk's kernels: not measured (the profiler "
@@ -3492,14 +3650,14 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
     sess = cb_session(model, True, record=lv_buf, speculative=spec)
     check(sess._chunk_prog is None and sess._verify_ladder is not None,
           f"{tag}: a speculative session built a decode chunk")
-    ladder, timed = sess._verify_ladder, {}
+    ladder, timed, order = sess._verify_ladder, {}, []
     build = ladder._build
 
     def timed_build(body, w):
         prog = build(body, w)
         check(prog.graph is not None,
               f"{tag}: the verify program of width {w} was not captured")
-        prog.graph = timed[w] = _TimedGraph(prog.graph)
+        prog.graph = timed[w] = _TimedGraph(prog.graph, order)
         return prog
     ladder._build = timed_build
     engine = getattr(sess._proposer, "_engine", None)
@@ -3524,8 +3682,35 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
         propose_ms.append(1e3 * (time.perf_counter() - t0))
         return out
     sess._proposer.propose = timed_propose
+    # each window's tokens are counted by its own bookkeeping (on the
+    # overlapped engine that runs in the step after its dispatch), and
+    # the draft engine's lengths are checked right after it
+    dispatch, commit = sess._dispatch_spec_window, sess._spec_bookkeeping
+    windows, window_of, synced = [], {}, [0]
+
+    def dispatched(*a, **kw):
+        inflight = dispatch(*a, **kw)
+        window_of[id(inflight)] = len(windows)
+        windows.append(dict(width=a[1], tokens=None))
+        return inflight
+
+    def committed(inflight, *a, **kw):
+        n = commit(inflight, *a, **kw)
+        windows[window_of.pop(id(inflight))]["tokens"] = n
+        if engine is not None:
+            for i, s in enumerate(sess._slots):
+                if s.req is not None:
+                    check(int(engine.seq[i]) == s.seq_len,
+                          f"{tag}: the draft engine holds "
+                          f"{int(engine.seq[i])} tokens of slot {i}, the "
+                          f"target {s.seq_len}")
+                    synced[0] += 1
+        return n
+    sess._dispatch_spec_window = dispatched
+    sess._spec_bookkeeping = committed
+    guarded = sync_guard(sess)
     reqs = [serving.Request(i, p, CB_NEW) for i, p in enumerate(prompts)]
-    first, waiting, steps, windows, synced = {}, list(reqs), 0, [], 0
+    first, waiting, steps, staged = {}, list(reqs), 0, [0, 0]
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     while True:
@@ -3536,33 +3721,26 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
                 waiting = waiting[count:] if count is not None else []
         st0 = sess.stats
         live = sum(s.req is not None for s in sess._slots)
-        before = {w: len(g.events) for w, g in timed.items()}
+        n_replays, n_proposed = len(order), len(propose_ms)
         fresh = [r for r in reqs if not r.tokens]
         t0 = time.perf_counter()
-        more = sess.step()
+        more, from_plan, running = staged_returns(
+            sess, sess.step, lambda: order[-1][1])
         dt = time.perf_counter() - t0
+        staged[0] += from_plan
+        staged[1] += running
         if not more and not waiting:
             break
         steps += 1
         st = sess.stats
         if st["spec_steps"] > st0["spec_steps"]:
-            new = [(w, g) for w, g in timed.items()
-                   if len(g.events) > before.get(w, 0)]
-            check(len(new) == 1
-                  and len(new[0][1].events) == before.get(new[0][0], 0) + 1,
-                  f"{tag}: a window replayed {len(new)} verify graphs")
-            windows.append(dict(
-                host_ms=1e3 * dt, propose_ms=propose_ms[-1], live=live,
-                tokens=st["tokens_out"] - st0["tokens_out"],
-                width=new[0][0], event=new[0][1].events[-1]))
-            if engine is not None:
-                for i, s in enumerate(sess._slots):
-                    if s.req is not None:
-                        check(int(engine.seq[i]) == s.seq_len,
-                              f"{tag}: the draft engine holds "
-                              f"{int(engine.seq[i])} tokens of slot {i}, "
-                              f"the target {s.seq_len}")
-                        synced += 1
+            check(len(order) == n_replays + 1,
+                  f"{tag}: a window replayed {len(order) - n_replays} "
+                  f"verify graphs")
+            windows[-1].update(
+                host_ms=1e3 * dt, live=live, staged=from_plan,
+                propose_ms=(propose_ms[-1] if len(propose_ms) > n_proposed
+                            else None), event=order[-1])
         if st["admit_steps"] > st0["admit_steps"]:
             for r in fresh:
                 slot = [i for i, s in enumerate(sess._slots) if s.req is r]
@@ -3575,12 +3753,20 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
     done = [r for r in reqs if r.status == "done"]
     check(len(done) == len(reqs) and set(first) >= set(out),
           f"{tag}: {len(done)} of {len(reqs)} requests done")
-    check(windows, f"{tag}: no speculative window ran")
+    check(windows and all(w["tokens"] is not None for w in windows),
+          f"{tag}: no speculative window ran, or one was never committed")
+    check(staged[1] == staged[0],
+          f"{tag}: {staged[0] - staged[1]} of {staged[0]} staged windows "
+          f"were finished on the card when step() returned")
+    check(not sess._overlap or guarded["_commit_and_stage"] == staged[0],
+          f"{tag}: {guarded} post-dispatch calls under sync-debug mode "
+          f"for {staged[0]} staged windows")
     for win in windows:
         start, end = win.pop("event")
         win["card_ms"] = start.elapsed_time(end)
     for w, g in timed.items():
         ladder.programs[w].graph = g.graph
+    del sess._dispatch_spec_window, sess._spec_bookkeeping
     draft_ms = [a.elapsed_time(b) for g in draft_timed for a, b in g.events]
     if engine is not None:
         check(len(draft_timed) == 1 and len(draft_ms)
@@ -3598,7 +3784,7 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
         check(engine._decode_prog is not None
               and engine._decode_prog.graph is not None,
               f"{tag}: the draft decode step was not captured")
-        check(synced > 0, f"{tag}: no window checked the draft lengths")
+        check(synced[0] > 0, f"{tag}: no window checked the draft lengths")
         nodes["draft"] = dumped_kernel_nodes(engine._decode_prog.graph,
                                              f"{tag} draft decode")
     return dict(
@@ -3617,7 +3803,12 @@ def spec_drive(model, prompts, spec, tag, waves=((0, 8), (3, None))):
         draft_capture_ms=None if engine is None
         else 1e3 * engine._decode_prog.capture_s,
         ttft_s=sorted(r.first_tok_t - r.submit_t for r in done),
-        tokens=sum(len(t) for t in out.values()), synced=synced), sess
+        tokens=sum(len(t) for t in out.values()), synced=synced[0],
+        engine=dict(overlap=sess._overlap, steps=sess._ov.steps,
+                    overlapped=sess._ov.overlapped,
+                    mispredicts=sess._ov.mispredicts,
+                    staged_running_at_return=staged[1],
+                    sync_guarded=dict(guarded))), sess
 
 
 def spec_launches(tag, kernel, other, run, outside, recorded, per_forward,
@@ -3753,7 +3944,10 @@ def spec_case(family, kernel, other, model, prompts, spec, name,
         emitted_per_window=float(toks.sum() / live.sum()),
         verify_card_ms=float(np.median(card)),
         step_host_ms=float(np.median(host)),
-        propose_ms=float(np.median([w["propose_ms"] for w in win])),
+        propose_ms=float(np.median([w["propose_ms"] for w in win
+                                    if w["propose_ms"] is not None])),
+        staged_windows=sum(w["staged"] for w in win),
+        engine=run["engine"],
         ms_per_generated_token=float(np.median(host / toks)),
         decode_ms_per_token=float(np.median(host * live / toks)),
         tokens_per_s=run["tokens"] / run["wall_s"],
@@ -3775,7 +3969,11 @@ def spec_case(family, kernel, other, model, prompts, spec, name,
           f"{st['spec_proposed_tokens']}, accepted "
           f"{st['spec_accepted_tokens']} ({100 * res['acceptance']:.1f}%), "
           f"{res['emitted_per_window']:.3f} tokens emitted a row-window; "
-          f"pool quiescent")
+          f"pool quiescent; overlapped engine: {run['engine']['steps']} "
+          f"steps, {run['engine']['overlapped']} windows launched from a "
+          f"staged plan (each still running on the card when step() "
+          f"returned; bookkeeping and staging under sync-debug "
+          f"\"error\"), {run['engine']['mispredicts']} mispredicts")
     print(f"[serve_spec] {tag}: {kernel.symbol}: {launches} launches = "
           f"{outside} outside the graphs (captures' warm-ups"
           + ("" if draft_per_forward is None else
@@ -3874,6 +4072,364 @@ def phase_serve_spec_gpt():
                       fused_ops.RMS_NORM_KERNEL)
     _release_serving_model("gpt")
     return res
+
+
+# ---------------------------------------------------------------------------
+# [serve_overlap]: the overlapped engine against the sequential one, and
+# the logprobs=True path, on the serving models
+# ---------------------------------------------------------------------------
+
+class _KindTimed:
+    """A program's CUDA graph whose replays each record a pair of CUDA
+    events into a shared log: (program kind, decode stretch, start,
+    end, this program)."""
+
+    def __init__(self, graph, kind, log, stretch):
+        self.graph, self.kind, self.log, self.stretch = (graph, kind, log,
+                                                         stretch)
+
+    def replay(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        self.graph.replay()
+        end.record()
+        self.log.append((self.kind, self.stretch[0], start, end, self))
+
+
+def stretch_busy(stretches):
+    """The card's busy share over decode stretches, each a list of the
+    (start, end) CUDA events of consecutive decode replays (no admit
+    between): the replays' time over the time from the first one's
+    start to the last one's end, summed over the stretches of at least
+    two replays. The gaps are the card waiting for the host. The same
+    reading for either engine."""
+    busy = span = 0.0
+    for reps in stretches:
+        if len(reps) > 1:
+            busy += sum(a.elapsed_time(b) for a, b in reps)
+            span += reps[0][0].elapsed_time(reps[-1][1])
+    return busy / span if span else None
+
+
+def busy_share(log):
+    """stretch_busy over the decode programs' replays (chunks, verify
+    windows) of a _KindTimed log, by stretch."""
+    by = {}
+    for kind, st, start, end, _ in log:
+        if kind in ("chunk", "verify"):
+            by.setdefault(st, []).append((start, end))
+    return stretch_busy(by.values())
+
+
+def engine_pass(sess, prompts, tag, log, stretch, base, seeds, waves):
+    """One pass of ``prompts`` (CB_NEW tokens each, request ids base + i,
+    the ``waves``) through ``sess``: each staged step must return with
+    its replay still running. Returns the pass's streams, requests,
+    wall, tokens, steps, engine counts and the card's busy share over its
+    decode stretches (``log``'s replays of the pass)."""
+    from paddle_tpu_torch.inference import serving
+
+    reqs = [serving.Request(base + i, p, CB_NEW,
+                            **({"seed": i} if seeds else {}))
+            for i, p in enumerate(prompts)]
+    waiting, steps, staged = list(reqs), 0, [0, 0]
+    ov0 = (sess._ov.steps, sess._ov.overlapped, sess._ov.mispredicts)
+    n_log, n_prof = len(log), len(sess._stepprof.recent())
+    tokens0 = sess.stats["tokens_out"]
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    while True:
+        for at, count in waves:
+            if steps == at:
+                for r in waiting[:count]:
+                    sess.submit(r)
+                waiting = waiting[count:] if count is not None else []
+        admits = sess.stats["admit_steps"]
+        more, from_plan, running = staged_returns(
+            sess, sess.step, lambda: log[-1][3])
+        staged[0] += from_plan
+        staged[1] += running
+        if not more and not waiting:
+            break
+        if sess.stats["admit_steps"] > admits:
+            stretch[0] += 1
+        steps += 1
+    out = sess.run()
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    sess._pool.assert_quiescent()
+    check(staged[1] == staged[0],
+          f"{tag}: {staged[0] - staged[1]} of {staged[0]} staged steps "
+          f"returned with their replay already finished on the card")
+    ov = [n - n0 for n, n0 in zip((sess._ov.steps, sess._ov.overlapped,
+                                   sess._ov.mispredicts), ov0)]
+    tokens = sess.stats["tokens_out"] - tokens0
+    prof = sess._stepprof.recent()[n_prof:]
+    return dict(out=out, reqs=reqs, wall_s=wall, tokens=tokens, steps=steps,
+                ov_steps=ov[0], overlapped=ov[1], mispredicts=ov[2],
+                staged_running_at_return=staged[1],
+                ms_per_generated_token=1e3 * wall / max(1, tokens),
+                card_busy=busy_share(log[n_log:]),
+                engine_overlap_fraction=ov[1] / ov[0] if ov[0] else 0.0,
+                host_ms_hidden=1e-3 * sum(r["plan_ahead_us"] for r in prof),
+                host_us_median=float(np.median([r["host_us"] for r in prof]))
+                if prof else None)
+
+
+def engine_drive(model, prompts, tag, kernel, other, per_forward,
+                 seeds=False, waves=((0, 8), (3, None)), passes=2, **kw):
+    """Serve ``prompts`` (``engine_pass``) through one cb_session built
+    with ``kw`` (the engine, speculation, logprobs, sampling): a cold
+    pass (its captures inside) and, prefix cache flushed, a warm one
+    whose timings are the run's readings (``passes=1``: the cold pass
+    alone). Every program replay is timed (CUDA events); the overlapped
+    engine's post-dispatch part runs under sync-debug "error".
+    ``kernel``'s launches over the passes are counted from 0 and read
+    from the graphs: each captured program's graph (every kind and
+    width: chunk, admit, raw-logits admit, verify) holds per_forward of
+    its nodes (the chunk CB_CHUNK x per_forward) and none of
+    ``other``'s, the wrapper recorded exactly those nodes in the
+    captures and launched outside them once per capture's warm-up; the
+    run's launches are those, plus each replay times the nodes read
+    from its program's graph. Returns the passes' records, the
+    launches, the nodes, the stats and the step profiler's summary."""
+    for k in (kernel, other):
+        k.reset_counts()
+    sess = cb_session(model, **kw)
+    log, stretch, captured = [], [0], []
+
+    def wrap(prog, name):
+        if prog.graph is not None and not isinstance(prog.graph, _KindTimed):
+            prog.graph = _KindTimed(prog.graph, name.split()[0], log,
+                                    stretch)
+            captured.append((name, prog.graph))
+        return prog
+    for name, prog in sess._programs().items():
+        wrap(prog, name)
+    build = sess._build_program
+    sess._build_program = lambda body, kind, **span: wrap(
+        build(body, kind, **span),
+        " ".join([kind, *(str(v) for v in span.values())]))
+    guarded = sync_guard(sess)
+    cold = engine_pass(sess, prompts, f"{tag} cold", log, stretch, 0,
+                       seeds, waves)
+    warm = None
+    if passes > 1:
+        sess.flush_prefix_cache()
+        warm = engine_pass(sess, prompts, f"{tag} warm", log, stretch, 1000,
+                           seeds, waves)
+    check(kernel.plain_calls == 0, f"{tag}: plain norm ran")
+    check(other.launches == other.recorded == other.plain_calls == 0,
+          f"{tag}: the other norm ran")
+    staged = cold["overlapped"] + (warm["overlapped"] if warm else 0)
+    check(not sess._overlap or guarded["_commit_and_stage"] == staged,
+          f"{tag}: {guarded} post-dispatch calls under sync-debug mode "
+          f"for {staged} staged steps")
+    frag = kernel.symbol.replace("ptt_", "") + "_kernel"
+    ofrag = other.symbol.replace("ptt_", "") + "_kernel"
+    nodes = {}
+    for i, (name, timed) in enumerate(captured):
+        dump = dumped_kernel_nodes(timed.graph, f"{tag} {name} {i}")
+        got = sum(frag in n for n, _ in dump)
+        bad = sum(ofrag in n for n, _ in dump)
+        want = (CB_CHUNK if timed.kind == "chunk" else 1) * per_forward
+        check(got == want and bad == 0,
+              f"{tag}: the {name} graph holds {got} {frag} and {bad} "
+              f"{ofrag} launches, want {want} and 0")
+        nodes[id(timed)] = got
+    in_graphs = sum(nodes.values())
+    check(kernel.recorded == in_graphs,
+          f"{tag}: {kernel.recorded} wrapper calls recorded in the "
+          f"captures for {in_graphs} graph nodes")
+    check(kernel.launches == in_graphs,
+          f"{tag}: {kernel.launches} launches outside the graphs for the "
+          f"captures' warm-ups ({in_graphs})")
+    replays = {}
+    for kind, *_ in log:
+        replays[kind] = replays.get(kind, 0) + 1
+    launches = kernel.launches + sum(nodes[id(t)] for *_, t in log)
+    res = dict(cold=cold, warm=warm or cold, overlap=sess._overlap,
+               stats=sess.stats, replays=replays, launches=launches,
+               graph_nodes={name: nodes[id(t)] for name, t in captured},
+               sync_guarded=dict(guarded),
+               profiler=sess._stepprof.summary())
+    del sess
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _streams_equal(a, b):
+    return set(a) == set(b) and all(np.array_equal(a[r], b[r]) for r in a)
+
+
+def _serve_overlap(family, kernel, other):
+    """[serve_overlap]: what [serve_cb_*] (the overlapped engine on the
+    chat traffic) does not cover. The sequential engine on [serve_cb_*]'s
+    traffic, one cold pass as [serve_cb_*]'s run is: its streams are
+    [serve_cb_*]'s, byte for byte, and its readings stand beside that
+    run's. For GPT the same traffic with the n-gram proposer (verify
+    windows, k = SPEC_K) on both engines (Llama-2-7B's random streams
+    accept none of its drafts, [serve_spec]); 4 periodic prompts at once
+    with it on both engines (the traffic whose windows may stage); and 4
+    sampled requests with pinned seeds through the device sampler and
+    logprobs=True. Each two-engine or two-sampler run serves its traffic
+    twice (engine_drive: cold, then warm): streams byte-equal in both
+    passes, the warm pass's ms per generated token, busy share and
+    overlap fraction the readings. Timing the two engines against each
+    other is tools/engine_ab.py's."""
+    from paddle_tpu_torch.inference.speculative import SpeculativeConfig
+
+    tag = f"serve_overlap_{family}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = serving_model(family)
+    pf = 2 * model.cfg.num_layers + 1
+    vocab = model.cfg.vocab_size
+    prompts = cb_prompts(vocab)
+    rs = np.random.RandomState(41)
+    periodic = [np.tile(rs.randint(1, vocab, n), 200)[:2 * CB_BLOCK + 3 * n]
+                for n in (5, 7, 4, 6)]
+    spec = dict(speculative=SpeculativeConfig(num_draft_tokens=SPEC_K))
+    waves = ((0, 8), (3, None))
+    runs = {}
+
+    # the chat traffic's decode chunks: the sequential engine against
+    # [serve_cb_*]'s overlapped run
+    base_tag = f"serve_cb_{family}"
+    base, ovl = PHASE_STREAMS[base_tag], PHASE_ENGINE[base_tag]
+    seq = runs["decode sequential"] = engine_drive(
+        model, prompts, f"{tag} decode sequential", kernel, other, pf,
+        waves=waves, passes=1, overlap=False)
+    check(not seq["overlap"] and len(base) == len(prompts)
+          and _streams_equal(seq["cold"]["out"], base),
+          f"{tag}: the sequential engine's decode streams differ from "
+          f"[{base_tag}]'s")
+
+    cases = [("ngram", prompts, spec, waves),
+             ("ngram periodic", periodic, spec, ((0, None),))]
+    if family == "llama":
+        del cases[0]
+    for case, ps, extra, wv in cases:
+        for engine in ("sequential", "overlapped"):
+            runs[f"{case} {engine}"] = engine_drive(
+                model, ps, f"{tag} {case} {engine}", kernel, other, pf,
+                waves=wv, overlap=engine == "overlapped", **extra)
+        seq, ovl_run = runs[f"{case} sequential"], runs[f"{case} overlapped"]
+        for p in ("cold", "warm"):
+            check(_streams_equal(seq[p]["out"], ovl_run[p]["out"])
+                  and len(seq[p]["out"]) == len(ps),
+                  f"{tag}: {case} streams of the two engines differ ({p})")
+        check(seq["stats"] == ovl_run["stats"],
+              f"{tag}: {case} stats differ: {seq['stats']} "
+              f"{ovl_run['stats']}")
+        check(not seq["overlap"] and ovl_run["overlap"],
+              f"{tag}: {case}: the engines were not as asked")
+    samp = dict(prefill_chunk=CB_BLOCK, **CB_SAMPLED)
+    for name, extra in (("device sampler", {}), ("logprobs", dict(
+            logprobs=True))):
+        runs[name] = engine_drive(model, prompts[:4], f"{tag} {name}",
+                                  kernel, other, pf, seeds=True,
+                                  waves=((0, None),), **samp, **extra)
+    dev, lp = runs["device sampler"], runs["logprobs"]
+    lps = []
+    for p in ("cold", "warm"):
+        check(_streams_equal(dev[p]["out"], lp[p]["out"]),
+              f"{tag}: logprobs streams {lp[p]['out']} differ from the "
+              f"device sampler's {dev[p]['out']} ({p})")
+        for r in lp[p]["reqs"]:
+            check(len(r.token_logprobs) == len(r.tokens),
+                  f"{tag}: request {r.req_id}: {len(r.token_logprobs)} log "
+                  f"p for {len(r.tokens)} tokens")
+            lps += r.token_logprobs
+    lps = np.asarray(lps)
+    check(np.isfinite(lps).all() and (lps <= 0).all(),
+          f"{tag}: logprobs not finite and <= 0: {lps}")
+    res = {}
+    for k, r in runs.items():
+        res[k] = dict(
+            {p: {f: v for f, v in r[p].items() if f not in ("out", "reqs")}
+             for p in ("cold", "warm")},
+            stats=r["stats"], replays=r["replays"], launches=r["launches"],
+            graph_nodes=r["graph_nodes"],
+            overlap=r["overlap"], sync_guarded=r["sync_guarded"],
+            profiler_overlap_fraction=r["profiler"]["overlap_fraction"])
+    res.update(streams_equal_serve_cb=len(base),
+               serve_cb_overlapped=ovl,
+               logprob_min=float(lps.min()),
+               logprob_median=float(np.median(lps)),
+               launches={k: r["launches"] for k, r in runs.items()})
+
+    def busy(x):
+        return "not measured" if x is None else f"{100 * x:.2f}%"
+    c = runs["decode sequential"]["cold"]
+    print(f"[{tag}] decode, sequential engine, one cold pass of "
+          f"[{base_tag}]'s traffic: {c['tokens']} tokens in {c['steps']} "
+          f"steps, {c['ms_per_generated_token']:.3f} ms per generated "
+          f"token ({c['wall_s']:.3f} s), card busy over decode stretches "
+          f"{busy(c['card_busy'])}, engine_overlap_fraction 0; "
+          f"[{base_tag}]'s overlapped run of the same traffic: "
+          f"{ovl['ms_per_generated_token']:.3f} ms per generated token, "
+          f"busy {busy(ovl['card_busy_decode_stretches'])}, "
+          f"engine_overlap_fraction {ovl['engine_overlap_fraction']:.3f} "
+          f"({ovl['overlapped']} staged of {ovl['steps']} steps, "
+          f"{ovl['mispredicts']} mispredicts); all {len(base)} streams "
+          f"byte-equal; {kernel.symbol} "
+          f"{runs['decode sequential']['launches']} launches, 0 plain")
+    for k, r in runs.items():
+        if k == "decode sequential":
+            continue
+        c, w = r["cold"], r["warm"]
+        host = ("none" if w["host_us_median"] is None
+                else f"{w['host_us_median']:.0f}")
+        print(f"[{tag}] {k} (overlapped engine {r['overlap']}): warm pass "
+              f"{w['tokens']} tokens in {w['steps']} steps, "
+              f"{w['ms_per_generated_token']:.3f} ms per generated token "
+              f"({w['wall_s']:.3f} s), card busy over decode stretches "
+              f"{busy(w['card_busy'])}, engine_overlap_fraction "
+              f"{w['engine_overlap_fraction']:.3f} ({w['overlapped']} "
+              f"staged of {w['ov_steps']} steps, {w['mispredicts']} "
+              f"mispredicts), host ms hidden {w['host_ms_hidden']:.2f}, "
+              f"median host us a step {host}; cold pass "
+              f"{c['ms_per_generated_token']:.3f} ms per generated token, "
+              f"{c['overlapped']} staged, {c['mispredicts']} mispredicts; "
+              f"every staged step still running on the card at return; "
+              f"{kernel.symbol} {r['launches']} launches, 0 plain")
+    nodes = sorted({f"{n} {v}" for r in runs.values()
+                    for n, v in r["graph_nodes"].items()})
+    print(f"[{tag}] {kernel.symbol} nodes read from every captured graph "
+          f"(kind, width, nodes): {', '.join(nodes)}; the wrapper recorded "
+          f"those nodes in the captures and launched outside them once per "
+          f"capture; none of {other.symbol}")
+    print(f"[{tag}] {', '.join(c[0] for c in cases)}: the two engines' "
+          f"streams (both passes) and stats byte-equal; "
+          f"logprobs=True streams the device sampler's bytes (4 sampled "
+          f"requests, pinned seeds, both passes): "
+          f"{lp['warm']['ms_per_generated_token']:.3f} ms per generated "
+          f"token beside the decode chunk's "
+          f"{dev['warm']['ms_per_generated_token']:.3f}; log p finite, "
+          f"min {res['logprob_min']:.3f}, median "
+          f"{res['logprob_median']:.3f}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_overlap_llama():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_overlap("llama", fused_ops.RMS_NORM_KERNEL,
+                          norm.LAYER_NORM_KERNEL)
+
+
+def phase_serve_overlap_gpt():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_overlap("gpt", norm.LAYER_NORM_KERNEL,
+                          fused_ops.RMS_NORM_KERNEL)
 
 
 # [serve_cb_sched]: the scheduler's overload paths on Llama-2-7B
@@ -4150,6 +4706,7 @@ def phase_generate_default_gpt():
 
 
 PHASE_STREAMS = {}      # phase -> {req_id: tokens}, for later comparisons
+PHASE_ENGINE = {}       # [serve_cb_*] -> its overlapped engine's readings
 
 
 def main():
@@ -4166,11 +4723,13 @@ def main():
                       ("generate_default_llama",
                        phase_generate_default_llama),
                       ("serve_cb_llama", phase_serve_cb_llama),
+                      ("serve_overlap_llama", phase_serve_overlap_llama),
                       ("serve_spec_llama", phase_serve_spec_llama),
                       ("serve_cb_sched", phase_serve_cb_sched),
                       ("gpt", phase_gpt),
                       ("generate_default_gpt", phase_generate_default_gpt),
                       ("serve_cb_gpt", phase_serve_cb_gpt),
+                      ("serve_overlap_gpt", phase_serve_overlap_gpt),
                       ("serve_spec_gpt", phase_serve_spec_gpt),
                       ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
@@ -4218,7 +4777,9 @@ def main():
           "llama2_7b spec ngram serving":
               rec["serve_spec_llama"]["ngram"]["launches"],
           "llama2_7b spec tinyllama-draft serving":
-              rec["serve_spec_llama"]["draft"]["launches"]},
+              rec["serve_spec_llama"]["draft"]["launches"],
+          **{f"llama2_7b cb {k} serving": n for k, n in
+             rec["serve_overlap_llama"]["launches"].items()}},
          kern["rms_norm"], kern["rms_norm"]["shapes"][0]),
         ("rms_norm_train", "paddle_tpu_torch/csrc/rms_norm.cu",
          "paddle_tpu/incubate/nn/functional/fused_ops.py:29",
@@ -4239,7 +4800,9 @@ def main():
           "gpt3_1p3b spec ngram serving":
               rec["serve_spec_gpt"]["ngram"]["launches"],
           "gpt3_1p3b spec self-draft serving":
-              rec["serve_spec_gpt"]["draft"]["launches"]},
+              rec["serve_spec_gpt"]["draft"]["launches"],
+          **{f"gpt3_1p3b cb {k} serving": n for k, n in
+             rec["serve_overlap_gpt"]["launches"].items()}},
          kern["layer_norm"], kern["layer_norm"]["shapes"][0]),
         ("layer_norm_train", "paddle_tpu_torch/csrc/layer_norm.cu",
          "paddle_tpu/nn/functional/norm.py:42",

@@ -30,6 +30,10 @@ PADDLE_ENV_KNOBS = frozenset({
     # most the cap's tokens
     "PADDLE_SPEC_DEVICE_ACCEPT", "PADDLE_SPEC_TENANT_STATS",
     "PADDLE_SPEC_TENANT_CAP_TOKENS",
+    # the continuous session's engine (inference/serving.py): 0 runs the
+    # sequential engine instead of the overlapped one; 0 stops the
+    # overlapped engine staging speculative windows
+    "PADDLE_ENGINE_OVERLAP", "PADDLE_SPEC_STAGE_AHEAD",
 })
 
 _flags: Dict[str, Any] = {

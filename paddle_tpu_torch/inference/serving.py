@@ -46,9 +46,24 @@ PADDLE_SPEC_DEVICE_ACCEPT=0); GenerationSession replaces its decode loop
 with the host loop of propose, verify (its programs graphs too, over
 pools it keeps), accept and rollback.
 
+ContinuousBatchingSession runs the reference's default engine, the
+overlapped one (``overlap=None``: on unless PADDLE_ENGINE_OVERLAP=0): a
+pure-decode chunk or a verify window is left in flight when ``step()``
+returns, and the next step harvests it, validates the plan it staged
+against the predicted post-dispatch state, replays the next program from
+that plan and only then does the harvested step's bookkeeping, so the
+host's collect loops, metric commits and the next stage run while the
+card computes (speculative windows stage with an n-gram proposer,
+PADDLE_SPEC_STAGE_AHEAD). A mispredict drops the plan and replans; the
+dispatches, and so the streams, are the sequential engine's.
+``logprobs=True`` runs the sequential engine over raw-logits admits
+(one CUDA graph a width): the device sampler's selection runs eagerly
+after each replay from the session's generator, and each token's log
+probability comes from the fp32 logits read back (``Request.token_logprobs``).
+
 Not ported (NotImplementedError, ROADMAP queue A item 6): LoRA,
-quantized weights and pools, the hierarchical KV tier, host-side
-logprobs and the overlapped engine (with speculation or without).
+quantized weights and pools, and the hierarchical KV tier (with
+speculation or without).
 """
 from __future__ import annotations
 
@@ -65,7 +80,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..analysis.sanitizers import race_handoff, race_track
+from ..analysis.sanitizers import race_exempt, race_handoff, race_track
 from ..core.flags import env_int, env_on
 from ..incubate.nn.functional.paged_kv import (PagedCache,
                                                alloc_block_tables,
@@ -85,22 +100,16 @@ UNPORTED = "is not ported to paddle_tpu_torch (ROADMAP queue A item 6)"
 
 
 def _reject_unported(speculative=None, lora=None, quantize_weights=None,
-                     kv_dtype=None, kv_tier=None, logprobs=False,
-                     overlap=None):
+                     kv_dtype=None, kv_tier=None):
     """Raise NotImplementedError naming every serving feature asked for
     that the port lacks (with speculation on, "with speculative" names
     the combination). ``False``/"none" for the quantization knobs and
-    ``kv_tier``, ``overlap=None``/``False`` (the sequential engine) and
-    ``logprobs=False`` mean off, as in the JAX package."""
+    ``kv_tier`` mean off, as in the JAX package."""
     asked = ["lora"] if lora is not None else []
     asked += [name for name, v in (("quantize_weights", quantize_weights),
                                    ("kv_dtype", kv_dtype),
                                    ("kv_tier", kv_tier))
               if v not in (None, False, "", "none")]
-    if logprobs:
-        asked.append("logprobs=True")
-    if overlap:
-        asked.append("overlap=True")
     if asked:
         spec = " with speculative" if speculative is not None else ""
         raise NotImplementedError(f"{', '.join(asked)}{spec} {UNPORTED}")
@@ -894,6 +903,33 @@ def weight_addresses(weight_dicts):
             if t is not None]
 
 
+def _token_logprobs(lv, toks) -> np.ndarray:
+    """log p of ``toks`` [...] under the fp32 logits ``lv`` [..., V] on
+    the host: the raw log-softmax at the chosen token, max-shifted in
+    fp32 as the JAX package's ``_host_select`` computes it (no
+    temperature, no top-k/p)."""
+    m = lv.max(axis=-1)
+    logz = m + np.log(np.exp(lv - m[..., None]).sum(axis=-1))
+    return (np.take_along_axis(lv, np.asarray(toks, np.int64)[..., None],
+                               -1)[..., 0] - logz)
+
+
+@race_track
+class _OverlapState:
+    """Double-buffer state of the overlapped engine: the inflight
+    (dispatched, not yet harvested) decode chunk or verify window, the
+    staged next-step plan, and the step / overlapped / mispredict
+    counters the flight recorder and the step profiler read.
+    Engine-thread single-writer (declared at the module's end)."""
+
+    def __init__(self):
+        self.inflight = None    # {"kind", ...}: the dispatch's record
+        self.staged = None      # {"kind", "slot_version", ...}
+        self.steps = 0          # productive step() calls
+        self.overlapped = 0     # steps dispatched straight from a staged plan
+        self.mispredicts = 0    # staged plans invalidated before dispatch
+
+
 class _GraphProgram:
     """One of a session's serving programs (the decode chunk, or the
     admit at one token-buffer width): ``body()`` runs it over the
@@ -1067,7 +1103,7 @@ class _Slot:
 @race_track
 class ContinuousBatchingSession:
     """Mixed prefill+decode serving over persistent slots (the JAX
-    package's ContinuousBatchingSession, sequential engine).
+    package's ContinuousBatchingSession).
 
     Finished sequences' slots accept new prompts while the others keep
     decoding, over a static slot grid and two programs:
@@ -1094,6 +1130,13 @@ class ContinuousBatchingSession:
     with the config's seed) and rolls the lengths back on the card; two
     int32 vectors are read back. PADDLE_SPEC_DEVICE_ACCEPT=0 accepts on
     the host instead (the same decisions).
+
+    ``overlap`` (None: on unless PADDLE_ENGINE_OVERLAP=0) picks the
+    overlapped engine (``step``); ``logprobs=True`` forces the
+    sequential one, runs raw-logits admits (the decode chunk is not
+    built: each decode step is ``chunk`` width-1 admits) and host accept
+    under speculation, and records each emitted token's log probability
+    in ``Request.token_logprobs``.
 
     The KV pools are written in place; the host keeps the request queue
     (the Scheduler), the slot table, the block table mirror and the
@@ -1124,7 +1167,7 @@ class ContinuousBatchingSession:
         from .speculative import resolve_speculative
 
         _reject_unported(speculative, lora, quantize_weights, kv_dtype,
-                         kv_tier, logprobs, overlap)
+                         kv_tier)
         adapter = get_model_adapter(model)
         self.model = model
         self.slots = slots
@@ -1135,6 +1178,13 @@ class ContinuousBatchingSession:
         self._temperature = float(temperature)
         self._top_k = int(top_k)
         self._top_p = float(top_p)
+        # logprobs=True: the raw fp32 logits of every admit cross to the
+        # host for log p, so the [S] token read becomes an [S, V] one and
+        # the overlapped engine is off
+        self._logprobs = bool(logprobs)
+        if overlap is None:
+            overlap = env_on("PADDLE_ENGINE_OVERLAP", True)
+        self._overlap = bool(overlap) and not self._logprobs
         if max_prompt_len > adapter.max_seq_len:
             raise ValueError("max_prompt_len exceeds the model's "
                              f"max_seq_len {adapter.max_seq_len}")
@@ -1186,6 +1236,11 @@ class ContinuousBatchingSession:
         self._tok_dev = zeros(slots)        # last token per slot
         self._live_dev = zeros(slots, dtype=torch.bool)
         self._toks_dev = zeros(self.chunk, slots)    # the chunk's output
+        # logprobs=True: the raw admit's last-position logits
+        self._raw_lv = (zeros(slots, model.cfg.vocab_size,
+                              dtype=torch.float32)
+                        if self._logprobs else None)
+        self._live_up = None    # the live mask last uploaded to _live_dev
         # host mirror of the tables; entries past a slot's owned blocks
         # hold the out-of-pool sentinel so padded prefill writes DROP
         # instead of landing in another slot's blocks
@@ -1202,9 +1257,10 @@ class ContinuousBatchingSession:
         # driving step() directly cannot leak host memory
         self._completed = []
         self._completed_cap = 65536
-        # bumped whenever a slot binds or frees
+        # bumped whenever a slot binds or frees: a plan staged against
+        # predicted state is stale the moment it moved
         self._slot_version = 0
-        self._steps = 0
+        self._ov = _OverlapState()
         self.replica_name = os.environ.get("PADDLE_REPLICA_NAME") or None
         self.serving_role = None
         # host-side block registry: ref counts, chained prefix hashes,
@@ -1287,9 +1343,18 @@ class ContinuousBatchingSession:
         # splits its spec key once a dispatch)
         self._spec_gen = torch.Generator(device=dev)
         self._spec_gen.manual_seed(int(spec.seed))
-        self._spec_accept = ("device" if env_on("PADDLE_SPEC_DEVICE_ACCEPT",
-                                                True) else "host")
-        self._spec_stage = False      # the overlapped engine's staging
+        # logprobs reads every window position's logits back, so it
+        # accepts on the host
+        self._spec_accept = ("host" if self._logprobs or not env_on(
+            "PADDLE_SPEC_DEVICE_ACCEPT", True) else "device")
+        # the overlapped engine stages window N+1 from the predicted
+        # post-window history while the card verifies window N: device
+        # accept only, and only for proposers whose drafts are a pure
+        # function of the history (``stage_ahead``)
+        self._spec_stage = (
+            self._overlap and self._spec_accept == "device"
+            and getattr(self._proposer, "stage_ahead", False)
+            and env_on("PADDLE_SPEC_STAGE_AHEAD", True))
         self._spec_by_adapter = {}
         self._verify_ladder = VerifyLadder(
             self._run_model, rows=self.slots,
@@ -1298,7 +1363,8 @@ class ContinuousBatchingSession:
                            self._seq_lens),
             build=lambda body, w: self._build_program(body, "verify",
                                                       width=w),
-            greedy=not self._do_sample, accept=self._spec_accept,
+            greedy=not self._do_sample and not self._logprobs,
+            accept=self._spec_accept,
             sampling={"do_sample": self._do_sample,
                       "temperature": self._temperature,
                       "top_k": self._top_k, "top_p": self._top_p},
@@ -1315,11 +1381,15 @@ class ContinuousBatchingSession:
         card, eager on the CPU). A card capture is a ``compile.<kind>``
         trace span, and the JAX package's ProgramCache gauges count the
         captured programs."""
+        if self._ov.inflight is not None:
+            raise RuntimeError(
+                f"capturing a {kind} program while a replay is in flight")
         t0 = time.monotonic()
         what = f"the {kind} program" + "".join(
             f" of {k} {v}" for k, v in span.items())
         gen = (self._spec_gen if kind == "verify"
-               else self._gen if self._do_sample else None)
+               else self._gen if self._do_sample and not self._logprobs
+               else None)
         prog = _GraphProgram(body, self._device, self._null_inputs,
                              self._weight_addresses(), gen,
                              self._graph_pool, what)
@@ -1358,15 +1428,19 @@ class ContinuousBatchingSession:
 
     def _build_chunk_program(self):
         """(Re)build the decode chunk (none with speculation: decode is
-        one verify window a step); the admit and verify programs,
-        captured against the same weights, go with it and are captured
-        again at their next use (max_prompt_len's too)."""
+        one verify window a step; none with logprobs: decode is width-1
+        raw admits); the admit and verify programs, captured against the
+        same weights, go with it and are captured again at their next
+        use (max_prompt_len's too). Never with a replay in flight."""
+        if self._ov.inflight is not None:
+            raise RuntimeError("re-capturing the programs while a replay "
+                               "is in flight")
         self._chunk_prog = None         # retired graphs go first
         self._admit_progs.clear()
         if self._verify_ladder is not None:
             self._verify_ladder.clear()
         self._prog_weights = self._weight_addresses()
-        if self._spec is None:
+        if self._spec is None and not self._logprobs:
             self._chunk_prog = self._build_program(self._chunk_body,
                                                    "chunk")
         self._record_program_gauges()
@@ -1407,7 +1481,8 @@ class ContinuousBatchingSession:
         counts, reset flags, prefix-hit boundaries); writes the pools in
         place, the cached lengths and the selected tokens [S] (the next
         chunk's starting tokens: mid-prefill and dead rows carry junk
-        there). No host read anywhere (capturable)."""
+        there), or with logprobs the raw fp32 logits [S, V] and no
+        selection. No host read anywhere (capturable)."""
         with torch.inference_mode():
             lens = self._admit_lens
             new_lens, reset, hit_lens = lens[0], lens[1] > 0, lens[2]
@@ -1420,7 +1495,10 @@ class ContinuousBatchingSession:
                 seq_lens, seq_lens, new_lens,
                 torch.clamp(new_lens - 1, min=0))
             self._seq_lens.copy_(seq_lens)
-            self._tok_dev.copy_(self._select(lv, new_lens > 0))
+            if self._logprobs:
+                self._raw_lv.copy_(lv)
+            else:
+                self._tok_dev.copy_(self._select(lv, new_lens > 0))
 
     def _admit_prepare(self, toks, lens, cow):
         """Everything of one mixed admit dispatch but the program: the
@@ -1447,7 +1525,20 @@ class ContinuousBatchingSession:
         width's program). Returns the selected tokens [S] on the
         device."""
         self._admit_prepare(toks, lens, cow)()
+        if self._logprobs:
+            return self._raw_select()
         return self._tok_dev
+
+    def _raw_select(self):
+        """logprobs=True: the token selection of the last raw admit, run
+        eagerly on the card over its logits with the device sampler's
+        ops (``_select``: live rows are those the admit fed), drawing
+        from the session's generator one [S, V] draw a token, in the
+        order and shape of the admit and chunk graphs' draws, so
+        pinned-seed streams equal the device sampler's at any
+        ``chunk``. Returns the tokens [S] on the device."""
+        with torch.inference_mode():
+            return self._select(self._raw_lv, self._admit_lens[0] > 0)
 
     def _chunk_body(self):
         """``chunk`` decode steps over the static buffers: reads the last
@@ -1483,6 +1574,7 @@ class ContinuousBatchingSession:
             tok = self._tok_dev.clone()
             gen_states = [g.get_state() for g in gens]
             self._live_dev.fill_(False)
+            self._live_up = None
             self._admit_lens.zero_()
             if self._verify_ladder is not None:
                 self._verify_ladder.new_lens.zero_()
@@ -1498,9 +1590,10 @@ class ContinuousBatchingSession:
 
     # -- telemetry providers -----------------------------------------------
     def _register_overlap_provider(self):
-        """Engine state for flight-recorder dumps (weakref'd). The port
-        runs the sequential engine only: nothing is ever staged or in
-        flight between steps."""
+        """The overlapped engine's state for flight-recorder dumps
+        (weakref'd): whether a step was dispatched from a staged plan,
+        what is in flight, and what the engine believed the next step
+        looked like."""
         from ..observability.flight_recorder import register_state_provider
 
         ref = weakref.ref(self)
@@ -1509,11 +1602,19 @@ class ContinuousBatchingSession:
             sess = ref()
             if sess is None:
                 return None
-            return {"overlap": False, "inflight_kind": None,
-                    "staged_plan": None,
+            ov = sess._ov
+            st, inf = ov.staged, ov.inflight
+            return {"overlap": bool(sess._overlap),
+                    "inflight_kind": None if inf is None else inf["kind"],
+                    "staged_plan": None if st is None else {
+                        "kind": st["kind"],
+                        "live_slots": list(st.get("live",
+                                                  st.get("rows", ()))),
+                        "slot_version": int(st["slot_version"])},
                     "slot_version": int(sess._slot_version),
-                    "steps_total": int(sess._steps),
-                    "steps_overlapped": 0, "mispredicts": 0}
+                    "steps_total": int(ov.steps),
+                    "steps_overlapped": int(ov.overlapped),
+                    "mispredicts": int(ov.mispredicts)}
 
         register_state_provider(f"engine_staged_plan_{id(self):x}",
                                 _provide)
@@ -1658,8 +1759,10 @@ class ContinuousBatchingSession:
         the pool and it later re-admits through the prefix cache and a
         re-prefill of its committed history, byte-identical for greedy
         streams. Returns the preempted req_id or None. Chaos/testing
-        API; must be called between steps (the sequential engine has
-        nothing in flight between them)."""
+        API; must be called between steps. The overlapped engine's
+        deferred chunk or window is committed first (the victim keeps
+        the tokens it earned) and its staged plan dropped."""
+        self._drain_inflight()
         return self._sched.force_preempt(req_id)
 
     def _preempt_slot(self, i):
@@ -1964,43 +2067,240 @@ class ContinuousBatchingSession:
 
     def step(self):
         """One scheduling step. The scheduler first applies pending
-        cancellations, then plans this step's prefill work: new
-        admissions into free slots. Any prefill work runs as ONE mixed
-        admit dispatch with every decode-ready slot riding along for one
-        token; with no prefill work, the live slots run a pure-decode
-        chunk. Returns False when no work remains."""
+        cancellations and deadline expirations, then plans this step's
+        prefill work: continuation chunks of mid-prefill slots and new
+        admissions. Any prefill work runs as ONE mixed admit dispatch
+        with every decode-ready slot riding along for one token; with no
+        prefill work, the live slots run a pure-decode chunk (or one
+        speculative window). Returns False when no work remains.
+
+        Overlapped engine (``overlap``, the default): a pure-decode
+        chunk or a verify window is left in flight (its harvest and
+        bookkeeping deferred to the next call), and the next step's plan
+        is staged against the predicted post-dispatch state. The next
+        call harvests it (the loop's one wait), and when the staged plan
+        survives validation (no submission, cancellation, eos, deadline
+        or slot change touched it; a window also landed exactly on its
+        prediction) it replays the next program straight from that plan,
+        BEFORE the harvested step's bookkeeping, so the host's collect
+        loops, metric commits and the next stage run while the card
+        computes. A mispredict drops the plan, commits the harvested step
+        and replans: the dispatches, and so the streams, are the
+        sequential engine's; the overlapped engine spends one more
+        ``step()`` a decode run (the last harvest)."""
         sched = self._sched
-        now = time.monotonic()
-        sched.begin_step(now)
-        if not sched.waiting \
-                and not any(s.req is not None for s in self._slots):
-            return False
+        ov = self._ov
+        if self._overlap:
+            inflight = ov.inflight
+            staged, ov.staged = ov.staged, None
+        else:
+            inflight = staged = None
+        if inflight is None and staged is None:
+            # sequential entry (the whole story with overlap off)
+            sched.begin_step(time.monotonic())
+            if not sched.waiting \
+                    and not any(s.req is not None for s in self._slots):
+                return False
+            obs = _obs_enabled()
+            t0 = time.monotonic() if obs else 0.0
+            # step attribution span (None when the step_profile flag is
+            # off): plan runs until mark_dispatch, the harvest sync sits
+            # between mark_harvest/mark_harvested, end() attributes the
+            # rest to the host bubble (overlapped: to plan-ahead)
+            sp = self._stepprof.begin()
+            sched._in_step = True
+            try:
+                if self._overlap:
+                    ov.steps += 1
+                return self._plan_and_dispatch(obs, t0, sp)
+            finally:
+                sched._in_step = False
         obs = _obs_enabled()
         t0 = time.monotonic() if obs else 0.0
-        # step attribution span (None when the step_profile flag is
-        # off): plan runs until mark_dispatch, the harvest sync sits
-        # between mark_harvest/mark_harvested, end() attributes the
-        # rest to the host bubble
         sp = self._stepprof.begin()
         sched._in_step = True
-        self._steps += 1
         try:
-            work = sched.plan_step(time.monotonic())
-            if work:
-                self._run_prefill(work, obs, t0, sp)
+            ov.steps += 1
+            harvested = (None, None, None)      # (toks, acc, bound)
+            spec_if = inflight is not None and inflight["kind"] == "spec"
+            if inflight is not None:
+                if sp:
+                    sp.mark_harvest()
+                harvested = self._harvest_inflight(inflight)
+                if sp:
+                    sp.mark_harvested()
+            toks_np, acc_np, bound_np = harvested
+            if staged is not None:
+                if staged["kind"] == "spec":
+                    held = spec_if and self._staged_spec_valid(
+                        staged, acc_np, bound_np)
+                else:
+                    held = self._staged_valid(staged) and (
+                        toks_np is None
+                        or not self._eos_hit(toks_np, inflight["live"]))
+                if held:
+                    # the plan held: dispatch step N+1 before step N's
+                    # bookkeeping. begin_step is skipped soundly: the
+                    # validation proved it a no-op (nothing waiting, no
+                    # cancellation pending, no deadline among the live)
+                    if staged["kind"] == "spec":
+                        nf = self._dispatch_spec_staged(staged, obs, t0,
+                                                        sp)
+                    else:
+                        nf = self._dispatch_decode(obs, t0, sp)
+                    if sp:
+                        sp.mark_plan_ahead()
+                        sp.overlapped = True
+                    ov.overlapped += 1
+                    self._commit_and_stage(inflight, harvested, nf,
+                                           staged["kind"], obs, sp)
+                    return True
+                # mispredict: reality diverged from the staged plan
+                # (submit, cancel, eos, deadline, preemption, or a
+                # window's boundary short of the prediction): drop it
+                # and replan from the reconciled state
+                ov.mispredicts += 1
+                if sp:
+                    sp.mispredict = True
+            n = 0
+            if inflight is not None:
+                n = self._bookkeeping(inflight, harvested, obs)
+            sched.begin_step(time.monotonic())
+            if not sched.waiting \
+                    and not any(s.req is not None for s in self._slots):
+                # the deferred harvest WAS this call's work; the next
+                # call sees the drained state and returns False
+                if sp:
+                    self._stepprof.end(sp, tokens=n, live=0)
                 return True
-            if not any(s.req is not None for s in self._slots):
-                # queue non-empty but nothing admitted and no live work:
-                # impossible by construction (zero live slots frees
-                # every block, and submit() bounds each request to the
-                # pool). Guard instead of spinning.
-                raise RuntimeError(
-                    "no admissible request and no live slot")
-            if self._spec is not None:
-                return self._spec_step(obs, t0, sp)
-            return self._decode_step(obs, t0, sp)
+            return self._plan_and_dispatch(obs, t0, sp)
         finally:
             sched._in_step = False
+
+    def _plan_and_dispatch(self, obs, t0, sp):
+        """The sequential (non-staged) step body: the full scheduler
+        plan, then one admit, spec or decode dispatch (and, overlapped,
+        the next step's stage)."""
+        sched = self._sched
+        work = sched.plan_step(time.monotonic())
+        if work:
+            self._run_prefill(work, obs, t0, sp)
+            self._stage_next()
+            return True
+        if not any(s.req is not None for s in self._slots):
+            # queue non-empty but nothing admitted and no live work:
+            # impossible by construction (zero live slots frees every
+            # block, and submit() bounds each request to the pool).
+            # Guard instead of spinning.
+            raise RuntimeError("no admissible request and no live slot")
+        if self._spec is not None:
+            return self._spec_step(obs, t0, sp)
+        r = self._decode_step(obs, t0, sp)
+        self._stage_next()
+        return r
+
+    # -- the overlapped engine ---------------------------------------------
+    def _harvest_inflight(self, inflight):
+        """Read a deferred dispatch's outputs back (the loop's one wait):
+        (tokens [chunk, S], None, None) of a decode chunk, or (None,
+        accepted counts [S], boundary tokens [S]) of a verify window.
+        The static buffers they come from are reused by the next
+        replay, which is why the harvest precedes every dispatch; from
+        here on nothing is in flight until that dispatch."""
+        if inflight["kind"] == "spec":
+            acc_np, bound_np = _harvest_sync(self._verify_ladder.result)
+            out = (None, acc_np, bound_np)
+        else:
+            out = (_harvest_sync(inflight["toks"]), None, None)
+        self._ov.inflight = None
+        return out
+
+    def _bookkeeping(self, inflight, harvested, obs) -> int:
+        """Commit one harvested decode chunk or verify window."""
+        toks_np, acc_np, bound_np = harvested
+        if inflight["kind"] == "spec":
+            return self._spec_bookkeeping(inflight, acc_np, bound_np, obs)
+        return self._decode_bookkeeping(inflight, toks_np, obs)
+
+    def _commit_and_stage(self, inflight, harvested, nf, kind, obs, sp):
+        """What a staged step does once its replay is enqueued, while the
+        card computes it: the harvested step's bookkeeping, then the
+        stage of the step after. Host work only: nothing here reads the
+        card or waits for it."""
+        self._ov.inflight = nf
+        n = 0
+        if inflight is not None:
+            n = self._bookkeeping(inflight, harvested, obs)
+        if kind == "spec":
+            self._stage_next_spec(nf)
+        else:
+            self._stage_next()
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n,
+                live=sum(s.req is not None for s in self._slots))
+
+    def _stage_next(self):
+        """Stage the next step's plan against the PREDICTED post-chunk
+        state. Only the steady pure-decode state stages: any prefill
+        work, speculation, waiting or cancel traffic, a deadline-bearing
+        request, or a request that completes inside the inflight chunk
+        sends the next step through the full scheduler plan instead."""
+        ov = self._ov
+        ov.staged = None
+        if not self._overlap or self._spec is not None:
+            return
+        if not self._sched.plan_ahead_safe():
+            return
+        ahead = self.chunk if ov.inflight is not None else 0
+        live = []
+        for i, s in enumerate(self._slots):
+            r = s.req
+            if r is None:
+                continue
+            if s.pending is not None:
+                return          # mid-prefill: the next step must admit
+            if r.deadline_s is not None:
+                return          # expiry is checked every step
+            if len(r.tokens) + ahead >= r.max_new_tokens:
+                return          # completes inside the inflight chunk
+            live.append(i)
+        if not live:
+            return
+        ov.staged = {"kind": "decode", "slot_version": self._slot_version,
+                     "live": tuple(live)}
+
+    def _staged_valid(self, staged) -> bool:
+        """Is a staged decode plan still exactly right? Nothing submitted
+        (waiting empty), no cancellation pending, no slot bound or freed
+        since staging. Deadlines need no check: staging refused
+        deadline-bearing requests, and new ones arrive by submit."""
+        return (staged["slot_version"] == self._slot_version
+                and self._sched.plan_ahead_safe())
+
+    def _eos_hit(self, toks_np, live) -> bool:
+        """Did a live row emit eos inside the harvested chunk? Its slot
+        frees during the bookkeeping, so the staged plan is dropped (the
+        chunk itself was safe: an overshooting row writes only its own
+        private tail blocks or sentinel rows)."""
+        eos = self.eos_token_id
+        if eos is None:
+            return False
+        rows = [i for i, l in enumerate(live) if l]
+        return bool((toks_np[:, rows] == eos).any())
+
+    def _drain_inflight(self):
+        """Commit any deferred dispatch and drop the staged plan, so
+        state surgery from outside step() (preemption) sees reconciled
+        slots. A no-op with the overlapped engine off or idle."""
+        if not self._overlap:
+            return
+        ov = self._ov
+        ov.staged = None
+        inflight = ov.inflight
+        if inflight is not None:
+            self._bookkeeping(inflight, self._harvest_inflight(inflight),
+                              _obs_enabled())
 
     def _dispatch_decode(self, obs, t0, sp=None):
         """Launch one pure-decode chunk from device-resident state and
@@ -2010,10 +2310,14 @@ class ContinuousBatchingSession:
         masks their outputs to eos. The graph reads every weight by
         address: a weight replaced since it was captured
         (``param.data = ...``, ``load_state_dict(assign=True)``)
-        re-captures it first, so a replay never reads a freed one."""
+        re-captures it first, so a replay never reads a freed one. The
+        live mask and the table are uploaded only when they changed (a
+        staged plan changed neither)."""
         self._check_weights()
         live = [s.req is not None for s in self._slots]
-        self._live_dev.copy_(torch.tensor(live))
+        if live != self._live_up:
+            self._live_dev.copy_(torch.tensor(live))
+            self._live_up = live
         if self._bt_dirty:      # freed-slot rows were neutralized
             self._bt_dev.copy_(torch.from_numpy(self._bt))
             self._bt_dirty = False
@@ -2025,10 +2329,10 @@ class ContinuousBatchingSession:
         return {"kind": "decode", "toks": self._toks_dev, "live": live,
                 "t0": t0 if obs else 0.0}
 
-    def _decode_bookkeeping(self, inflight, toks_np, obs) -> int:
+    def _decode_bookkeeping(self, inflight, toks_np, obs, lps=None) -> int:
         """Commit one harvested decode chunk: trace spans, seq_len
         advances, per-token collection (eos/max_new may free slots),
-        and metrics."""
+        and metrics. ``lps`` [chunk, S]: each token's log p (logprobs)."""
         live = inflight["live"]
         t0 = inflight["t0"]
         if obs:
@@ -2045,6 +2349,8 @@ class ContinuousBatchingSession:
         for t in range(self.chunk):
             for i, s in enumerate(self._slots):
                 if s.req is not None and live[i]:
+                    if lps is not None:
+                        s.req.token_logprobs.append(float(lps[t, i]))
                     self._collect(i, s, toks_np[t, i], obs)
                     n_emitted += 1
         if obs:
@@ -2110,6 +2416,9 @@ class ContinuousBatchingSession:
         if sp:
             sp.mark_harvest()
         nxt = _harvest_sync(nxt_dev)
+        # logprobs: the raw logits the tokens were selected from
+        lps = (_token_logprobs(_harvest_sync(self._raw_lv), nxt)
+               if self._logprobs else None)
         if sp:
             sp.mark_harvested()
         # span the dispatch BEFORE _collect: a request can complete on
@@ -2140,6 +2449,8 @@ class ContinuousBatchingSession:
                 if s.draft_prompt is not None:
                     on_admit.append((i, s.draft_prompt))
                 s._clear_prefill()
+                if lps is not None:
+                    s.req.token_logprobs.append(float(lps[i]))
                 self._collect(i, s, nxt[i], obs)
                 n_stream += 1
             # else: mid-prompt logits, the selected token is discarded
@@ -2149,6 +2460,8 @@ class ContinuousBatchingSession:
             if obs and s.req is not None and s.req.trace is not None:
                 s.req.trace.add_span("decode", t0, t1, tokens=1,
                                      via="admit")
+            if lps is not None and s.req is not None:
+                s.req.token_logprobs.append(float(lps[i]))
             self._collect(i, s, nxt[i], obs)
             n_stream += 1
         if self._proposer is not None and on_admit:
@@ -2174,15 +2487,74 @@ class ContinuousBatchingSession:
                 live=sum(s.req is not None for s in self._slots))
 
     def _decode_step(self, obs, t0, sp=None):
-        """One pure-decode chunk for the live slots: dispatch, the one
-        harvest read of its [chunk, S] tokens, bookkeeping."""
+        """One pure-decode chunk for the live slots. Overlapped engine:
+        dispatch only (the harvest and the bookkeeping are deferred to
+        the next step() call); sequential: dispatch, the one harvest read
+        of its [chunk, S] tokens, bookkeeping."""
+        if self._logprobs:
+            return self._decode_step_hostsample(obs, t0, sp)
         inflight = self._dispatch_decode(obs, t0, sp)
+        if self._overlap:
+            self._ov.inflight = inflight
+            if sp:
+                self._stepprof.end(
+                    sp, tokens=0,
+                    live=sum(s.req is not None for s in self._slots))
+            return True
         if sp:
             sp.mark_harvest()
-        toks_np = _harvest_sync(inflight["toks"])   # [chunk, S]
+        toks_np, _, _ = self._harvest_inflight(inflight)    # [chunk, S]
         if sp:
             sp.mark_harvested()
         n_emitted = self._decode_bookkeeping(inflight, toks_np, obs)
+        if sp:
+            self._stepprof.end(
+                sp, tokens=n_emitted,
+                live=sum(s.req is not None for s in self._slots))
+        return True
+
+    def _decode_step_hostsample(self, obs, t0, sp=None):
+        """Decode with logprobs: every live slot advances ``chunk``
+        tokens a step through ``chunk`` replays of the width-1 raw admit,
+        each followed by the device sampler's selection over its logits
+        (``_raw_select``; the next replay reads the selected tokens on
+        the card), then one read of the tokens and the [chunk, S, V]
+        logits, whose log-softmax at each emitted token is its log p.
+        Rows that emit eos mid-chunk go on to the chunk's end, as in the
+        decode chunk; their tail tokens are never emitted."""
+        S = self.slots
+        live = np.array([s.req is not None for s in self._slots])
+        toks = np.zeros((S, 1), np.int32)
+        for i, s in enumerate(self._slots):
+            if s.req is not None:
+                toks[i, 0] = s.last_tok
+        lens = np.zeros((3, S), np.int32)
+        lens[0] = live
+        if self._bt_dirty:      # freed-slot rows were neutralized
+            self._bt_dev.copy_(torch.from_numpy(self._bt))
+            self._bt_dirty = False
+        prog = self._admit_prepare(toks, lens, [])
+        if sp:
+            sp.mark_dispatch()
+        feed = self._admit_toks[1]
+        out_toks, out_lv = [], []
+        with torch.inference_mode():
+            for _ in range(self.chunk):
+                prog()
+                nxt = self._raw_select()
+                feed[:, 0].copy_(nxt)
+                out_toks.append(nxt)
+                out_lv.append(self._raw_lv.clone())
+            out_toks, out_lv = torch.stack(out_toks), torch.stack(out_lv)
+        if sp:
+            sp.mark_harvest()
+        nxt = _harvest_sync(out_toks)                       # [chunk, S]
+        lps = _token_logprobs(_harvest_sync(out_lv), nxt)
+        if sp:
+            sp.mark_harvested()
+        self._chunk_steps += 1
+        n_emitted = self._decode_bookkeeping(
+            {"live": list(live), "t0": t0 if obs else 0.0}, nxt, obs, lps)
         if sp:
             self._stepprof.end(
                 sp, tokens=n_emitted,
@@ -2271,9 +2643,14 @@ class ContinuousBatchingSession:
                 "new_lens": new_lens, "old_lens": old_lens, "width": w,
                 "t0": t0, "t_verify0": t_verify0}
 
-    def _spec_bookkeeping(self, inflight, acc_np, bound_np, obs) -> int:
+    def _spec_bookkeeping(self, inflight, acc_np, bound_np, obs,
+                          lv=None) -> int:
         """Commit one window from its two int32 vectors: each row's
-        emitted tokens are drafts[:n_accepted] + [boundary]."""
+        emitted tokens are drafts[:n_accepted] + [boundary]. ``lv`` (the
+        logprobs path's host accept) is the window's [S, w, V] logits:
+        each emitted token's log p comes from its own window position
+        (a draft's from its accept position, the boundary's from its
+        resample or bonus position)."""
         t0 = inflight["t0"]
         t_verify0 = inflight["t_verify0"]
         w = inflight["width"]
@@ -2312,6 +2689,9 @@ class ContinuousBatchingSession:
                     self._spec_accepted += 1      # enter the stream
                     req.spec_accepted_tokens += 1
                     row_acc += 1
+                if lv is not None:
+                    req.token_logprobs.append(float(
+                        _token_logprobs(lv[i, j], t)))
                 self._collect(i, s, int(t), obs)
                 n_emitted += 1
             realized_acc += row_acc
@@ -2354,6 +2734,107 @@ class ContinuousBatchingSession:
                                           old_lens, proposals, rows, obs,
                                           t0, t_verify0, sp)
 
+    def _stage_next_spec(self, inflight):
+        """Stage window N+1 while window N verifies on the card, assuming
+        FULL acceptance of N and a predicted boundary token (the
+        proposer's own one-token guess). The staged window is the one
+        the sequential path would build if the prediction lands: the
+        guess extends the history the next propose() would see, the caps
+        use the post-window token counts, the committed lengths advance
+        by the whole window; drafting of a ``stage_ahead`` proposer is a
+        pure function of the history, so a validated staged dispatch is
+        the sequential replan's (the same drafts, width and draw).
+        Validation demands acc == m-1 and bound == the guess per row;
+        anything short of that is a mispredict.
+
+        Refusals mirror decode staging (scheduler traffic, mid-prefill,
+        deadline-bearing requests, a request that would complete inside
+        window N) plus an eos among N's drafts or the guess, or no
+        guess."""
+        ov = self._ov
+        ov.staged = None
+        if not self._spec_stage:
+            return
+        if not self._sched.plan_ahead_safe("spec"):
+            return
+        k = self._spec.num_draft_tokens
+        eos = self.eos_token_id
+        new_lens = inflight["new_lens"]
+        old_lens = np.asarray(inflight["old_lens"]).copy()
+        proposals, last, rows, expect = {}, {}, [], []
+        for i, s in enumerate(self._slots):
+            r = s.req
+            if r is None:
+                continue
+            if s.pending is not None or r.deadline_s is not None:
+                return
+            if i not in inflight["proposals"]:
+                return
+            m = int(new_lens[i])
+            drafts = np.asarray(inflight["proposals"][i], np.int64)
+            if len(r.tokens) + m >= r.max_new_tokens:
+                return          # completes inside window N
+            if eos is not None and (drafts == eos).any():
+                return          # would free during N's bookkeeping
+            ph = np.concatenate(
+                [r.prompt, np.asarray(r.tokens, np.int64), drafts])
+            b = self._proposer.predict(i, ph, 1)
+            if not len(b):
+                return          # no boundary guess, nothing to stage
+            bhat = int(b[0])
+            if eos is not None and bhat == eos:
+                return
+            cap_i = max(0, min(k, r.max_new_tokens
+                               - (len(r.tokens) + m) - 1))
+            nd = self._proposer.predict(
+                i, np.append(ph, np.int64(bhat)), cap_i)
+            proposals[i] = np.asarray(nd, np.int64)
+            last[i] = bhat
+            old_lens[i] = int(inflight["old_lens"][i]) + m
+            rows.append(i)
+            expect.append((i, m, bhat))
+        if not rows:
+            return
+        ov.staged = {"kind": "spec", "slot_version": self._slot_version,
+                     "rows": tuple(rows), "proposals": proposals,
+                     "last": last, "old_lens": old_lens,
+                     "expect": tuple(expect)}
+
+    def _staged_spec_valid(self, staged, acc_np, bound_np) -> bool:
+        """Did window N land EXACTLY on the staged prediction? Version
+        fencing and scheduler quiescence as for decode, plus full
+        acceptance and the predicted boundary token on every row."""
+        if staged["slot_version"] != self._slot_version \
+                or not self._sched.plan_ahead_safe("spec"):
+            return False
+        return all(int(acc_np[i]) == m - 1 and int(bound_np[i]) == bhat
+                   for i, m, bhat in staged["expect"])
+
+    def _dispatch_spec_staged(self, staged, obs, t0, sp=None):
+        """Build the validated staged window and dispatch it before the
+        harvested window's bookkeeping: each row's first token is the
+        validated boundary, the committed lengths the fully accepted ones
+        the card already holds, the drafts those proposed at staging
+        time (the proposal ran behind the previous window)."""
+        self._check_weights()         # before the width's program is got
+        S = self.slots
+        proposals = staged["proposals"]
+        need = 1 + max((len(proposals[i]) for i in staged["rows"]),
+                       default=0)
+        prog, w = self._verify_ladder.get(need)
+        toks = np.zeros((S, w), np.int32)
+        new_lens = np.zeros((S,), np.int32)
+        props = {}
+        for i in staged["rows"]:
+            d = np.asarray(proposals[i], np.int64)[:w - 1]
+            props[i] = d
+            toks[i, 0] = staged["last"][i]
+            toks[i, 1:1 + len(d)] = d
+            new_lens[i] = 1 + len(d)
+        return self._dispatch_spec_window(
+            prog, w, toks, new_lens, staged["old_lens"], props,
+            staged["rows"], obs, t0, time.monotonic() if obs else 0.0, sp)
+
     def _spec_step(self, obs, t0, sp=None):
         """One speculative decode step for every live slot: propose up to
         k draft tokens a slot (the host n-gram lookup or the draft
@@ -2364,13 +2845,23 @@ class ContinuousBatchingSession:
         Rejected drafts roll the slot's cached length back to its
         accepted boundary on the card: their KV stays in the slot's
         private tail blocks (audited before the dispatch), invisible to
-        reads and overwritten from the boundary up by the next window."""
+        reads and overwritten from the boundary up by the next window.
+        Overlapped engine: the window is left in flight and the next
+        window staged from the predicted post-window history."""
         if self._spec_accept != "device":
             return self._spec_step_host(obs, t0, sp)
         inflight = self._spec_window(obs, t0, sp)
+        if self._overlap:
+            self._ov.inflight = inflight
+            self._stage_next_spec(inflight)
+            if sp:
+                self._stepprof.end(
+                    sp, tokens=0,
+                    live=sum(s.req is not None for s in self._slots))
+            return True
         if sp:
             sp.mark_harvest()
-        acc_np, bound_np = _harvest_sync(self._verify_ladder.result)
+        _, acc_np, bound_np = self._harvest_inflight(inflight)
         if sp:
             sp.mark_harvested()
         n = self._spec_bookkeeping(inflight, acc_np, bound_np, obs)
@@ -2381,12 +2872,14 @@ class ContinuousBatchingSession:
         return True
 
     def _spec_step_host(self, obs, t0, sp=None):
-        """Host-accept spec step (PADDLE_SPEC_DEVICE_ACCEPT=0): greedy
-        reads the argmax chain back and accepts with the numpy
-        ``greedy_accept``; sampled runs ``fold_host``, the same fold as
-        the device program, over the window's logits and uniforms, so
-        the decisions and boundary draws are the device path's. The
-        lengths are rolled back from the host."""
+        """Host-accept spec step (the logprobs path, and
+        PADDLE_SPEC_DEVICE_ACCEPT=0): greedy reads the argmax chain back
+        and accepts with the numpy ``greedy_accept``; sampled, or with
+        logprobs, runs ``fold_host``, the device program's fold, over
+        the window's logits and uniforms, so the decisions and boundary
+        draws are the device path's; logprobs also reads the [S, w, V]
+        logits back for each emitted token's log p. The lengths are
+        rolled back from the host."""
         from ..incubate.nn.functional.paged_kv import rollback_seq_lens
         from .speculative import greedy_accept
 
@@ -2396,6 +2889,7 @@ class ContinuousBatchingSession:
         new_lens, old_lens = inflight["new_lens"], inflight["old_lens"]
         if sp:
             sp.mark_harvest()
+        lv_np = None
         if ladder.greedy:
             chain = _harvest_sync(ladder.out[w])      # [S, w] int32
             acc_np = np.zeros((self.slots,), np.int32)
@@ -2411,9 +2905,12 @@ class ContinuousBatchingSession:
                     ladder.out[w], ladder.toks[w], ladder.new_lens,
                     ladder.u))
             acc_np, bound_np = _harvest_sync(folded)
+            if self._logprobs:
+                lv_np = _harvest_sync(ladder.out[w])  # [S, w, V] fp32
         if sp:
             sp.mark_harvested()
-        n = self._spec_bookkeeping(inflight, acc_np, bound_np, obs)
+        n = self._spec_bookkeeping(inflight, acc_np, bound_np, obs,
+                                   lv=lv_np)
         # the host program advanced no length: the accepted boundary per
         # row, the committed length elsewhere
         accepted = old_lens + new_lens
@@ -2444,3 +2941,17 @@ class ContinuousBatchingSession:
 race_handoff("ContinuousBatchingSession.*",
              "session-init on the caller thread, then engine-thread "
              "single-writer (one thread drives step()/run())")
+# the staged plan and the deferred harvest never leave step() and
+# _drain_inflight(), both on the thread that owns the session; the
+# flight recorder's dump thread only reads the counters, which a health
+# handler may also read lock-free: a torn read costs one stale sample,
+# never a token
+race_handoff("_OverlapState.*",
+             "engine-thread single-writer: staged plans and deferred "
+             "harvests never escape step()/_drain_inflight(); the "
+             "flight-recorder dump thread only reads counters")
+for _ctr in ("steps", "overlapped", "mispredicts"):
+    race_exempt(f"_OverlapState.{_ctr}",
+                "GIL-atomic int read by monitoring (flight recorder, "
+                "health); the engine thread is the only writer")
+del _ctr

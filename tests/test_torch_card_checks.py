@@ -57,10 +57,14 @@ session's generator registered with it (one chunk replayed equals the
 same chunk run eagerly from the same generator state; sampled streams
 equal with the prefix cache on and off); a session built while dead
 sessions await the garbage collector still captures its graph; 40
-sampled sessions in a row all capture theirs (the count of failures is
-printed); weights replaced mid-decode with nothing queued re-capture
-the graph, which then serves the CPU session's streams with the same
-replacement. The training recipe's options (``recipe`` tests): 2-layer
+sampled sessions in a row all capture theirs and serve on the
+overlapped engine (the count of failures is printed); weights replaced
+mid-decode with nothing queued re-capture the graph, which then serves
+the CPU session's streams with the same replacement, under both engines
+(the overlapped one with the chunk before the swap in flight); the two
+engines stream the same sampled bytes (decode and n-gram verify
+windows); logprobs=True streams the device sampler's bytes at chunk 1
+and 4. The training recipe's options (``recipe`` tests): 2-layer
 bf16 models at GPT-3 1.3B's and TinyLlama-1.1B's widths give the same
 loss and gradient bytes with and without recompute (through K4/K5, K4
 run twice a layer with it); stochastic rounding on the card is
@@ -775,24 +779,28 @@ def test_cb_card_weight_rebound_mid_decode_equals_cpu(family):
     between two decode chunks, with nothing queued, and the freed
     memory refilled with NaN: the card session re-captures its decode
     graph before the next replay and serves the CPU session's streams
-    under the same replacement, which differ from the unreplaced ones."""
+    under the same replacement, which differ from the unreplaced ones.
+    Under both engines: with the overlapped one the chunk before the
+    swap is still in flight (its replay reads the old weights, which the
+    allocator hands to the NaN fill only after it on the stream), and
+    the re-capture waits for its harvest."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the decode graph has no CPU mode")
     from paddle_tpu_torch.inference.serving import (
         ContinuousBatchingSession, Request)
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cpu, card = _cb_pair(family)
     reqs = _cb_requests()[:2]            # two slots: nothing stays queued
-    plain, _ = _cb_serve(cpu)
 
-    def serve(model):
+    def serve(model, overlap):
         sess = ContinuousBatchingSession(model, slots=2, max_prompt_len=32,
-                                         kv_block_size=8, chunk=4)
+                                         kv_block_size=8, chunk=4,
+                                         overlap=overlap)
         for rid, p, n in reqs:
             sess.submit(Request(rid, p, n))
         assert sess.step() and sess.step()        # the admit, one chunk
         assert not sess._queue
+        assert (sess._ov.inflight is not None) == overlap  # in flight
         before = sess._chunk_prog
         with torch.no_grad():
             for prm in model.parameters():
@@ -804,25 +812,31 @@ def test_cb_card_weight_rebound_mid_decode_equals_cpu(family):
         del junk
         return out, before, sess
 
-    want, _, _ = serve(cpu)
-    got, before, sess = serve(card)
-    assert sess._chunk_prog is not before
-    assert sess._chunk_prog.graph is not None
-    for rid in want:
-        assert list(got[rid]) == list(want[rid]), rid
-    assert any(list(want[rid]) != list(plain[rid]) for rid in want)
+    for overlap in (False, True):
+        cpu, card = _cb_pair(family)
+        plain, _ = _cb_serve(cpu)
+        want, _, _ = serve(cpu, overlap)
+        got, before, sess = serve(card, overlap)
+        assert sess._chunk_prog is not before
+        assert sess._chunk_prog.graph is not None
+        for rid in want:
+            assert list(got[rid]) == list(want[rid]), (overlap, rid)
+        assert any(list(want[rid]) != list(plain[rid]) for rid in want)
 
 
 @pytest.mark.card
 def test_cb_card_sampled_capture_rate():
     """40 sampled sessions built in a row (both families, dead sessions
     left to the garbage collector between them) all capture their
-    decode graph. A sampled capture once failed on the card with
+    decode graph, and each serves two requests on the overlapped engine
+    (the admit widths they use captured mid-serving, never with a replay
+    in flight). A sampled capture once failed on the card with
     cudaErrorStreamCaptureInvalidated, cause not found; this prints
     the failure count of the loop."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the decode graph has no CPU mode")
-    from paddle_tpu_torch.inference.serving import ContinuousBatchingSession
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
 
     models = [_cb_pair(f)[1] for f in ("gpt", "llama")]
     failures = []
@@ -831,11 +845,94 @@ def test_cb_card_sampled_capture_rate():
             sess = ContinuousBatchingSession(
                 models[i % 2], slots=2, max_prompt_len=32, kv_block_size=8,
                 chunk=4, do_sample=True, temperature=0.9, top_k=30)
-            assert sess._chunk_prog.graph is not None
+            assert sess._chunk_prog.graph is not None and sess._overlap
+            for rid, p, n in _cb_requests()[i % 3:i % 3 + 2]:
+                sess.submit(Request(rid, p, 6, seed=i))
+            sess.run()
+            assert sess._ov.overlapped > 0
         except Exception as e:            # counted, then reported
             failures.append((i, repr(e)))
     print(f"sampled captures: {len(failures)} of 40 failed {failures}")
     assert not failures, failures
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "ngram"])
+def test_cb_card_engines_sampled_byte_equal(spec):
+    """Pinned-seed sampled streams of the overlapped and the sequential
+    engine are byte-equal on the card (decode chunks, and n-gram verify
+    windows with device accept), and so are greedy n-gram streams over
+    periodic prompts; the overlapped engine launches staged programs
+    (sampled chunks; greedy windows, and sampled windows at temperature
+    0.1, whose samples follow the period so that windows fully accept
+    and stage; at 0.5 they leave it and nothing stages)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decode graph has no CPU mode")
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+    from paddle_tpu_torch.inference.speculative import SpeculativeConfig
+
+    _, card = _cb_pair("gpt")
+    rs = np.random.RandomState(3)
+    prompts = [np.tile(rs.randint(1, 1000, n), 4)[:24] for n in (5, 7, 4, 6)]
+    sampled = dict(do_sample=True, temperature=0.5, top_k=30)
+    cool = dict(do_sample=True, temperature=0.1)
+    for samp in ([sampled, cool, {}] if spec else [sampled]):
+        out, sessions = {}, {}
+        for overlap in (False, True):
+            sess = ContinuousBatchingSession(
+                card, slots=2, max_prompt_len=32, kv_block_size=8, chunk=4,
+                overlap=overlap, **samp,
+                speculative=SpeculativeConfig(num_draft_tokens=3, seed=5)
+                if spec else None)
+            for i, p in enumerate(prompts):
+                sess.submit(Request(i, p, 16, seed=i))
+            out[overlap], sessions[overlap] = sess.run(), sess
+        for rid in out[False]:
+            assert list(out[True][rid]) == list(out[False][rid]), (samp, rid)
+        assert sessions[True].stats == sessions[False].stats
+        if not (spec and samp is sampled):
+            assert sessions[True]._ov.overlapped > 0, samp
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_cb_card_logprobs_equal_device_sampler(chunk):
+    """logprobs=True on the card (raw-logits admit graphs, the device
+    sampler's selection run eagerly after each replay from the session's
+    registered generator) streams the device-sampled session's bytes
+    under pinned seeds at chunk 1 and 4, both families, with a finite
+    log p <= 0 per token."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the admit graphs have no CPU mode")
+    import numpy as np
+
+    from paddle_tpu_torch.inference.serving import (
+        ContinuousBatchingSession, Request)
+
+    for family in ("gpt", "llama"):
+        _, card = _cb_pair(family)
+        out, reqs = {}, {}
+        for logprobs in (False, True):
+            sess = ContinuousBatchingSession(
+                card, slots=2, max_prompt_len=32, kv_block_size=8,
+                chunk=chunk, do_sample=True, temperature=0.8, top_k=40,
+                logprobs=logprobs)
+            reqs[logprobs] = [Request(rid, p, n, seed=rid)
+                              for rid, p, n in _cb_requests()]
+            for r in reqs[logprobs]:
+                sess.submit(r)
+            out[logprobs] = sess.run()
+            assert (sess._chunk_prog is None) == logprobs
+        for rid in out[False]:
+            assert list(out[True][rid]) == list(out[False][rid]), \
+                (family, rid)
+        for r in reqs[True]:
+            lps = np.asarray(r.token_logprobs)
+            assert len(lps) == len(r.tokens) and np.isfinite(lps).all()
+            assert (lps <= 0).all()
 
 
 # ---------------------------------------------------------------------------

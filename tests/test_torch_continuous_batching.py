@@ -58,13 +58,16 @@ def make_cb_pair(family="gpt", seed=9, **cfg):
 
 
 def session(model, **kw):
-    """A ContinuousBatchingSession of the package the model belongs to.
-    The JAX session runs its sequential engine (overlap=False), the one
-    the port has; the reference holds its overlapped engine to the same
-    dispatches and streams."""
+    """A ContinuousBatchingSession of the package the model belongs to,
+    on the sequential engine (overlap=False) in both packages unless the
+    caller says otherwise: the step counts these tests compare are the
+    sequential engine's (the overlapped engine, both packages' default,
+    spends one more step() a decode run; test_torch_engine_overlap.py
+    and test_torch_spec_overlap.py hold the default engines)."""
+    kw.setdefault("overlap", False)
     if isinstance(model, torch.nn.Module):
         return tserving.ContinuousBatchingSession(model, **kw)
-    return jserving.ContinuousBatchingSession(model, overlap=False, **kw)
+    return jserving.ContinuousBatchingSession(model, **kw)
 
 
 def serve(model, requests, sess_kw):
@@ -280,12 +283,16 @@ def test_cb_manual_steps_then_run_returns_all_completed(family):
 
 # the ids are the ones these cases had when the list also held the
 # options since ported (prefill_chunk, kv_pool_bytes, preempt,
-# priority, deadline_s)
+# priority, deadline_s); logprobs and overlap are ported now and their
+# cases serve through the option
+PORTED = ("logprobs", "overlap")
+
+
 @pytest.mark.parametrize("kwargs,name", [
     # speculation itself is ported: beside an unported option it raises,
     # naming the option "with speculative"
-    pytest.param({"speculative": {"num_draft_tokens": 2}, "overlap": True},
-                 "speculative", id="kwargs0-speculative"),
+    pytest.param({"speculative": {"num_draft_tokens": 2}, "kv_tier": True},
+                 "kv_tier", id="kwargs0-speculative"),
     pytest.param({"lora": object()}, "lora", id="kwargs2-lora"),
     pytest.param({"quantize_weights": "int8"}, "quantize_weights",
                  id="kwargs3-quantize_weights"),
@@ -296,9 +303,30 @@ def test_cb_manual_steps_then_run_returns_all_completed(family):
 ])
 def test_unported_options_raise(kwargs, name):
     """Every option outside the slice raises NotImplementedError naming
-    itself (and ROADMAP queue A item 6): none is quietly ignored."""
+    itself (and ROADMAP queue A item 6): none is quietly ignored. The
+    options ported since (``PORTED``) serve a request instead: the
+    stream of the session without them, with a finite log p <= 0 per
+    token under logprobs=True, and steps of the overlapped engine under
+    overlap=True."""
     _, tm = make_cb_pair("gpt", seed=3)
     kw = dict(slots=1, max_prompt_len=8, kv_block_size=16, chunk=2)
+    if name in PORTED:
+        prompt = np.arange(3, 9)
+        out = {}
+        for opts in ({}, kwargs):
+            sess = tserving.ContinuousBatchingSession(
+                tm, **dict(dict(overlap=False), **opts), **kw)
+            req = tserving.Request(0, prompt, 5)
+            sess.submit(req)
+            out[bool(opts)] = sess.run()[0]
+        np.testing.assert_array_equal(out[True], out[False])
+        if name == "logprobs":
+            lps = np.asarray(req.token_logprobs)
+            assert len(lps) == 5 and np.isfinite(lps).all()
+            assert (lps <= 0).all() and not sess._overlap
+        else:
+            assert sess._overlap and sess._ov.overlapped > 0
+        return
     with pytest.raises(NotImplementedError, match=name) as e:
         tserving.ContinuousBatchingSession(tm, **kwargs, **kw)
     assert "queue A item 6" in str(e.value)

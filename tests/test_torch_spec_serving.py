@@ -172,7 +172,9 @@ def test_cb_self_draft_accepts_every_draft_and_stays_synced(pairs):
     """Shadows test_speculative.py:215 (self-draft) and :287: the target
     as its own draft accepts every draft, and over staggered admissions
     the draft engine's cached length equals the slot's committed length
-    after every window, the streams those of spec off."""
+    after every window's bookkeeping (the default, overlapped engine
+    commits a window in the step after its dispatch), the streams those
+    of spec off."""
     _, tm = pairs["gpt"]
     rs = np.random.RandomState(3)
     prompts = [rs.randint(1, 500, (n,)).astype(np.int64) for n in (8, 6)]
@@ -192,18 +194,19 @@ def test_cb_self_draft_accepts_every_draft_and_stays_synced(pairs):
                                               **SESS_KW)
     for rid, p, n in reqs:
         sess.submit(tserving.Request(rid, p, n))
-    engine, synced = sess._proposer._engine, 0
-    while True:
-        steps = sess.stats["spec_steps"]
-        if not sess.step():
-            break
-        if sess.stats["spec_steps"] > steps:
-            for i, s in enumerate(sess._slots):
-                if s.req is not None:
-                    assert int(engine.seq[i]) == s.seq_len, (i, synced)
-                    synced += 1
-    assert synced > 0 and engine.decode_steps > 0
+    engine, synced, commit = sess._proposer._engine, [], \
+        sess._spec_bookkeeping
+
+    def checked(*a, **kw):
+        n = commit(*a, **kw)
+        for i, s in enumerate(sess._slots):
+            if s.req is not None:
+                assert int(engine.seq[i]) == s.seq_len, (i, len(synced))
+                synced.append(i)
+        return n
+    sess._spec_bookkeeping = checked
     got = sess.run()
+    assert synced and engine.decode_steps > 0
     off, _ = serve(tm, reqs, SESS_KW)
     assert_streams(got, off, "spec off")
     st = sess.stats
@@ -468,8 +471,34 @@ def test_draft_engine_ingests_externally_committed_tokens(pairs):
     ({"lora": object()}, "lora")])
 def test_spec_with_an_unported_option_raises(pairs, kwargs, name):
     """Speculation beside an option the port lacks raises, naming the
-    option and the combination."""
+    option and the combination. Beside the options ported since
+    (overlap, logprobs) it serves: the streams of the sequential
+    device-accept session, the overlapped engine staging windows, and
+    logprobs accepting on the host with a log p per token."""
     _, tm = pairs["gpt"]
+    if name in ("overlap", "logprobs"):
+        prompts = rep_prompts((8, 9, 7, 10), seed=2)
+        out, sessions = {}, {}
+        for opts in ({"overlap": False}, kwargs):
+            sess = tserving.ContinuousBatchingSession(
+                tm, speculative={"num_draft_tokens": 3},
+                **dict(SESS_KW, **opts))
+            reqs = [tserving.Request(i, p, 10) for i, p in enumerate(prompts)]
+            for r in reqs:
+                sess.submit(r)
+            out[bool(sessions)] = sess.run()
+            sessions[bool(sessions)] = sess
+        assert_streams(out[True], out[False], "the sequential session")
+        sess = sessions[True]
+        if name == "overlap":
+            assert sess._spec_accept == "device" and sess._ov.overlapped > 0
+        else:
+            assert sess._spec_accept == "host" and not sess._overlap
+            for r in reqs:
+                lps = np.asarray(r.token_logprobs)
+                assert len(lps) == len(r.tokens)
+                assert np.isfinite(lps).all() and (lps <= 0).all()
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{name}.* with speculative") as e:
         tserving.ContinuousBatchingSession(

@@ -11,7 +11,8 @@ parent's admits run eagerly, this tree's from CUDA graphs), phases
 `[llama]`, `[serve_cb_llama]`, `[gpt]` and `[serve_cb_gpt]` in that order.
 Each prints one line `AB <tag> {...}`: for `[llama]` / `[gpt]` the
 prefill ms, decode ms/token and tokens/s of GenerationSession; for
-`[serve_cb_*]` TTFT median and p90, decode ms/token, tokens/s, the
+`[serve_cb_*]` TTFT median and p90 (cold and warm), decode ms/token,
+ms per generated token, tokens/s, the
 chunk's card and host ms, the card's busy share and the peak GiB. The
 order is parent, change, change, parent. The trees share their kernel
 libraries (named by a hash of their sources, so a tree whose sources
@@ -29,8 +30,10 @@ sys.path.insert(0, str(HERE / "tools"))
 from train_ab import _share_libs  # noqa: E402
 
 PHASES = ("llama", "serve_cb_llama", "gpt", "serve_cb_gpt")
-KEYS = ("prefill_ms", "decode_ms_per_token", "tokens_per_s",
-        "ttft_ms_median", "ttft_ms_p90", "chunk_card_ms", "chunk_host_ms",
+KEYS = ("prefill_ms", "decode_ms_per_token", "ms_per_generated_token",
+        "tokens_per_s",
+        "ttft_ms_median", "ttft_ms_p90", "ttft_ms_warm_median",
+        "ttft_ms_warm_p90", "chunk_card_ms", "chunk_host_ms",
         "card_busy", "peak_gb", "wall_s")
 
 
