@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch + CUDA port (paddle_tpu_torch) on one NVIDIA card.
 
-Phases, in order (18, 15, 21, 20 and 19 run right after 4, and 18, 16,
-21 and 20 right after 5, on the models those build; 17 right after 12);
+Phases, in order (18, 15, 21, 20, 19 and 22 run right after 4, and 18,
+16, 21, 20 and 22 right after 5, on the models those build; 17 right
+after 12);
 any failure exits non-zero before the last line:
   1. card: name and power limit (nvidia-smi); TF32 off for fp32 checks.
   2. build: every CUDA kernel of the port, from the sources in this
@@ -206,6 +207,23 @@ any failure exits non-zero before the last line:
      profiler), and the norm kernel's launches, read from the nodes of
      every graph each session captured (tools/engine_ab.py times the
      two engines against each other).
+ 22. Quantized serving ([serve_quant_llama], [serve_quant_gpt]) with the
+     [serve_cb_*] traffic and session: int8 and int4 weights
+     (quantize_weights) over an int8 pool (kv_dtype): [serve_cb_*]'s
+     figures beside the bf16 run's, peak memory (Llama int8 at most
+     QUANT_PEAK_GB), the memz ledger's weights (raw and quant bytes) and
+     pool, the pool's blocks, and the streams equal to the bf16 run's
+     (counted, not gated); an unquantized session over an int8 pool
+     serving the dequantized image of each quantized session's payloads
+     (dequantize_weight written into the model's weights before it is
+     built) streams every request byte for byte as the quantized one; in
+     the int8 session a payload zeroed between two chunks changes the
+     chunk and restored gives it back byte for byte; the norm kernel's
+     launches read from every graph each quantized session captured (65
+     / 49 a forward, none of the other norm); for Llama-2-7B,
+     [serve_cb_sched]'s overload traffic over an int8 pool at the same
+     byte budget (35 blocks where bf16 holds 18), its preemptions and
+     expiries printed beside the bf16 run's.
 Then one JSON line of the kernels, and as the last line
 {"ok": true, "device": {...}}. Full records go to chiprun_out/chip_smoke.json.
 
@@ -313,7 +331,10 @@ def device_breakdown(fn, top=6):
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        # an op registry span ("op:<name>", ops/registry.py) is a range
+        # over kernels that have rows of their own
+        if not str(e.device_type).endswith("CUDA") or e.key.startswith(
+                "op:"):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -2973,17 +2994,25 @@ def _generators(sess):
                           else [])
 
 
+def pool_tensors(sess):
+    """Every tensor of the session's KV pools: a tensor per layer and
+    side, or two (the int8 payload and its per-token scales)."""
+    from paddle_tpu_torch.inference.serving import _pool_tensors
+
+    return _pool_tensors(sess._kcs, sess._vcs)
+
+
 def _snapshot(sess):
     """Clones of every tensor an admit, a chunk or a verify window
     writes, and the generators' states."""
-    return ([p.clone() for p in sess._kcs + sess._vcs],
+    return ([p.clone() for p in pool_tensors(sess)],
             [t.clone() for t in _small_state(sess)],
             [g.get_state() for g in _generators(sess)])
 
 
 def _restore(sess, snap):
     pools, small, gens = snap
-    for p, c in zip(sess._kcs + sess._vcs, pools):
+    for p, c in zip(pool_tensors(sess), pools):
         p.copy_(c)
     for t, c in zip(_small_state(sess), small):
         t.copy_(c)
@@ -3001,7 +3030,7 @@ def _program_vs_eager(sess, prog, tag, what):
     prog.body()
     eager_small = [t.clone() for t in _small_state(sess)]
     changed, written = [], []
-    for p, c in zip(sess._kcs + sess._vcs, snap[0]):
+    for p, c in zip(pool_tensors(sess), snap[0]):
         m = (p != c).flatten(1).any(1)
         changed.append(m)
         written.append(p[m].clone())
@@ -3012,7 +3041,7 @@ def _program_vs_eager(sess, prog, tag, what):
         _small_state(sess), eager_small)),
         f"{tag}: {what}: graph and eager tokens or lengths differ")
     n_changed = 0
-    for p, c, m, w in zip(sess._kcs + sess._vcs, snap[0], changed, written):
+    for p, c, m, w in zip(pool_tensors(sess), snap[0], changed, written):
         check(torch.equal(p[m], w) and torch.equal(p[~m], c[~m]),
               f"{tag}: {what}: graph and eager pool bytes differ")
         n_changed += int(m.sum())
@@ -3090,7 +3119,8 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
     first token selected from it (a copy the admit graphs make of the
     logits into a static buffer, cb_session's ``record``).
     ``compare_admits``: cb_compare_admits.
-    Returns a record of the run and the session."""
+    Returns a record of the run (``lv_buf``: the record buffer) and the
+    session."""
     from paddle_tpu_torch.inference import serving
 
     lv_buf = torch.empty(CB_SLOTS, model.cfg.vocab_size, device="cuda")
@@ -3185,7 +3215,7 @@ def cb_drive(model, prompts, prefix_cache, tag, before_step=None,
                 capture_ms=dict(chunk=1e3 * prog.capture_s, **{
                     str(w): 1e3 * p.capture_s
                     for w, p in sorted(sess._admit_progs.items())}),
-                admits_checked=checked, reqs=reqs,
+                admits_checked=checked, reqs=reqs, lv_buf=lv_buf,
                 first={k: v.float().cpu() for k, v in first.items()},
                 tokens=sum(len(t) for t in out.values()),
                 card_busy_decode_stretches=busy,
@@ -4068,10 +4098,8 @@ def phase_serve_spec_gpt():
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
     from paddle_tpu_torch.nn.functional import norm
 
-    res = _serve_spec("gpt", norm.LAYER_NORM_KERNEL,
-                      fused_ops.RMS_NORM_KERNEL)
-    _release_serving_model("gpt")
-    return res
+    return _serve_spec("gpt", norm.LAYER_NORM_KERNEL,
+                       fused_ops.RMS_NORM_KERNEL)
 
 
 # ---------------------------------------------------------------------------
@@ -4439,20 +4467,26 @@ SCHED_PREEMPT_STEP = 12        # preempt() before it (mid-decode)
 
 
 def phase_serve_cb_sched():
+    return sched_drive("serve_cb_sched")
+
+
+def sched_drive(tag, kv_dtype=None):
     """Llama-2-7B through the session's overload paths: the cb_prompts
     traffic with prefill_chunk=128 and a pool of half the blocks the 4
-    slots' longest requests hold (kv_pool_bytes), a request whose
-    deadline passed before its submission, a priority-5 request that
-    preempts a running one for its slot, and one forced preempt()
-    mid-decode. Every finished stream is held by cb_hold; the first
-    admit at each width graph against eager; the stats, the longest
-    prompt's chunks and the pool's quiescence checked."""
+    slots' longest requests hold (kv_pool_bytes, in bf16 blocks), a
+    request whose deadline passed before its submission, a priority-5
+    request that preempts a running one for its slot, and one forced
+    preempt() mid-decode. Every finished stream is held by cb_hold (an
+    int8 pool, ``kv_dtype``, is not: its logits are another function's);
+    the first admit at each width graph against eager; the stats, the
+    longest prompt's chunks and the pool's quiescence checked. With
+    ``kv_dtype`` the same byte budget holds the int8 geometry's blocks
+    (kv_block_bytes), every one of which must be there."""
     from paddle_tpu_torch.incubate.nn.functional import fused_ops
     from paddle_tpu_torch.incubate.nn.functional.paged_kv import (
         kv_block_bytes)
     from paddle_tpu_torch.inference import serving
 
-    tag = "serve_cb_sched"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4464,9 +4498,13 @@ def phase_serve_cb_sched():
         1, model.cfg.vocab_size, 200).astype(np.int64)
     prompts["late"] = prompts[0].copy()
     per_req = -(-(CB_PROMPT + CB_NEW) // CB_BLOCK)
-    blocks = CB_SLOTS * per_req // 2
-    budget = blocks * kv_block_bytes(ad.num_layers, ad.kv_heads, CB_BLOCK,
-                                     ad.head_dim, dtype=ad.dtype)
+    bf16_blocks = CB_SLOTS * per_req // 2
+    budget = bf16_blocks * kv_block_bytes(ad.num_layers, ad.kv_heads,
+                                          CB_BLOCK, ad.head_dim,
+                                          dtype=ad.dtype)
+    blocks = budget // kv_block_bytes(ad.num_layers, ad.kv_heads, CB_BLOCK,
+                                      ad.head_dim, dtype=ad.dtype,
+                                      kv_dtype=kv_dtype)
     reqs = [serving.Request(i, prompts[i], CB_NEW) for i in range(12)]
     late = serving.Request("late", prompts["late"], CB_NEW, deadline_s=-1.0)
     hi = serving.Request("hi", prompts["hi"], CB_NEW, priority=5)
@@ -4489,7 +4527,7 @@ def phase_serve_cb_sched():
                          reqs=[late] + reqs + [hi],
                          waves=((0, 9), (3, 4), (SCHED_HI_STEP, None)),
                          compare_admits=True, prefill_chunk=SCHED_CHUNK,
-                         kv_pool_bytes=budget)
+                         kv_pool_bytes=budget, kv_dtype=kv_dtype)
     st = run["stats"]
     check(sess._num_blocks == blocks, f"{tag}: {sess._num_blocks} blocks "
                                       f"for a budget of {blocks}")
@@ -4510,7 +4548,7 @@ def phase_serve_cb_sched():
               f"{len(r.tokens)} tokens")
     auto = [r.req_id for r in reqs if r.preemptions
             and r.req_id != seen["forced"]]    # preempted for "hi"
-    check(st["preemptions"] >= 2 and auto,
+    check(kv_dtype is not None or (st["preemptions"] >= 2 and auto),
           f"{tag}: {st['preemptions']} preemptions, automatic {auto}")
     check(st["expirations"] == 1, f"{tag}: {st['expirations']} expired")
     # its first chunk runs in the step that admits it, the others in
@@ -4522,15 +4560,17 @@ def phase_serve_cb_sched():
           f"{seen['chunks']} admits, want >= {need}")
     check(max(run["admit_widths"]) <= SCHED_CHUNK,
           f"{tag}: admit widths {sorted(set(run['admit_widths']))}")
-    held = cb_hold(model, prompts, {"sched": run}, tag)
-    check(held["requests_held"] == 13, f"{tag}: {held['requests_held']} "
-                                       f"streams held")
+    held = (cb_hold(model, prompts, {"sched": run}, tag) if kv_dtype is None
+            else None)
+    check(held is None or held["requests_held"] == 13,
+          f"{tag}: {held and held['requests_held']} streams held")
     plain = PHASE_STREAMS.get("serve_cb_llama", {})
     equal = sum(np.array_equal(run["out"][i], plain[i])
                 for i in range(12) if i in plain)
     preempted = sorted(str(r.req_id) for r in reqs + [hi] if r.preemptions)
     ttft = np.array(run["ttft_s"]) * 1e3
     res = dict(stats=st, num_blocks=blocks, kv_pool_bytes=budget,
+               kv_dtype=kv_dtype, bf16_blocks=bf16_blocks,
                launches=launches, forced=seen["forced"], automatic=auto,
                preempted=preempted, longest_prompt=len(prompts[longest]),
                longest_chunks=seen["chunks"],
@@ -4541,8 +4581,9 @@ def phase_serve_cb_sched():
                ttft_ms_p90=float(np.percentile(ttft, 90)),
                peak_gb=torch.cuda.max_memory_allocated() / 2**30)
     print(f"[{tag}] Llama-2-7B, prefill_chunk={SCHED_CHUNK}, kv_pool_bytes "
-          f"{budget} = {blocks} blocks (half of {CB_SLOTS} slots x "
-          f"{per_req}); {len(reqs) + 2} requests in {run['steps']} steps: "
+          f"{budget} = {bf16_blocks} bf16 blocks (half of {CB_SLOTS} slots x "
+          f"{per_req}) = {blocks} {kv_dtype or 'bf16'} blocks; "
+          f"{len(reqs) + 2} requests in {run['steps']} steps: "
           f"{st['admit_steps']} admits at widths {res['admit_widths']} "
           f"(each width's first admit equal graph vs eager: "
           f"{res['admits_checked']}), {st['chunk_steps']} chunks; "
@@ -4553,17 +4594,301 @@ def phase_serve_cb_sched():
           f"{len(prompts[longest])}-token prompt over {seen['chunks']} "
           f"admits (>= {need}); pool quiescent; {kernel.symbol} {launches} "
           f"launches, 0 plain")
-    print(f"[{tag}] streams: {held['tokens_held']} tokens of "
-          f"{held['requests_held']} requests held to an independent B=1 "
-          f"forward: first-token rows within {held['row_ulps_max']:.1f} "
-          f"ulps, every token within {held['margin_ulps_max']:.1f} ulps of "
-          f"its best ({held['tokens_not_argmax']} not the argmax); {equal} "
-          f"of 12 equal to [serve_cb_llama]'s unchunked, unpreempted "
-          f"streams; TTFT median {res['ttft_ms_median']:.1f} ms, p90 "
-          f"{res['ttft_ms_p90']:.1f} ms; {run['wall_s']:.2f} s; peak "
-          f"{res['peak_gb']:.2f} GiB")
-    _release_serving_model("llama")
+    print(f"[{tag}] streams: "
+          + ("not held to a bf16 forward (an int8 pool)" if held is None
+             else f"{held['tokens_held']} tokens of {held['requests_held']} "
+             f"requests held to an independent B=1 forward: first-token "
+             f"rows within {held['row_ulps_max']:.1f} ulps, every token "
+             f"within {held['margin_ulps_max']:.1f} ulps of its best "
+             f"({held['tokens_not_argmax']} not the argmax)")
+          + f"; {equal} of 12 equal to [serve_cb_llama]'s unchunked, "
+          f"unpreempted streams; TTFT median {res['ttft_ms_median']:.1f} "
+          f"ms, p90 {res['ttft_ms_p90']:.1f} ms; {run['wall_s']:.2f} s; "
+          f"peak {res['peak_gb']:.2f} GiB")
     return res
+
+
+# ---------------------------------------------------------------------------
+# [serve_quant]: quantized serving on the serving models
+# ---------------------------------------------------------------------------
+
+QUANT_MODES = (("int8", dict(quantize_weights="int8", kv_dtype="int8")),
+               ("int4", dict(quantize_weights="int4", kv_dtype="int8")))
+# the Linear whose payload the probe zeroes between two chunks
+QUANT_PROBE = {"llama": "llama.layers.0.mlp.down_proj.weight",
+               "gpt": "gpt.blocks.0.mlp.fc2.weight"}
+# the Llama int8 session's peak bound (PERF.md section 6, PR 19's sizing:
+# [serve_cb_llama]'s 23.29 GiB - 4.0 (the pool halves) + 6.04 (the int8
+# payload) + 1 (one layer's temporaries)); a whole-image dequantization
+# would sit about 12 GiB above it
+QUANT_PEAK_GB = {"llama": 26.4}
+
+
+def quant_drive(model, prompts, tag, kernel, other, per_forward, **kw):
+    """cb_drive of the [serve_cb_*] traffic through a session built with
+    ``kw`` (the quantization knobs), ``kernel``'s counts from 0 and its
+    launches read from every graph the session captured (per_forward a
+    forward, none of ``other``). Returns (run, session, readings: the
+    [serve_cb_*] figures, the memz ledger's weights and pool, the
+    pool's blocks, the launches)."""
+    from paddle_tpu_torch.observability import memz_snapshot
+
+    for k in (kernel, other):
+        k.reset_counts()
+    run, sess = cb_drive(model, prompts, True, tag, **kw)
+    outside, recorded, plain = (kernel.launches, kernel.recorded,
+                                kernel.plain_calls)
+    check(plain == 0, f"{tag}: plain norm ran {plain} times on the card")
+    check(other.launches == other.recorded == other.plain_calls == 0,
+          f"{tag}: the other norm ran")
+    launches, in_graph = cb_count_launches(tag, kernel, run, recorded,
+                                           outside, per_forward)
+    frag = other.symbol.replace("ptt_", "") + "_kernel"
+    nodes = run["graph_nodes"] + [
+        n for ns in run["admit_nodes"].values() for n in ns]
+    check(not any(frag in n for n, _ in nodes),
+          f"{tag}: {frag} in the session's graphs")
+    host = np.array(run["chunk_host_ms"])
+    card = np.array(run["chunk_card_ms"])
+    live = np.array(run["chunk_live"])
+    mz = memz_snapshot()["providers"][f"serving_session_{id(sess):x}"]
+    # where a chunk's card time goes (the dequantizations among it): the
+    # same chunk run eagerly under the profiler
+    with sess._null_inputs():
+        eager_ms, top = device_breakdown(sess._chunk_body, top=6)
+    return run, sess, dict(
+        eager_chunk_card_ms=eager_ms, eager_chunk_top_kernels=top,
+        ms_per_generated_token=float(np.median(host / (CB_CHUNK * live))),
+        wall_ms_per_generated_token=1e3 * run["wall_s"] / run["tokens"],
+        ttft_ms_median=float(np.median(run["ttft_s"])) * 1e3,
+        chunk_card_ms=float(np.median(card)),
+        chunk_host_ms=float(np.median(host)),
+        weights_bytes=mz["components"]["weights"],
+        weights=mz["detail"]["weights"],
+        kv_pool_bytes=mz["components"]["kv_pool"],
+        kv_pool=mz["detail"]["kv_pool"], num_blocks=sess._num_blocks,
+        launches=launches, graph_launches_per_chunk=in_graph,
+        admit_graph_widths=sorted(run["admit_nodes"]), stats=run["stats"],
+        wall_s=run["wall_s"])
+
+
+def quant_payload_probe(sess, name, prompt, lv_buf, tag):
+    """Between two chunks, nothing in flight: one decode chunk replayed
+    from a fixed state with ``name``'s payload as quantized, zeroed, and
+    restored. The zeroed payload must change the probe request's tokens
+    or logits (nothing serves the bf16 weights behind the payloads); the
+    restored one must give the first replay's bytes. The request then
+    finishes. Returns the readings."""
+    from paddle_tpu_torch.inference import serving
+
+    req = serving.Request("probe", prompt, 4 * CB_CHUNK)
+    sess.submit(req)
+    while not req.tokens:
+        sess.step()                  # the admit that emits its first token
+    sess._drain_inflight()
+    torch.cuda.synchronize()
+    row = [i for i, s in enumerate(sess._slots) if s.req is req]
+    check(row and sess._slots[row[0]].pending is None,
+          f"{tag}: the probe request is not decoding")
+    row = row[0]
+    live = [s.req is not None for s in sess._slots]
+    sess._live_dev.copy_(torch.tensor(live))
+    sess._live_up = None          # the next dispatch uploads its own mask
+    sess._bt_dev.copy_(torch.from_numpy(sess._bt))
+    q = sess._wq.qvals[name][0]
+    kept = q.clone()
+    snap = _snapshot(sess)
+    outs = []
+    for payload in (kept, torch.zeros_like(kept), kept):
+        _restore(sess, snap)
+        q.copy_(payload)
+        sess._chunk_prog()
+        torch.cuda.synchronize()
+        outs.append((sess._toks_dev[:, row].clone(), lv_buf[row].clone()))
+    _restore(sess, snap)
+    torch.cuda.synchronize()
+    del snap
+    toks_changed = not torch.equal(outs[1][0], outs[0][0])
+    lv_diff = (outs[1][1] - outs[0][1]).abs().max().item()
+    check(toks_changed or lv_diff > 0,
+          f"{tag}: zeroing {name}'s payload changed neither the tokens nor "
+          f"the logits of a chunk")
+    check(torch.equal(outs[2][0], outs[0][0])
+          and torch.equal(outs[2][1], outs[0][1]),
+          f"{tag}: the restored payload did not give the first chunk's "
+          f"tokens and logits back")
+    sess.run()
+    check(req.status == "done", f"{tag}: the probe request {req.status}")
+    return dict(payload=name, tokens_changed=bool(toks_changed),
+                logits_max_abs_diff=lv_diff,
+                restored_bytes_equal=True)
+
+
+def quant_image(model, qvals, meta):
+    """Write dequantize_weight of a session's payloads (``qvals`` {name:
+    (payload, scales)}, kept on the host; ``meta`` {name: (rows, dtype)})
+    into ``model``'s quantized Linear weights: the reference's function,
+    the session's own group size, on the card."""
+    from paddle_tpu_torch.inference.serving import _QUANT_GROUP
+    from paddle_tpu_torch.quantization import dequantize_weight
+
+    params = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, (q, sc) in qvals.items():
+            rows, dtype = meta[n]
+            dev = params[n].device
+            params[n].copy_(dequantize_weight(
+                q.to(dev), sc.to(dev), dtype, rows=rows,
+                group_size=_QUANT_GROUP))
+
+
+def _serve_quant(family, kernel, other):
+    """[serve_quant]: the [serve_cb_*] chat traffic through quantized
+    sessions at full width and depth. (1) int8 and int4 weights over an
+    int8 pool: [serve_cb_*]'s figures, peak, the memz ledger, the pool's
+    blocks and how many streams equal the bf16 run's (counted, not
+    gated: random weights have near-ties). (2) The same traffic through
+    an UNQUANTIZED session over an int8 pool whose quantized weights were
+    replaced, before it was built, by dequantize_weight of the quantized
+    session's payloads: every stream byte-equal. (3) The int8 session:
+    a payload zeroed between two chunks changes the chunk, restored gives
+    it back (quant_payload_probe). (4) The norm's launches read from
+    every graph captured (65 / 49 a forward, none of the other norm);
+    for Llama, [serve_cb_sched]'s overload traffic over an int8 pool at
+    the same byte budget (sched_drive). Releases the model."""
+    tag = f"serve_quant_{family}"
+    model = serving_model(family)
+    pf = 2 * model.cfg.num_layers + 1
+    prompts = cb_prompts(model.cfg.vocab_size)
+    base = PHASE_RECORDS[f"serve_cb_{family}"]
+    base_streams = PHASE_STREAMS[f"serve_cb_{family}"]
+    res, streams, states = {}, {}, {}
+    for mode, kw in QUANT_MODES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run, sess, rd = quant_drive(model, prompts, f"{tag} {mode}", kernel,
+                                    other, pf, **kw)
+        rd["peak_gb"] = torch.cuda.max_memory_allocated() / 2**30
+        rd["streams_equal_bf16"] = int(sum(
+            np.array_equal(run["out"][r], base_streams[r])
+            for r in base_streams))
+        if mode == "int8":
+            bound = QUANT_PEAK_GB.get(family)
+            check(bound is None or rd["peak_gb"] <= bound,
+                  f"{tag}: int8 peak {rd['peak_gb']:.2f} GiB over the "
+                  f"sizing's {bound}")
+            rd["probe"] = quant_payload_probe(sess, QUANT_PROBE[family],
+                                              prompts[1], run["lv_buf"], tag)
+        # the payloads wait on the host for their image, so the next mode's
+        # peak holds nothing of this one
+        wq = sess._wq
+        streams[mode], res[mode] = run["out"], rd
+        states[mode] = ({n: (q.cpu(), sc.cpu()) for n, (q, sc) in
+                         wq.qvals.items()}, dict(wq.meta))
+        del run, sess, wq
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the dequantized images: the model's own weights kept aside meanwhile
+    params = dict(model.named_parameters())
+    kept = {n: params[n].detach().clone() for n in states["int8"][0]}
+    for mode, _ in QUANT_MODES:
+        quant_image(model, *states[mode])
+        run, sess = cb_drive(model, prompts, True, f"{tag} {mode} image",
+                             kv_dtype="int8")
+        same = [r for r in streams[mode]
+                if np.array_equal(run["out"].get(r), streams[mode][r])]
+        check(len(same) == len(streams[mode]) == len(prompts)
+              and set(run["out"]) == set(streams[mode]),
+              f"{tag}: {mode}: {len(same)} of {len(streams[mode])} streams "
+              f"equal the dequantized image's")
+        res[mode]["image_streams_equal"] = len(same)
+        del run, sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    with torch.no_grad():
+        for n, t in kept.items():
+            params[n].copy_(t)
+    del kept, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    if family == "llama":
+        res["sched_int8"] = sched_drive(f"{tag} sched int8", kv_dtype="int8")
+        check(res["sched_int8"]["num_blocks"] == 35,
+              f"{tag}: the int8 pool holds {res['sched_int8']['num_blocks']} "
+              f"blocks at 18 bf16 blocks' bytes, want 35")
+    res["launches"] = sum(r["launches"] for m, r in res.items()
+                          if m in ("int8", "int4")) + (
+        res["sched_int8"]["launches"] if "sched_int8" in res else 0)
+
+    for mode, _ in QUANT_MODES:
+        r = res[mode]
+        w = r["weights"]
+        print(f"[{tag}] {mode} weights, int8 pool: "
+              f"{r['ms_per_generated_token']:.3f} ms per generated token "
+              f"(bf16 [serve_cb_{family}] {base['ms_per_generated_token']:.3f}"
+              f"), TTFT cold median {r['ttft_ms_median']:.1f} ms (bf16 "
+              f"{base['ttft_ms_median']:.1f}), chunk card / host "
+              f"{r['chunk_card_ms']:.2f} / {r['chunk_host_ms']:.2f} ms (bf16 "
+              f"{base['chunk_card_ms']:.2f} / {base['chunk_host_ms']:.2f}), "
+              f"peak {r['peak_gb']:.2f} GiB (bf16 {base['peak_gb']:.2f}); "
+              f"memz weights {r['weights_bytes']} bytes (raw "
+              f"{w['raw_bytes']}, quant {w['quant_bytes']}, "
+              f"{w['quant_mode']}), kv_pool {r['kv_pool_bytes']} bytes "
+              f"({r['kv_pool']['kv_dtype']}), {r['num_blocks']} blocks; "
+              f"{r['streams_equal_bf16']} of {len(prompts)} streams equal "
+              f"the bf16 run's (counted, not gated); "
+              f"{r['image_streams_equal']} of {len(prompts)} byte-equal to "
+              f"the unquantized session over the dequantized image; "
+              f"{kernel.symbol} {r['launches']} launches ({pf} a forward in "
+              f"the chunk graph x {CB_CHUNK} and each of the admit graphs "
+              f"{r['admit_graph_widths']}), 0 plain, none of {other.symbol}")
+    for mode, _ in QUANT_MODES:
+        r = res[mode]
+        if r["eager_chunk_card_ms"] is None:
+            print(f"[{tag}] {mode}: a chunk's kernels: not measured (the "
+                  f"profiler recorded no device events)")
+            continue
+        print(f"[{tag}] {mode}: a chunk run eagerly under the profiler: card "
+              f"{r['eager_chunk_card_ms']:.2f} ms; top kernels:")
+        for t_ in r["eager_chunk_top_kernels"]:
+            print(f"[{tag}]   {t_['ms']:9.2f} ms {t_['calls']:6d}x "
+                  f"{t_['kernel']}")
+    pr = res["int8"]["probe"]
+    print(f"[{tag}] int8: {pr['payload']}'s payload zeroed between two "
+          f"chunks: tokens changed {pr['tokens_changed']}, logits by up to "
+          f"{pr['logits_max_abs_diff']:.4f}; restored: the first chunk's "
+          f"tokens and logits, byte for byte")
+    if "sched_int8" in res:
+        q, b = res["sched_int8"], PHASE_RECORDS["serve_cb_sched"]
+        print(f"[{tag}] [serve_cb_sched]'s overload traffic over an int8 "
+              f"pool at the same {q['kv_pool_bytes']} bytes: "
+              f"{q['num_blocks']} blocks (bf16 {b['num_blocks']}), "
+              f"preemptions {q['stats']['preemptions']} (bf16 "
+              f"{b['stats']['preemptions']}), expirations "
+              f"{q['stats']['expirations']} (bf16 "
+              f"{b['stats']['expirations']}), {q['stats']['admit_steps']} "
+              f"admits, TTFT median {q['ttft_ms_median']:.1f} ms (bf16 "
+              f"{b['ttft_ms_median']:.1f})")
+    _release_serving_model(family)
+    return res
+
+
+def phase_serve_quant_llama():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_quant("llama", fused_ops.RMS_NORM_KERNEL,
+                        norm.LAYER_NORM_KERNEL)
+
+
+def phase_serve_quant_gpt():
+    from paddle_tpu_torch.incubate.nn.functional import fused_ops
+    from paddle_tpu_torch.nn.functional import norm
+
+    return _serve_quant("gpt", norm.LAYER_NORM_KERNEL,
+                        fused_ops.RMS_NORM_KERNEL)
 
 
 # [generate_default]: the models' default generate() at full size
@@ -4726,11 +5051,13 @@ def main():
                       ("serve_overlap_llama", phase_serve_overlap_llama),
                       ("serve_spec_llama", phase_serve_spec_llama),
                       ("serve_cb_sched", phase_serve_cb_sched),
+                      ("serve_quant_llama", phase_serve_quant_llama),
                       ("gpt", phase_gpt),
                       ("generate_default_gpt", phase_generate_default_gpt),
                       ("serve_cb_gpt", phase_serve_cb_gpt),
                       ("serve_overlap_gpt", phase_serve_overlap_gpt),
                       ("serve_spec_gpt", phase_serve_spec_gpt),
+                      ("serve_quant_gpt", phase_serve_quant_gpt),
                       ("card_vs_cpu", phase_card_vs_cpu),
                       ("train_kernels", phase_train_kernels),
                       ("train", phase_train),
@@ -4774,6 +5101,8 @@ def main():
               g_llama["paged eager"]["ptt_rms_norm_fwd"],
           "llama2_7b cb serving": rec["serve_cb_llama"]["launches"],
           "llama2_7b cb sched serving": rec["serve_cb_sched"]["launches"],
+          "llama2_7b cb quantized serving (int8, int4 weights; sched over "
+          "an int8 pool)": rec["serve_quant_llama"]["launches"],
           "llama2_7b spec ngram serving":
               rec["serve_spec_llama"]["ngram"]["launches"],
           "llama2_7b spec tinyllama-draft serving":
@@ -4797,6 +5126,8 @@ def main():
           "gpt3_1p3b paged eager generate":
               g_gpt["paged eager"]["ptt_layer_norm_fwd"],
           "gpt3_1p3b cb serving": rec["serve_cb_gpt"]["launches"],
+          "gpt3_1p3b cb quantized serving (int8, int4 weights)":
+              rec["serve_quant_gpt"]["launches"],
           "gpt3_1p3b spec ngram serving":
               rec["serve_spec_gpt"]["ngram"]["launches"],
           "gpt3_1p3b spec self-draft serving":

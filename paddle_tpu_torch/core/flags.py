@@ -16,6 +16,9 @@ PADDLE_ENV_KNOBS = frozenset({
     # the default KV pool byte budget of a ContinuousBatchingSession
     # (inference/serving.py; num_blocks wins over it)
     "PADDLE_SERVING_QUANT_KV_POOL_BYTES",
+    # the serving sessions' quantization defaults (inference/serving.py
+    # _resolve_quant_knobs): weights "int8"/"int4", KV pools "int8"/"1"
+    "PADDLE_SERVING_QUANT_WEIGHTS", "PADDLE_SERVING_QUANT_KV",
     # crash forensics (observability/flight_recorder.py)
     "PADDLE_CRASH_DIR", "PADDLE_CRASH_DUMP_INTERVAL",
     # SLO monitor policy (observability/slo.py)

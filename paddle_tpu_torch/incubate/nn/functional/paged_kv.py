@@ -1,13 +1,17 @@
 """Paged (block-table) KV-cache attention for serving, and the host-side
 prefix-caching block pool. Counterpart of
-paddle_tpu/incubate/nn/functional/paged_kv.py (without the int8 pools and
-the KV block export/import of the disaggregated fleet).
+paddle_tpu/incubate/nn/functional/paged_kv.py (without the KV block
+export/import of the disaggregated fleet).
 
 The pool is one [num_blocks, KVH, block_size, D] tensor per K and V; a
 block table [B, max_blocks_per_seq] of block ids maps each sequence's
 logical positions onto the pool. Writes scatter into the pool IN PLACE
 (where the JAX package returns a new pool and donates the old one), and
-reads gather each sequence's blocks.
+reads gather each sequence's blocks. An int8 pool side is a (payload,
+scale) pair: int8 [num_blocks, KVH, block_size, D] and one f32 scale per
+token [num_blocks, block_size] (``init_block_cache_quant``); the
+``*_quant`` ops quantize each written token over its (heads, dims) and
+dequantize in the gather.
 
 Two JAX indexing rules are made explicit here, because an out-of-range
 index on a card is a device-side assert that kills the process:
@@ -23,17 +27,22 @@ import math
 import torch
 
 from ....analysis.sanitizers import race_handoff, race_track
+from ....core.numerics import ieee_div
 from ....core.place import resolve_device
+from ....ops.registry import OPS, apply_op, register
 from .flash_attention import grouped_pv_out, grouped_qk_logits
 
 # new_lens (optional): per-sequence count of VALID new tokens this call
 # (ragged right-padded prefill writes the padded length into the pool but
 # only new_lens positions become visible). None means every position of
-# the call is valid.
+# the call is valid. key_scale / value_scale (optional): the per-token f32
+# scales [num_blocks, block_size] of an int8 pool; not None routes the
+# models' paged branch through the *_quant ops.
 PagedCache = collections.namedtuple(
     "PagedCache",
-    ["key_cache", "value_cache", "block_tables", "seq_lens", "new_lens"],
-    defaults=[None])
+    ["key_cache", "value_cache", "block_tables", "seq_lens", "new_lens",
+     "key_scale", "value_scale"],
+    defaults=[None, None, None])
 
 
 def init_block_cache(num_blocks: int, num_heads: int, block_size: int,
@@ -45,6 +54,18 @@ def init_block_cache(num_blocks: int, num_heads: int, block_size: int,
     dev = resolve_device(device)
     return (torch.zeros(shape, dtype=dtype, device=dev),
             torch.zeros(shape, dtype=dtype, device=dev))
+
+
+def init_block_cache_quant(num_blocks: int, num_heads: int,
+                           block_size: int, head_dim: int, device=None):
+    """ONE side (K or V) of an int8 pool: the int8 payload [num_blocks,
+    KVH, block_size, D] and the f32 per-token scales [num_blocks,
+    block_size], zeros, on ``device`` (the card unless "cpu")."""
+    dev = resolve_device(device)
+    return (torch.zeros((num_blocks, num_heads, block_size, head_dim),
+                        dtype=torch.int8, device=dev),
+            torch.zeros((num_blocks, block_size), dtype=torch.float32,
+                        device=dev))
 
 
 def alloc_block_tables(batch: int, max_seq_len: int, block_size: int,
@@ -61,11 +82,10 @@ def kv_block_bytes(num_layers: int, num_heads: int, block_size: int,
                    head_dim: int, dtype=torch.float32, kv_dtype=None):
     """Bytes ONE pool block costs across all layers, K and V sides,
     payload + scales — the equal-byte-budget geometry primitive
-    (num_blocks = kv_pool_bytes // kv_block_bytes). ``kv_dtype="int8"``
-    (payload byte per element + one f32 scale per token) is the JAX
-    package's quantized pool geometry, kept so the two packages size
-    pools alike; the port's pools themselves are not quantized (ROADMAP
-    queue A item 6)."""
+    (num_blocks = kv_pool_bytes // kv_block_bytes). An int8 block
+    (``kv_dtype="int8"``: a payload byte per element and one f32 scale per
+    token) costs about half a bf16 block, so one byte budget holds about
+    twice the blocks."""
     slab = int(num_heads) * int(block_size) * int(head_dim)
     if kv_dtype is None:
         per_side = slab * torch.empty((), dtype=dtype).element_size()
@@ -387,38 +407,51 @@ def rollback_seq_lens(seq_lens, accepted_lens):
     return np.minimum(lens, np.asarray(accepted_lens)).astype(lens.dtype)
 
 
-def _write_tokens(cache, vals, block_tables, start_pos):
-    """Scatter vals [B, S, H, D] into the pool, in place, at logical
-    positions start_pos[b] + [0, S). Returns the pool.
-
-    Positions past the sequence's table capacity, and table entries
-    outside the pool, are DROPPED, never clipped. The drop needs no host
-    sync: a dropped row is re-aimed at the slot of the first kept row and
-    carries that row's value, so the scatter writes the same bytes to
-    that slot twice and nothing else (when no row is kept, every row
-    rewrites slot (0, 0) with its current content)."""
-    b, s, h, d = vals.shape
-    nb, bs = cache.shape[0], cache.shape[2]
+def _write_plan(block_tables, start_pos, s, nb, bs):
+    """Where a write of ``s`` tokens a row lands: (block ids, in-block
+    slots) of the B*S rows, flattened. Positions past the sequence's
+    table capacity, and table entries outside the pool, are DROPPED,
+    never clipped. The drop needs no host sync: a dropped row is
+    re-aimed at the slot of the first kept row (``_keep_first``
+    rewrites its value to that row's), so the scatter writes the same
+    bytes to that slot twice and nothing else; when no row is kept,
+    every row rewrites slot (0, 0) with its current content."""
     capacity = block_tables.shape[1] * bs
     pos = start_pos.to(torch.int64)[:, None] + torch.arange(
-        s, device=vals.device)[None, :]                           # [B, S]
+        s, device=block_tables.device)[None, :]                   # [B, S]
     blk = torch.gather(block_tables.to(torch.int64), 1,
                        torch.clamp(pos, max=capacity - 1) // bs)
     blk = torch.where(pos < capacity, blk, nb).reshape(-1)
     slot = (pos % bs).reshape(-1)
-    flat = vals.reshape(b * s, h, d).to(cache.dtype)
     keep = (blk >= 0) & (blk < nb)
     # [1]-shaped (not 0-d) index: a 0-d tensor index may be read on the
     # host, which would stall on the card
     first = torch.argmax(keep.to(torch.int32), dim=0, keepdim=True)
     any_kept = keep.any()
-    fb = torch.where(any_kept, blk[first], 0)
-    fs = torch.where(any_kept, slot[first], 0)
-    fv = torch.where(any_kept, flat[first], cache[0:1, :, 0, :])
-    blk = torch.where(keep, blk, fb)
-    slot = torch.where(keep, slot, fs)
-    flat = torch.where(keep[:, None, None], flat, fv)
-    cache[blk, :, slot, :] = flat
+    drop = (keep, first, any_kept)
+    blk = _keep_first(blk, drop, 0)
+    slot = _keep_first(slot, drop, 0)
+    return blk, slot, drop
+
+
+def _keep_first(rows, drop, fill):
+    """``rows`` [N, ...] with every dropped row replaced by the first
+    kept row (by ``fill`` when no row is kept)."""
+    keep, first, any_kept = drop
+    fv = torch.where(any_kept, rows[first], fill)
+    return torch.where(keep.reshape((-1,) + (1,) * (rows.dim() - 1)),
+                       rows, fv)
+
+
+def _write_tokens(cache, vals, block_tables, start_pos):
+    """Scatter vals [B, S, H, D] into the pool, in place, at logical
+    positions start_pos[b] + [0, S) (the drops as ``_write_plan`` says).
+    Returns the pool."""
+    b, s, h, d = vals.shape
+    blk, slot, drop = _write_plan(block_tables, start_pos, s,
+                                  cache.shape[0], cache.shape[2])
+    flat = vals.reshape(b * s, h, d).to(cache.dtype)
+    cache[blk, :, slot, :] = _keep_first(flat, drop, cache[0:1, :, 0, :])
     return cache
 
 
@@ -426,6 +459,47 @@ def _gather_kv(cache, block_tables):
     """[num_blocks, H, bs, D] + [B, MB] -> [B, H, MB*bs, D]."""
     idx = torch.clamp(block_tables.to(torch.int64), 0, cache.shape[0] - 1)
     g = cache[idx]                                   # [B, MB, H, bs, D]
+    b, mb, h, bs, d = g.shape
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, mb * bs, d)
+
+
+def _quantize_kv(vals):
+    """vals [B, S, H, D] -> (int8 [B, S, H, D], f32 scale [B, S]): one
+    symmetric absmax scale per token over its (heads, dims) slab, step =
+    absmax / 127, rounded half to even and clipped to +-127. A pure
+    function of the token's content: equal values give equal bytes, the
+    property prefix sharing and copy-on-write rest on."""
+    vf = vals.to(torch.float32)
+    step = ieee_div(torch.clamp(vf.abs().amax(dim=(2, 3)), min=1e-9), 127.0)
+    q = torch.clamp(torch.round(vf / step[:, :, None, None]),
+                    -127, 127).to(torch.int8)
+    return q, step
+
+
+def _write_tokens_quant(cache, scale_cache, vals, block_tables, start_pos):
+    """Quantized twin of _write_tokens: quantize each token, then scatter
+    the int8 payload AND its f32 scale, in place, through the same plan.
+    A dropped position drops both writes: its row rewrites the first
+    kept row's payload and scale together, so no payload goes live
+    beside a stale scale. Returns (cache, scale_cache)."""
+    q, step = _quantize_kv(vals)
+    b, s, h, d = vals.shape
+    blk, slot, drop = _write_plan(block_tables, start_pos, s,
+                                  cache.shape[0], cache.shape[2])
+    cache[blk, :, slot, :] = _keep_first(q.reshape(b * s, h, d), drop,
+                                         cache[0:1, :, 0, :])
+    scale_cache[blk, slot] = _keep_first(step.reshape(b * s), drop,
+                                         scale_cache[0:1, 0])
+    return cache, scale_cache
+
+
+def _gather_kv_quant(cache, scale_cache, block_tables):
+    """Quantized twin of _gather_kv: the payload and the scales of each
+    sequence's blocks, dequantized in the read -> f32 [B, H, MB*bs, D]
+    (``_attend`` computes in f32 whatever the pool's dtype)."""
+    idx = torch.clamp(block_tables.to(torch.int64), 0, cache.shape[0] - 1)
+    s = scale_cache[idx]                             # [B, MB, bs]
+    g = torch.mul(cache[idx], s[:, :, None, :, None])   # [B, MB, H, bs, D]
     b, mb, h, bs, d = g.shape
     return g.permute(0, 2, 1, 3, 4).reshape(b, h, mb * bs, d)
 
@@ -474,6 +548,34 @@ def block_attention_impl(qkv, key_cache, value_cache, block_tables,
         block_tables, seq_lens_decoder, seq_lens_this_time)
 
 
+def block_attention_quant_gqa_impl(q, k, v, key_cache, key_scale,
+                                   value_cache, value_scale, block_tables,
+                                   seq_lens_decoder, seq_lens_this_time):
+    """Int8-pool twin of block_attention_gqa_impl: the payloads and their
+    per-token scales are written in place together. Returns the flat
+    5-tuple (out, key_cache, key_scale, value_cache, value_scale)."""
+    start = seq_lens_decoder.to(torch.int32)
+    key_cache, key_scale = _write_tokens_quant(
+        key_cache, key_scale, k, block_tables, start)
+    value_cache, value_scale = _write_tokens_quant(
+        value_cache, value_scale, v, block_tables, start)
+    kv_len = start + seq_lens_this_time.to(torch.int32)
+    kg = _gather_kv_quant(key_cache, key_scale, block_tables)
+    vg = _gather_kv_quant(value_cache, value_scale, block_tables)
+    out = _attend(q, kg, vg, start, kv_len)
+    return out, key_cache, key_scale, value_cache, value_scale
+
+
+def block_attention_quant_impl(qkv, key_cache, key_scale, value_cache,
+                               value_scale, block_tables, seq_lens_decoder,
+                               seq_lens_this_time):
+    """Packed form of the int8-pool attention: qkv [B, S, 3, H, D]."""
+    return block_attention_quant_gqa_impl(
+        qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], key_cache, key_scale,
+        value_cache, value_scale, block_tables, seq_lens_decoder,
+        seq_lens_this_time)
+
+
 def block_multihead_attention(qkv, key_cache, value_cache, seq_lens_encoder,
                               seq_lens_decoder, seq_lens_this_time,
                               block_tables=None):
@@ -505,9 +607,53 @@ def block_grouped_query_attention(q, k, v, key_cache, value_cache,
                                     seq_lens_this_time)
 
 
+def block_multihead_attention_quant(qkv, key_cache, key_scale,
+                                    value_cache, value_scale,
+                                    seq_lens_decoder, seq_lens_this_time,
+                                    block_tables=None):
+    """Int8-pool entry, through the op registry. Returns (out, key_cache,
+    key_scale, value_cache, value_scale), the pools and scales updated in
+    place and returned."""
+    if block_tables is None:
+        raise ValueError(
+            "block_multihead_attention_quant requires block_tables")
+    return apply_op(OPS["block_multihead_attention_quant"], qkv, key_cache,
+                    key_scale, value_cache, value_scale, block_tables,
+                    seq_lens_decoder, seq_lens_this_time)
+
+
+def block_grouped_query_attention_quant(q, k, v, key_cache, key_scale,
+                                        value_cache, value_scale,
+                                        seq_lens_decoder,
+                                        seq_lens_this_time,
+                                        block_tables=None):
+    """Grouped-query form of the int8-pool entry (the Llama serving
+    shape). Returns (out, key_cache, key_scale, value_cache,
+    value_scale)."""
+    if block_tables is None:
+        raise ValueError(
+            "block_grouped_query_attention_quant requires block_tables")
+    return apply_op(OPS["block_grouped_query_attention_quant"], q, k, v,
+                    key_cache, key_scale, value_cache, value_scale,
+                    block_tables, seq_lens_decoder, seq_lens_this_time)
+
+
+# registered once, at import, under the JAX package's names. The policy
+# is "keep", where the JAX package's is "allow": the port writes its pools
+# in place, and an amp cast (a copy) of a pool or its scales would take
+# the writes away from it; the bf16 entries are not cast either
+register("block_multihead_attention_quant", block_attention_quant_impl,
+         amp="keep")
+register("block_grouped_query_attention_quant",
+         block_attention_quant_gqa_impl, amp="keep")
+
+
 __all__ = ["PagedCache", "PrefixBlockPool", "adapter_hash_seed",
            "alloc_block_tables", "block_attention_gqa_impl",
-           "block_attention_impl", "block_grouped_query_attention",
-           "block_multihead_attention", "chain_block_hashes",
-           "init_block_cache", "kv_block_bytes", "pool_occupancy",
+           "block_attention_impl", "block_attention_quant_gqa_impl",
+           "block_attention_quant_impl", "block_grouped_query_attention",
+           "block_grouped_query_attention_quant",
+           "block_multihead_attention", "block_multihead_attention_quant",
+           "chain_block_hashes", "init_block_cache",
+           "init_block_cache_quant", "kv_block_bytes", "pool_occupancy",
            "rollback_seq_lens", "write_span_blocks"]

@@ -61,9 +61,24 @@ dispatches, and so the streams, are the sequential engine's.
 after each replay from the session's generator, and each token's log
 probability comes from the fp32 logits read back (``Request.token_logprobs``).
 
-Not ported (NotImplementedError, ROADMAP queue A item 6): LoRA,
-quantized weights and pools, and the hierarchical KV tier (with
-speculation or without).
+Quantized serving (``quantize_weights="int8"`` or ``"int4"``,
+``kv_dtype="int8"``, or the PADDLE_SERVING_QUANT_WEIGHTS /
+PADDLE_SERVING_QUANT_KV defaults) runs in all three entry points, with
+speculation, logprobs and either engine. The selected backbone weights
+(every Linear but the embeddings and the unembedding) are kept as int8
+or packed int4 payloads with f32 scales in static buffers; inside each
+program, every quantized Linear dequantizes its own weight just before
+its product (``_WeightQuantState.applied``), so no graph holds the whole
+dequantized image, and a weight that changed is re-quantized into the
+same buffers at the next admission. An int8 pool side is a (payload,
+per-token scale) pair everywhere a plain pool is a tensor: the graphs'
+static pools, copy-on-write block copies, preemption and the prefix
+cache. The model keeps its own parameters, whose addresses and versions
+the weight checks read as before. With both knobs off the pools stay
+plain tensors.
+
+Not ported (NotImplementedError, ROADMAP queue A item 6): LoRA and the
+hierarchical KV tier (with speculation or without).
 """
 from __future__ import annotations
 
@@ -84,7 +99,11 @@ from ..analysis.sanitizers import race_exempt, race_handoff, race_track
 from ..core.flags import env_int, env_on
 from ..incubate.nn.functional.paged_kv import (PagedCache,
                                                alloc_block_tables,
-                                               init_block_cache)
+                                               init_block_cache,
+                                               init_block_cache_quant)
+from ..nn import Linear
+from ..nn import functional as F
+from ..quantization import dequantize_weight, quantize_weight_tree
 from .scheduler import AdmissionRejected, InvalidRequest  # noqa: F401
 from .speculative.verify import pow2_width
 # (re-exported: submit() raises them; the Scheduler itself lives in
@@ -99,20 +118,154 @@ __all__ = ["AdmissionRejected", "ContinuousBatchingSession",
 UNPORTED = "is not ported to paddle_tpu_torch (ROADMAP queue A item 6)"
 
 
-def _reject_unported(speculative=None, lora=None, quantize_weights=None,
-                     kv_dtype=None, kv_tier=None):
+def _reject_unported(speculative=None, lora=None, kv_tier=None):
     """Raise NotImplementedError naming every serving feature asked for
     that the port lacks (with speculation on, "with speculative" names
-    the combination). ``False``/"none" for the quantization knobs and
-    ``kv_tier`` mean off, as in the JAX package."""
+    the combination). ``False``/"none" for ``kv_tier`` mean off, as in
+    the JAX package."""
     asked = ["lora"] if lora is not None else []
-    asked += [name for name, v in (("quantize_weights", quantize_weights),
-                                   ("kv_dtype", kv_dtype),
-                                   ("kv_tier", kv_tier))
-              if v not in (None, False, "", "none")]
+    if kv_tier not in (None, False, "", "none"):
+        asked.append("kv_tier")
     if asked:
         spec = " with speculative" if speculative is not None else ""
         raise NotImplementedError(f"{', '.join(asked)}{spec} {UNPORTED}")
+
+
+# weight-only quantization leaves the embeddings and the unembedding in
+# the model dtype: the logits head is the accuracy-critical product
+_QUANT_EXCLUDE = ("wte", "wpe", "embed_tokens", "lm_head")
+_QUANT_GROUP = 64          # int4 group size, shared by quantize + dequant
+
+
+def _quant_weight_select(name, w):
+    """Backbone matmul weights only (rank 2, not embedding/unembedding).
+    Biases and norms are rank 1 and stay in the model dtype."""
+    return w.ndim == 2 and not any(t in name for t in _QUANT_EXCLUDE)
+
+
+def _resolve_quant_knobs(quantize_weights, kv_dtype):
+    """Session quantization knobs with env defaults: ``None`` defers to
+    PADDLE_SERVING_QUANT_WEIGHTS ("int8"/"int4") and
+    PADDLE_SERVING_QUANT_KV ("int8"/"1"/"true"/"on"); ``False`` (or
+    "none", "") forces a feature OFF whatever the environment says."""
+    if quantize_weights is None:
+        v = os.environ.get("PADDLE_SERVING_QUANT_WEIGHTS",
+                           "").strip().lower()
+        quantize_weights = v if v in ("int8", "int4") else None
+    elif quantize_weights in (False, "", "none"):
+        quantize_weights = None
+    elif quantize_weights not in ("int8", "int4"):
+        raise ValueError(
+            f"quantize_weights must be None/'int8'/'int4'; got "
+            f"{quantize_weights!r}")
+    if kv_dtype is None:
+        v = os.environ.get("PADDLE_SERVING_QUANT_KV", "").strip().lower()
+        kv_dtype = "int8" if v in ("1", "int8", "true", "on") else None
+    elif kv_dtype in (False, "", "none"):
+        kv_dtype = None
+    elif kv_dtype != "int8":
+        raise ValueError(
+            f"kv_dtype must be None or 'int8'; got {kv_dtype!r}")
+    return quantize_weights, kv_dtype
+
+
+class _WeightQuantState:
+    """A session's weight-only quantization: the int8 (or packed int4)
+    payload and f32 scales of every selected weight, on the model's
+    device, in buffers that keep their addresses for the session's life
+    (the graphs read them). Every selected weight is a ``Linear.weight``;
+    the model keeps its own parameters.
+
+    ``applied()`` is the context a forward of the session runs in: each
+    quantized Linear's forward dequantizes its own weight
+    (``dequantize_weight``, the reference's function) just before its
+    product and drops it after, so one layer's temporary is live at a
+    time. ``refresh()`` re-quantizes each weight whose address or
+    ``_version`` moved INTO the same buffers (``copy_``)."""
+
+    def __init__(self, model, mode: str):
+        self.mode = mode                       # "int8" | "int4"
+        self.bits = 8 if mode == "int8" else 4
+        params = model.state_dict(keep_vars=True)
+        mods = dict(model.named_modules())
+        self._owners = {}
+        for n in sorted(params):
+            if not _quant_weight_select(n, params[n]):
+                continue
+            owner = mods.get(n.rpartition(".")[0])
+            if not (n.endswith(".weight") and isinstance(owner, Linear)):
+                raise TypeError(f"quantized weight {n} is not the weight "
+                                f"of a Linear")
+            self._owners[n] = owner
+        qtree, scales = quantize_weight_tree(
+            {n: m.weight for n, m in self._owners.items()}, bits=self.bits,
+            group_size=_QUANT_GROUP, predicate=lambda n, w: True)
+        self.qvals = {n: (qtree[n], scales[n]) for n in self._owners}
+        # what dequantize_weight needs (int4 packing hides the row count)
+        self.meta = {n: (int(m.weight.shape[0]), m.weight.dtype)
+                     for n, m in self._owners.items()}
+        self._stamps = {n: self._stamp(n) for n in self._owners}
+
+    def _stamp(self, name):
+        w = self._owners[name].weight
+        return w.data_ptr(), w._version
+
+    def refresh(self) -> bool:
+        """Re-quantize every weight replaced or written since it was last
+        quantized, into its payload and scale buffers; True if any was."""
+        stale = [n for n in self._owners if self._stamp(n) != self._stamps[n]]
+        if not stale:
+            return False
+        qtree, scales = quantize_weight_tree(
+            {n: self._owners[n].weight for n in stale}, bits=self.bits,
+            group_size=_QUANT_GROUP, predicate=lambda n, w: True)
+        with torch.no_grad():
+            for n in stale:
+                self.qvals[n][0].copy_(qtree[n])
+                self.qvals[n][1].copy_(scales[n])
+                self._stamps[n] = self._stamp(n)
+        return True
+
+    def _forward(self, name, linear, x):
+        q, scale = self.qvals[name]
+        rows, dtype = self.meta[name]
+        w = dequantize_weight(q, scale, dtype, rows=rows,
+                              group_size=_QUANT_GROUP)
+        return F.linear(x, w, linear.bias)
+
+    @contextlib.contextmanager
+    def applied(self):
+        """Each quantized Linear computes from its payload while inside
+        (an instance ``forward`` shadows the class's for the call)."""
+        for n, m in self._owners.items():
+            m.__dict__["forward"] = partial(self._forward, n, m)
+        try:
+            yield
+        finally:
+            for m in self._owners.values():
+                m.__dict__.pop("forward", None)
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for pair in self.qvals.values() for t in pair)
+
+
+def _kv_zero_pool(cache_shape, dtype, n_layers, kv_quant, device):
+    """One side's fresh pool, a tensor per layer, or with ``kv_quant`` an
+    (int8 payload, f32 per-token scale) pair per layer."""
+    if kv_quant:
+        return tuple(init_block_cache_quant(*cache_shape, device=device)
+                     for _ in range(n_layers))
+    return tuple(torch.zeros(cache_shape, dtype=dtype, device=device)
+                 for _ in range(n_layers))
+
+
+def _pool_tensors(*sides):
+    """Every tensor of the pool sides ``sides`` (tuples of per-layer
+    tensors or (payload, scale) pairs). Each leads with the block dim, so
+    a block copy or a zeroing applies to all of them alike."""
+    return [t for side in sides for e in side
+            for t in (e if isinstance(e, tuple) else (e,))]
 
 
 class ModelAdapter:
@@ -160,7 +313,7 @@ def get_model_adapter(model) -> ModelAdapter:
         f".llama")
 
 
-def make_run_model(model, adapter):
+def make_run_model(model, adapter, weights=None, kv_quant: bool = False):
     """The forward shared by prefill, decode and verify: one pass of the
     real model over the paged pools (updated in place), in eval mode,
     under inference_mode. Returns (last-position logits fp32 [B, V], kcs,
@@ -170,7 +323,14 @@ def make_run_model(model, adapter):
     logits to return (None = the final position); ``all_logits=True``
     returns fp32 logits [B, S, V] at EVERY position of the token buffer
     instead, one unembedding over [B·S, E] (the speculative verifier
-    scores a whole draft window in one dispatch)."""
+    scores a whole draft window in one dispatch).
+
+    ``weights`` (a _WeightQuantState): the forward runs in its
+    ``applied()`` context, each quantized Linear dequantizing its payload
+    just before its product. ``kv_quant=True``: every kcs / vcs entry is
+    an (int8 payload, f32 scale) pair, threaded through the models'
+    int8 paged-attention branch and returned as pairs."""
+    quant = contextlib.nullcontext if weights is None else weights.applied
 
     def run_model(tok_ids, kcs, vcs, bt, seq_lens, pos, new_lens=None,
                   last_idx=None, all_logits=False):
@@ -178,9 +338,14 @@ def make_run_model(model, adapter):
         if was_training:
             model.eval()
         try:
-            with torch.inference_mode():
-                caches = [PagedCache(kc, vc, bt, seq_lens, new_lens)
-                          for kc, vc in zip(kcs, vcs)]
+            with torch.inference_mode(), quant():
+                if kv_quant:
+                    caches = [PagedCache(kc, vc, bt, seq_lens, new_lens,
+                                         key_scale=ks, value_scale=vs)
+                              for (kc, ks), (vc, vs) in zip(kcs, vcs)]
+                else:
+                    caches = [PagedCache(kc, vc, bt, seq_lens, new_lens)
+                              for kc, vc in zip(kcs, vcs)]
                 hidden, ncaches = adapter.backbone(tok_ids, caches=caches,
                                                    pos_offset=pos)
                 if all_logits:
@@ -198,6 +363,10 @@ def make_run_model(model, adapter):
         finally:
             if was_training:
                 model.train()
+        if kv_quant:
+            return (lv, tuple((c.key_cache, c.key_scale) for c in ncaches),
+                    tuple((c.value_cache, c.value_scale) for c in ncaches),
+                    ncaches[0].seq_lens)
         return (lv, tuple(c.key_cache for c in ncaches),
                 tuple(c.value_cache for c in ncaches), ncaches[0].seq_lens)
 
@@ -257,6 +426,12 @@ class GenerationSession:
     programs read pools, a table and lengths that the session keeps (the
     pools zeroed for each request), so on a card each width is one CUDA
     graph, captured at its first use.
+
+    ``quantize_weights`` ("int8"/"int4") and ``kv_dtype`` ("int8"), with
+    the environment's defaults (``_resolve_quant_knobs``): the backbone's
+    Linears compute from quantized payloads, re-quantized at each
+    ``generate`` when a weight changed, and the pools are (payload,
+    scale) pairs (module docstring).
     """
 
     def __init__(self, model, batch: int, prompt_len: int,
@@ -270,7 +445,7 @@ class GenerationSession:
                  quantize_weights=None, kv_dtype=None):
         from .speculative import resolve_speculative
 
-        _reject_unported(speculative, lora, quantize_weights, kv_dtype)
+        _reject_unported(speculative, lora)
         adapter = get_model_adapter(model)
         if prompt_len + max_new_tokens > adapter.max_seq_len:
             raise ValueError(
@@ -300,7 +475,15 @@ class GenerationSession:
         self._cache_dtype = adapter.dtype
         self._kv_block_size = kv_block_size
         self._n_layers = adapter.num_layers
-        self._run_model = make_run_model(model, adapter)
+        quantize_weights, kv_dtype = _resolve_quant_knobs(quantize_weights,
+                                                          kv_dtype)
+        self._quant_weights = quantize_weights
+        self._kv_dtype = kv_dtype
+        self._kv_quant = kv_dtype == "int8"
+        self._wq = (None if quantize_weights is None
+                    else _WeightQuantState(model, quantize_weights))
+        self._run_model = make_run_model(model, adapter, weights=self._wq,
+                                         kv_quant=self._kv_quant)
         self._shared_plan = None      # lazy: repeated-prompt path
         self._spec = resolve_speculative(speculative)
         self._proposer = self._verify_ladder = None
@@ -357,10 +540,9 @@ class GenerationSession:
 
     def _zero_pools(self):
         def side():
-            return tuple(torch.zeros(self._cache_shape,
-                                     dtype=self._cache_dtype,
-                                     device=self._device)
-                         for _ in range(self._n_layers))
+            return _kv_zero_pool(self._cache_shape, self._cache_dtype,
+                                 self._n_layers, self._kv_quant,
+                                 self._device)
         return side(), side()
 
     def _fresh_pools(self):
@@ -369,7 +551,7 @@ class GenerationSession:
         if self._spec is None:
             return self._zero_pools()
         with torch.inference_mode():
-            for c in self._spec_pools[0] + self._spec_pools[1]:
+            for c in _pool_tensors(*self._spec_pools):
                 c.zero_()
         return self._spec_pools
 
@@ -432,7 +614,9 @@ class GenerationSession:
             torch.zeros((1,), dtype=torch.int32, device=self._device), 0)
         if cow_dst.numel():
             with torch.inference_mode():
-                for c in kcs + vcs:
+                # payloads and scales alike: a copied block keeps its
+                # per-token scales
+                for c in _pool_tensors(kcs, vcs):
                     c[cow_dst] = c[cow_src].clone()      # in place
         lvb = lv.expand(self.batch, -1)
         done = torch.zeros((self.batch,), dtype=torch.bool,
@@ -479,6 +663,8 @@ class GenerationSession:
                     "this session was built without ragged_prompts=True; "
                     "prompt_lens is only meaningful for ragged sessions")
             lens = None
+        if self._wq is not None:
+            self._wq.refresh()      # a changed weight, re-quantized
         generator = torch.Generator(device=self._device)
         generator.manual_seed(int(seed))
         shared = (self.prefix_sharing and self.batch > 1 and not self.ragged
@@ -608,14 +794,15 @@ def aot_generate(model, input_ids, max_new_tokens: int,
                  speculative=None, lora=None, adapters=None,
                  quantize_weights=None, kv_dtype=None):
     """Serve one generate() call through a per-model cache of
-    GenerationSessions keyed by (shape, sampling, speculation) class.
+    GenerationSessions keyed by (shape, sampling, speculation,
+    quantization) class.
     Output after every row has emitted eos is trimmed, as the JAX
     package's eager loop stops there. The cache keeps
     PADDLE_SERVING_SESSION_CACHE sessions per model (default 8), dropping
     the least recently served."""
     from .speculative import resolve_speculative
 
-    _reject_unported(speculative, lora, quantize_weights, kv_dtype)
+    _reject_unported(speculative, lora)
     if adapters is not None:
         raise NotImplementedError("LoRA serving is not ported")
     adapter = get_model_adapter(model)
@@ -627,9 +814,14 @@ def aot_generate(model, input_ids, max_new_tokens: int,
     # session holds proposer state and decodes by verify windows, so it
     # never serves a plain caller of the same shape class, nor the reverse
     spec = resolve_speculative(speculative)
+    # quantization is part of the session identity the same way: its
+    # pools and payloads are the session's own
+    quantize_weights, kv_dtype = _resolve_quant_knobs(quantize_weights,
+                                                      kv_dtype)
     key = (b, prompt_len, n_new, kv_block_size, do_sample, temperature,
            top_k, top_p, eos_token_id,
-           None if spec is None else spec.cache_key())
+           None if spec is None else spec.cache_key(), quantize_weights,
+           kv_dtype)
     cache = getattr(model, "_serving_sessions", None)
     if cache is None:
         cache = model._serving_sessions = collections.OrderedDict()
@@ -639,7 +831,8 @@ def aot_generate(model, input_ids, max_new_tokens: int,
             model, batch=b, prompt_len=prompt_len, max_new_tokens=n_new,
             kv_block_size=kv_block_size, do_sample=do_sample,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            eos_token_id=eos_token_id, speculative=spec)
+            eos_token_id=eos_token_id, speculative=spec,
+            quantize_weights=quantize_weights, kv_dtype=kv_dtype)
         cap = max(1, env_int("PADDLE_SERVING_SESSION_CACHE", 8))
         while len(cache) > cap:
             cache.popitem(last=False)
@@ -1138,6 +1331,13 @@ class ContinuousBatchingSession:
     under speculation, and records each emitted token's log probability
     in ``Request.token_logprobs``.
 
+    ``quantize_weights`` ("int8"/"int4") and ``kv_dtype`` ("int8"), with
+    the environment's defaults: the graphs' Linears compute from
+    quantized payloads, re-quantized into the same buffers at the
+    admission that sees a weight change; the pools are (payload, scale)
+    pairs, and ``kv_pool_bytes`` sizes them by the int8 block's bytes
+    (module docstring).
+
     The KV pools are written in place; the host keeps the request queue
     (the Scheduler), the slot table, the block table mirror and the
     prefix-caching block pool (PrefixBlockPool). The session lives on the
@@ -1166,8 +1366,7 @@ class ContinuousBatchingSession:
         from .scheduler import Scheduler
         from .speculative import resolve_speculative
 
-        _reject_unported(speculative, lora, quantize_weights, kv_dtype,
-                         kv_tier)
+        _reject_unported(speculative, lora, kv_tier)
         adapter = get_model_adapter(model)
         self.model = model
         self.slots = slots
@@ -1198,10 +1397,18 @@ class ContinuousBatchingSession:
         # (kv_pool_bytes, else PADDLE_SERVING_QUANT_KV_POOL_BYTES; the
         # JAX package's equal-byte-budget geometry), turns on allocation
         # pressure, LRU eviction and preemption. num_blocks wins over a
-        # budget.
+        # budget, which counts blocks of the pool's own geometry: an int8
+        # block costs about half a bf16 one, so the same budget holds
+        # about twice the blocks (the scheduler and the gauges count
+        # those)
         mbs = -(-adapter.max_seq_len // kv_block_size)
+        quantize_weights, kv_dtype = _resolve_quant_knobs(quantize_weights,
+                                                          kv_dtype)
+        self._quant_weights = quantize_weights
+        self._kv_dtype = kv_dtype
+        self._kv_quant = kv_dtype == "int8"
         block_bytes = kv_block_bytes(n_layers, heads, kv_block_size, hdim,
-                                     dtype=adapter.dtype)
+                                     dtype=adapter.dtype, kv_dtype=kv_dtype)
         if kv_pool_bytes is None:
             env_pb = os.environ.get("PADDLE_SERVING_QUANT_KV_POOL_BYTES",
                                     "").strip()
@@ -1218,7 +1425,10 @@ class ContinuousBatchingSession:
         self._cache_dtype = adapter.dtype
         self.max_cached = adapter.max_seq_len
         self._device = dev = adapter.device
-        self._run_model = make_run_model(model, adapter)
+        self._wq = (None if quantize_weights is None
+                    else _WeightQuantState(model, quantize_weights))
+        self._run_model = make_run_model(model, adapter, weights=self._wq,
+                                         kv_quant=self._kv_quant)
         self._kv_block_size = kv_block_size
         self._num_blocks = nblocks
 
@@ -1228,10 +1438,10 @@ class ContinuousBatchingSession:
         def zeros(*shape, dtype=torch.int32):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self._kcs = tuple(zeros(*self._cache_shape, dtype=adapter.dtype)
-                          for _ in range(n_layers))
-        self._vcs = tuple(zeros(*self._cache_shape, dtype=adapter.dtype)
-                          for _ in range(n_layers))
+        self._kcs = _kv_zero_pool(self._cache_shape, adapter.dtype, n_layers,
+                                  self._kv_quant, dev)
+        self._vcs = _kv_zero_pool(self._cache_shape, adapter.dtype, n_layers,
+                                  self._kv_quant, dev)
         self._seq_lens = zeros(slots)
         self._tok_dev = zeros(slots)        # last token per slot
         self._live_dev = zeros(slots, dtype=torch.bool)
@@ -1514,7 +1724,8 @@ class ContinuousBatchingSession:
         prog = self._admit_program(w)
         with torch.inference_mode():
             for src, dst in cow:
-                for c in self._kcs + self._vcs:
+                # payloads and scales alike
+                for c in _pool_tensors(self._kcs, self._vcs):
                     c[dst].copy_(c[src])
             self._admit_toks[w].copy_(torch.from_numpy(toks))
             self._admit_lens.copy_(torch.from_numpy(lens))
@@ -1620,11 +1831,17 @@ class ContinuousBatchingSession:
                                 _provide)
 
     def _weights_bytes(self) -> tuple:
-        """(total_bytes, detail) of the model's weights on the device."""
+        """(total_bytes, detail) of the weights the session serves from:
+        the model's tensors for unquantized names, payloads plus scales
+        for the names the weight quantization owns."""
+        owned = {} if self._wq is None else self._wq.qvals
         raw = sum(t.numel() * t.element_size()
-                  for t in self.model.state_dict().values())
-        return raw, {"raw_bytes": raw, "quant_bytes": 0,
-                     "quant_mode": None}
+                  for n, t in self.model.state_dict().items()
+                  if n not in owned)
+        quant = 0 if self._wq is None else self._wq.nbytes()
+        return raw + quant, {"raw_bytes": raw, "quant_bytes": quant,
+                             "quant_mode": None if self._wq is None
+                             else self._wq.mode}
 
     def _register_memz_provider(self):
         """This session's device memory for the HBM ledger (weakref'd):
@@ -1648,7 +1865,8 @@ class ContinuousBatchingSession:
             detail = {"weights": wdetail,
                       "kv_pool": {"num_blocks": int(sess._num_blocks),
                                   "kv_pool_bytes": int(sess._kv_pool_bytes),
-                                  "kv_dtype": str(sess._cache_dtype)
+                                  "kv_dtype": sess._kv_dtype
+                                  or str(sess._cache_dtype)
                                   .replace("torch.", "")},
                       "executables": {"decode_chunk_graph":
                                       sess._chunk_prog is not None
@@ -1940,12 +2158,17 @@ class ContinuousBatchingSession:
         every cached hash (live blocks keep serving: their requests
         started under the old weights and already hold the matching
         KV). A replaced weight's new address reaches the decode graph
-        in ``_dispatch_decode``, at every chunk, queue or no queue."""
+        in ``_dispatch_decode``, at every chunk, queue or no queue; a
+        quantized weight is re-quantized here, into the payload buffers
+        the graphs read (ordered after any replay in flight on the
+        stream)."""
         cur = self._weights_fingerprint()
         if cur == self._param_fingerprint:
             return
         self.flush_prefix_cache()
         self._param_fingerprint = cur
+        if self._wq is not None:
+            self._wq.refresh()
 
     def _effective_prompt(self, req):
         """The token history an admission must prefill: the prompt for a

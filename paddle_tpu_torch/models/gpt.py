@@ -34,8 +34,8 @@ from ..core.place import resolve_device
 from ..distributed.fleet import recompute
 from ..incubate.nn.functional.flash_attention import (flash_attention_packed,
                                                       fused_self_attention)
-from ..incubate.nn.functional.paged_kv import (PagedCache,
-                                               block_multihead_attention)
+from ..incubate.nn.functional.paged_kv import (
+    PagedCache, block_multihead_attention, block_multihead_attention_quant)
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
@@ -131,11 +131,22 @@ class GPTAttention(nn.Module):
             return self.dropout(self.proj(out)), (k, v)
         slt = (cache.new_lens if cache.new_lens is not None
                else torch.full((b,), s, dtype=torch.int32, device=x.device))
-        out, _, kc, vc = block_multihead_attention(
-            qkv, cache.key_cache, cache.value_cache, None, cache.seq_lens,
-            slt, block_tables=cache.block_tables)
-        new_cache = PagedCache(kc, vc, cache.block_tables,
-                               cache.seq_lens + slt)
+        if cache.key_scale is not None:
+            # int8 pool: payloads and per-token scales thread through
+            # together (quantize on write, dequantize on read)
+            out, kc, ks, vc, vs = block_multihead_attention_quant(
+                qkv, cache.key_cache, cache.key_scale, cache.value_cache,
+                cache.value_scale, cache.seq_lens, slt,
+                block_tables=cache.block_tables)
+            new_cache = PagedCache(kc, vc, cache.block_tables,
+                                   cache.seq_lens + slt, key_scale=ks,
+                                   value_scale=vs)
+        else:
+            out, _, kc, vc = block_multihead_attention(
+                qkv, cache.key_cache, cache.value_cache, None,
+                cache.seq_lens, slt, block_tables=cache.block_tables)
+            new_cache = PagedCache(kc, vc, cache.block_tables,
+                                   cache.seq_lens + slt)
         out = out.reshape(b, s, self.num_heads * self.head_dim)
         return self.dropout(self.proj(out)), new_cache
 

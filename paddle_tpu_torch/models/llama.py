@@ -29,7 +29,8 @@ from ..distributed.fleet import recompute
 from ..incubate.nn.functional.fused_ops import (
     fused_rms_norm, fused_rotary_position_embedding, swiglu)
 from ..incubate.nn.functional.paged_kv import (
-    PagedCache, block_grouped_query_attention)
+    PagedCache, block_grouped_query_attention,
+    block_grouped_query_attention_quant)
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Embedding, Linear
@@ -142,11 +143,22 @@ class LlamaAttention(nn.Module):
             position_ids=_positions(pos_offset, s, x.device))
         slt = (cache.new_lens if cache.new_lens is not None
                else torch.full((b,), s, dtype=torch.int32, device=x.device))
-        out, kc, vc = block_grouped_query_attention(
-            q, k, v, cache.key_cache, cache.value_cache, cache.seq_lens, slt,
-            block_tables=cache.block_tables)
-        new_cache = PagedCache(kc, vc, cache.block_tables,
-                               cache.seq_lens + slt)
+        if cache.key_scale is not None:
+            # int8 pool: payloads and per-token scales thread through
+            # together (quantize on write, dequantize on read)
+            out, kc, ks, vc, vs = block_grouped_query_attention_quant(
+                q, k, v, cache.key_cache, cache.key_scale,
+                cache.value_cache, cache.value_scale, cache.seq_lens, slt,
+                block_tables=cache.block_tables)
+            new_cache = PagedCache(kc, vc, cache.block_tables,
+                                   cache.seq_lens + slt, key_scale=ks,
+                                   value_scale=vs)
+        else:
+            out, kc, vc = block_grouped_query_attention(
+                q, k, v, cache.key_cache, cache.value_cache,
+                cache.seq_lens, slt, block_tables=cache.block_tables)
+            new_cache = PagedCache(kc, vc, cache.block_tables,
+                                   cache.seq_lens + slt)
         return self.o_proj(out.reshape(b, s, e)), new_cache
 
 

@@ -71,7 +71,10 @@ run twice a layer with it); stochastic rounding on the card is
 unbiased within 5 standard errors and exact on representable values;
 dropout keeps 1 - p within 5 binomial standard deviations; one step of
 chip_smoke's [train_recipe] plan at 2 layers launches the expected
-kernels (counted by the wrappers, no plain call). The
+kernels (counted by the wrappers, no plain call). Quantized serving
+(``quant`` and ``int8`` tests): the int8 KV ops, the weight grids at
+Llama-2-7B's [4096, 11008] and Int8ExecLinear's int32 product at GPT-3
+1.3B's MLP (8192 rows and 4) give the CPU's bytes. The
 tests skip without a card; on a machine with one (the
 tests' conftest.py sets up JAX, which these tests do not use):
 
@@ -1366,3 +1369,123 @@ def test_cb_card_sampled_spec_capture_rate():
     print(f"sampled spec captures: {len(failures)} of 40 sessions failed "
           f"({widths} verify graphs captured) {failures}")
     assert not failures, failures
+
+
+# ---------------------------------------------------------------------------
+# quantized serving: the int8 KV ops, the weight grids, int8 execution
+# ---------------------------------------------------------------------------
+
+def _card_and_cpu(fn, *arrays):
+    """fn on the card and on the CPU over the same inputs (numpy);
+    returns both results as CPU tensors."""
+    outs = []
+    for dev in ("cuda", "cpu"):
+        res = fn(*(torch.from_numpy(a.copy()).to(dev) for a in arrays))
+        if isinstance(res, torch.Tensor):
+            res = (res,)
+        outs.append([r.cpu() for r in res])
+    return outs
+
+
+@pytest.mark.card
+def test_quant_kv_ops_card_equal_cpu():
+    """_quantize_kv, _write_tokens_quant (out-of-capacity and sentinel
+    positions dropped) and _gather_kv_quant on the card give the CPU's
+    bytes: the per-token absmax, IEEE division and round half to even
+    are the same on both. Inputs at Llama-2-7B's pool geometry (32 kv
+    heads of d=128, blocks of 64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from paddle_tpu_torch.incubate.nn.functional import paged_kv as pk
+
+    rs = np.random.RandomState(0)
+    nb, kvh, bs, d = 40, 32, 64, 128
+    vals = (rs.randn(4, 96, kvh, d) * 3).astype(np.float32)
+    vals[0, 0] = 0.0
+    vals[1, 1, 0, 0] = 127.0
+    vals[1, 1, 1, :4] = [0.5, 1.5, 2.5, -0.5]      # exact halves
+    for dt in (torch.float32, torch.bfloat16):
+        card, cpu = _card_and_cpu(
+            lambda v: pk._quantize_kv(v.to(dt)), vals)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a, b), dt
+    kc = rs.randint(-127, 128, (nb, kvh, bs, d)).astype(np.int8)
+    ks = rs.rand(nb, bs).astype(np.float32)
+    bt = rs.permutation(nb)[:4 * 3].reshape(4, 3).astype(np.int32)
+    bt[3, 2] = nb                                    # a sentinel entry
+    start = np.asarray([0, 100, 150, 60], np.int32)  # row 2 overflows
+
+    def write(kc_, ks_, v, bt_, st):
+        return pk._write_tokens_quant(kc_, ks_, v.to(torch.bfloat16), bt_, st)
+    card, cpu = _card_and_cpu(write, kc, ks, vals, bt, start)
+    for a, b in zip(card, cpu):
+        assert torch.equal(a, b)
+    untouched = [b for b in range(nb) if b not in set(bt.ravel().tolist())]
+    assert torch.equal(card[0][untouched], torch.from_numpy(kc)[untouched])
+    card, cpu = _card_and_cpu(pk._gather_kv_quant, kc, ks, bt)
+    assert torch.equal(card[0], cpu[0])
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_quant_weight_tree_card_equal_cpu(bits, dtype):
+    """quantize_weight_tree's payloads and scales at Llama-2-7B's
+    [4096, 11008] (an MLP's up projection) on the card equal the CPU's
+    byte for byte, and so does dequantize_weight of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from paddle_tpu_torch.quantization import (dequantize_weight,
+                                               quantize_weight_tree)
+
+    w = (np.random.RandomState(1).randn(4096, 11008) * 0.02).astype(
+        np.float32)
+    dt = getattr(torch, dtype)
+
+    def quant(t):
+        qt, sc = quantize_weight_tree({"w": t.to(dt)}, bits=bits)
+        img = dequantize_weight(qt["w"], sc["w"], dt, rows=4096)
+        return qt["w"], sc["w"], img
+    card, cpu = _card_and_cpu(quant, w)
+    for name, a, b in zip(("payload", "scales", "image"), card, cpu):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("rows", [8192, 4])
+def test_int8_exec_card_int32_product_exact(rows):
+    """Int8ExecLinear at GPT-3 1.3B's MLP: [rows, 2048] x [2048, 8192].
+    The card's int32 product (torch._int_mm; at 4 rows padded with zero
+    rows to its 17-row minimum) equals the CPU's exactly, and so does
+    the rescaled output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.quantization import Int8ExecLinear, _int_mm
+
+    rs = np.random.RandomState(2)
+    w = (rs.randn(2048, 8192) * 0.02).astype(np.float32)
+    b = (rs.randn(8192) * 0.1).astype(np.float32)
+    x = rs.randn(rows, 2048).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        lin = Linear(2048, 8192, device=dev)
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(w))
+            lin.bias.copy_(torch.from_numpy(b))
+        q = Int8ExecLinear(lin)
+        xt = torch.from_numpy(x).to(dev)
+        step = torch.clamp(xt.abs().amax(), min=1e-9) / 127.0
+        xq = torch.clamp(torch.round(xt / step), -127, 127).to(torch.int8)
+        outs[dev] = (_int_mm(xq, q.weight_int8).cpu(), q(xt).cpu(),
+                     q.weight_int8.cpu())
+    for name, a, c in zip(("int32", "output", "payload"), outs["cuda"],
+                          outs["cpu"]):
+        assert a.dtype == c.dtype and torch.equal(a, c), name
+    assert outs["cuda"][0].dtype == torch.int32

@@ -14,6 +14,8 @@ are held in test_torch_overload.py).
 The helpers (make_cb_pair, serve, jax_paged_generate) serve
 test_torch_prefix_cache.py and test_torch_serving_observability.py too.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,16 @@ from paddle_tpu_torch.models.gpt import GPTConfig as TGPTConfig
 from paddle_tpu_torch.models.gpt import GPTForCausalLM as TGPT
 from paddle_tpu_torch.models.llama import LlamaConfig as TLlamaConfig
 from paddle_tpu_torch.models.llama import LlamaForCausalLM as TLlama
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _collect_sessions():
+    """Sessions are reference cycles whose memz providers stay registered
+    until the collector frees them: free this file's before the next
+    file in the process runs."""
+    yield
+    gc.collect()
+
 
 FAMILIES = ["gpt", "llama"]
 
@@ -283,9 +295,9 @@ def test_cb_manual_steps_then_run_returns_all_completed(family):
 
 # the ids are the ones these cases had when the list also held the
 # options since ported (prefill_chunk, kv_pool_bytes, preempt,
-# priority, deadline_s); logprobs and overlap are ported now and their
-# cases serve through the option
-PORTED = ("logprobs", "overlap")
+# priority, deadline_s); logprobs, overlap, quantize_weights and kv_dtype
+# are ported now and their cases serve through the option
+PORTED = ("logprobs", "overlap", "quantize_weights", "kv_dtype")
 
 
 @pytest.mark.parametrize("kwargs,name", [
@@ -305,13 +317,24 @@ def test_unported_options_raise(kwargs, name):
     """Every option outside the slice raises NotImplementedError naming
     itself (and ROADMAP queue A item 6): none is quietly ignored. The
     options ported since (``PORTED``) serve a request instead: the
-    stream of the session without them, with a finite log p <= 0 per
+    stream of the session without them (the quantization knobs: of the
+    JAX session with the same knob), with a finite log p <= 0 per
     token under logprobs=True, and steps of the overlapped engine under
     overlap=True."""
-    _, tm = make_cb_pair("gpt", seed=3)
+    jm, tm = make_cb_pair("gpt", seed=3)
     kw = dict(slots=1, max_prompt_len=8, kv_block_size=16, chunk=2)
+    prompt = np.arange(3, 9)
+    if name in ("quantize_weights", "kv_dtype"):
+        out = {}
+        for pkg, m in ((jserving, jm), (tserving, tm)):
+            sess = session(m, **kw, **kwargs)
+            sess.submit(pkg.Request(0, prompt, 5))
+            out[pkg] = sess.run()[0]
+        np.testing.assert_array_equal(out[tserving], out[jserving])
+        assert sess._kv_quant == (name == "kv_dtype")
+        assert (sess._wq is None) == (name == "kv_dtype")
+        return
     if name in PORTED:
-        prompt = np.arange(3, 9)
         out = {}
         for opts in ({}, kwargs):
             sess = tserving.ContinuousBatchingSession(

@@ -94,13 +94,28 @@ def test_entry_points_without_device_raise_when_no_card(no_card):
     {"lora": object()},
     {"quantize_weights": "int8"}, {"kv_dtype": "int8"}])
 def test_unported_session_options_raise(kwargs):
+    """LoRA raises NotImplementedError naming itself. The quantization
+    knobs (with speculation or without) are ported since: each case
+    serves a request through GenerationSession and aot_generate, the
+    same tokens from both."""
     from paddle_tpu_torch.inference.serving import (GenerationSession,
                                                     aot_generate)
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_tiny
 
     model = GPTForCausalLM(gpt_tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        GenerationSession(model, batch=1, prompt_len=4, max_new_tokens=2,
-                          **kwargs)
-    with pytest.raises(NotImplementedError):
-        aot_generate(model, np.ones((1, 4), np.int64), 2, **kwargs)
+    if "lora" in kwargs:
+        with pytest.raises(NotImplementedError, match="lora"):
+            GenerationSession(model, batch=1, prompt_len=4,
+                              max_new_tokens=2, **kwargs)
+        with pytest.raises(NotImplementedError, match="lora"):
+            aot_generate(model, np.ones((1, 4), np.int64), 2, **kwargs)
+        return
+    ids = np.arange(1, 5, dtype=np.int64)[None]
+    sess = GenerationSession(model, batch=1, prompt_len=4, max_new_tokens=2,
+                             **kwargs)
+    out = sess.generate(ids)
+    assert tuple(out.shape) == (1, 6) and (out[:, :4].numpy() == ids).all()
+    assert (sess._wq is not None) == ("quantize_weights" in kwargs)
+    assert sess._kv_quant == ("kv_dtype" in kwargs)
+    np.testing.assert_array_equal(
+        aot_generate(model, ids, 2, **kwargs).numpy(), out.numpy())

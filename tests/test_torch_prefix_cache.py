@@ -12,6 +12,8 @@ on against cache off: the port's draws (Philox) are not the JAX
 package's (threefry). The speculative, AOT-cache and LoRA tests of that
 file are outside the port.
 """
+import gc
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +28,15 @@ from test_torch_continuous_batching import (FAMILIES, assert_streams,
                                             jax_paged_generate,
                                             make_cb_pair, port_solo, serve,
                                             session)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _collect_sessions():
+    """Sessions are reference cycles whose memz providers stay registered
+    until the collector frees them: free this file's before the next
+    file in the process runs."""
+    yield
+    gc.collect()
 
 
 def _pool_state(pool):

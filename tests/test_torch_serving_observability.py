@@ -14,6 +14,8 @@ skill's telemetry flow drives the reference's (tests/test_observability.py
   engine_program_flops / engine_program_bytes_accessed);
 - serve byte-identical tokens with the flag off, recording nothing.
 """
+import gc
+
 import numpy as np
 import pytest
 
@@ -28,6 +30,15 @@ from test_torch_continuous_batching import make_cb_pair, session
 
 # families that exist only where the JAX runtime feeds them
 JAX_ONLY = ("jax_", "engine_program_flops", "engine_program_bytes_accessed")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _collect_sessions():
+    """Sessions are reference cycles whose memz providers stay registered
+    until the collector frees them: free this file's before the next
+    file in the process runs."""
+    yield
+    gc.collect()
 
 
 @pytest.fixture

@@ -472,14 +472,18 @@ def test_draft_engine_ingests_externally_committed_tokens(pairs):
 def test_spec_with_an_unported_option_raises(pairs, kwargs, name):
     """Speculation beside an option the port lacks raises, naming the
     option and the combination. Beside the options ported since
-    (overlap, logprobs) it serves: the streams of the sequential
-    device-accept session, the overlapped engine staging windows, and
-    logprobs accepting on the host with a log p per token."""
+    (overlap, logprobs, kv_dtype) it serves: the streams of the
+    sequential device-accept session (with an int8 pool: of the
+    sequential session over the same pool), the overlapped engine
+    staging windows, and logprobs accepting on the host with a log p per
+    token."""
     _, tm = pairs["gpt"]
-    if name in ("overlap", "logprobs"):
+    if name in ("overlap", "logprobs", "kv_dtype"):
         prompts = rep_prompts((8, 9, 7, 10), seed=2)
         out, sessions = {}, {}
-        for opts in ({"overlap": False}, kwargs):
+        seq = dict(kwargs, overlap=False) if name == "kv_dtype" else {
+            "overlap": False}
+        for opts in (seq, kwargs):
             sess = tserving.ContinuousBatchingSession(
                 tm, speculative={"num_draft_tokens": 3},
                 **dict(SESS_KW, **opts))
@@ -490,7 +494,11 @@ def test_spec_with_an_unported_option_raises(pairs, kwargs, name):
             sessions[bool(sessions)] = sess
         assert_streams(out[True], out[False], "the sequential session")
         sess = sessions[True]
-        if name == "overlap":
+        if name == "kv_dtype":
+            assert sess._kv_quant and sess._kcs[0][0].dtype == torch.int8
+            assert sess._spec_accept == "device"
+            assert sess.stats["spec_accepted_tokens"] > 0
+        elif name == "overlap":
             assert sess._spec_accept == "device" and sess._ov.overlapped > 0
         else:
             assert sess._spec_accept == "host" and not sess._overlap
